@@ -2,23 +2,31 @@
 """Chip smoke for the PyTorch/H100 port (``spark_rapids_jni_tpu_torch``).
 
 Builds the port's hand-written CUDA kernels from the sources in this
-checkout, then on one card:
+checkout (one nvcc per source, all at once), then on one card:
 
 1. prints the card (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit);
-2. holds each kernel of the main path against its plain PyTorch version
-   at the shapes the main path gives it, and times the kernel, the plain
-   version and one library call computing the same function (CUDA
-   events, warm-up, then the median of 10 launches);
-3. drives the main path once at full size -- 1,000,000 rows x 212
-   fixed-width columns (an INT64 key in [0, 4096), a FLOAT32 value and
-   210 columns cycling the nine integer types of the reference's
-   ``row_conversion_fixed`` benchmark, validity on every third of them,
-   792 bytes a row) through ``convert_to_rows`` -> ``convert_from_rows``
-   -> ``groupby_sum_bounded(key, value, 4096)`` -- with every launch
-   counter set to 0 just before and read just after, and checks the
-   result against a numpy oracle on the host;
-4. prints one ``{"kernels": [...]}`` line and, last, the
+2. the FIXED path: holds B6, B7 and B3 against their plain PyTorch
+   versions at the shapes the path gives them, times the kernel, the
+   plain version and one library call computing the same function (CUDA
+   events, warm-up, then the median of 10 launches), and drives the path
+   once at full size -- 1,000,000 rows x 212 fixed-width columns (an
+   INT64 key in [0, 4096), a FLOAT32 value and 210 columns cycling the
+   nine integer types of the reference's ``row_conversion_fixed``
+   benchmark, validity on every third of them, 792 bytes a row) through
+   ``convert_to_rows`` -> ``convert_from_rows`` ->
+   ``groupby_sum_bounded(key, value, 4096)`` with every launch counter set
+   to 0 just before and read just after, checked against a numpy oracle;
+3. the STRING path: the same three calls on 1,000,000 rows x 155 columns
+   of the reference's ``row_conversion_mixed_strings`` axis (INT32,
+   FLOAT64, INT64, INT16 cycling, every tenth column STRING of 1-32
+   bytes; column 1 the FLOAT32 value, column 2 the INT64 key; validity on
+   every third column, string columns among them, so null strings occur),
+   about 1.3 KB a row. One run records the arguments the path hands B8,
+   B9, B10 and B5, and each is held against its plain version and timed
+   on exactly those; the counted run then must launch all seven kernels,
+   and its rows, columns, offsets and chars are checked byte for byte;
+4. prints one ``{"kernels": [...]}`` line (seven kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -38,9 +46,11 @@ import time
 import numpy as np
 
 ROWS = 1_000_000
+STR_COLS = 155
 NUM_KEYS = 4096
 SEED = 20261016
 REPS = 10
+PLAIN_REPS = 3  # the plain versions at the string path's shapes take seconds
 # float32 sums: the reference's own bound for its group-by kernel; the
 # kernel's atomics add in an order that changes from run to run
 RTOL, ATOL = 2e-6, 1e-3
@@ -71,18 +81,15 @@ def _time_ms(fn, reps: int = REPS, warm: int = 2) -> float:
     return float(np.median(times))
 
 
-def _host_ms(fn, reps: int = 3):
-    """Median host time (ms) of ``fn`` ending in a device synchronize."""
-    import torch
+def _fmt_stages(stage) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
 
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+
+def _warm_stages(run_main, reps: int = 3):
+    """Per-stage medians (host ms, each stage ending in a device
+    synchronize) over ``reps`` warm runs of ``_main_path``."""
+    stages = [run_main()[-1] for _ in range(reps)]
+    return {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +122,83 @@ def _host_table(dtypes, rows: int, seed: int):
         arrays.append(a)
         valids.append(rng.random(rows) < 0.9 if i >= 2 and (i - 2) % 3 == 0 else None)
     return arrays, valids
+
+
+def _str_schema(pdt):
+    """The reference's row_conversion_mixed_strings axis
+    (benchmarks/microbench.py:264-292): 155 columns cycling INT32,
+    FLOAT64, INT64, INT16, every tenth STRING; column 1 becomes the FLOAT32
+    value and column 2 (already INT64) the key."""
+    base = [pdt.INT32, pdt.FLOAT64, pdt.INT64, pdt.INT16]
+    dtypes = [pdt.STRING if i % 10 == 0 else base[i % 4] for i in range(STR_COLS)]
+    dtypes[1] = pdt.FLOAT32
+    return dtypes
+
+
+def _host_str_table(dtypes, rows: int, seed: int):
+    """Seeded storage arrays (STRING as (offsets int32, chars uint8), 1-32
+    random bytes a string, null strings empty) and validity masks, every
+    third column nullable."""
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
+
+    rng = np.random.default_rng(seed)
+    arrays, valids = [], []
+    for i, d in enumerate(dtypes):
+        v = rng.random(rows) < 0.9 if i % 3 == 0 else None
+        if d.id == TypeId.STRING:
+            lens = rng.integers(1, 33, rows, dtype=np.int64)
+            if v is not None:
+                lens[~v] = 0
+            offs = np.zeros(rows + 1, np.int32)
+            np.cumsum(lens, out=offs[1:])
+            a = (offs, rng.integers(0, 256, int(offs[-1]), dtype=np.uint8))
+        elif i == 1:
+            a = rng.standard_normal(rows, dtype=np.float32)
+        elif i == 2:
+            a = rng.integers(0, NUM_KEYS, rows, dtype=np.int64)
+        elif d.id == TypeId.FLOAT64:
+            a = rng.standard_normal(rows)
+        else:
+            info = np.iinfo(d.np_dtype)
+            a = rng.integers(info.min, info.max, rows, dtype=d.np_dtype, endpoint=True)
+        arrays.append(a)
+        valids.append(v)
+    return arrays, valids
+
+
+def _oracle_str_rows(layout, dtypes, arrays, valids, rows: int):
+    """JCUDF rows of the first ``rows`` rows, placed byte by byte in numpy:
+    each STRING slot is (offset from the row start, length) as u32, the
+    characters follow fixed_end column after column, rows pad to 8 bytes.
+    Returns (blob bytes, [rows + 1] row offsets)."""
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
+
+    fe = layout.fixed_end
+    fixed = np.zeros((rows, fe), np.uint8)
+    var_off = np.full(rows, fe, np.int64)
+    pieces = [[] for _ in range(rows)]
+    for i, (d, a) in enumerate(zip(dtypes, arrays)):
+        s = layout.col_starts[i]
+        if d.id == TypeId.STRING:
+            offs, chars = a
+            lens = np.diff(offs[: rows + 1]).astype(np.int64)
+            fixed[:, s : s + 4] = var_off.astype("<u4").view(np.uint8).reshape(rows, 4)
+            fixed[:, s + 4 : s + 8] = lens.astype("<u4").view(np.uint8).reshape(rows, 4)
+            var_off += lens
+            for r in range(rows):
+                pieces[r].append(chars[offs[r] : offs[r + 1]].tobytes())
+        else:
+            by = np.ascontiguousarray(a[:rows]).view(np.uint8).reshape(rows, -1)
+            fixed[:, s : s + by.shape[1]] = by
+        v = np.ones(rows, bool) if valids[i] is None else valids[i][:rows]
+        fixed[:, layout.validity_offset + i // 8] |= v.astype(np.uint8) << (i % 8)
+    out, offsets = [], [0]
+    for r in range(rows):
+        row = fixed[r].tobytes() + b"".join(pieces[r])
+        row += b"\0" * ((-len(row)) % 8)
+        out.append(row)
+        offsets.append(offsets[-1] + len(row))
+    return np.frombuffer(b"".join(out), np.uint8), np.array(offsets, np.int64)
 
 
 def _oracle_rows(layout, arrays, valids, rows: int) -> np.ndarray:
@@ -276,7 +360,7 @@ def _profile_phase(run_path, top: int = 8):
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(spans)}
 
 
-def _main_path(table, dtypes):
+def _main_path(table, dtypes, key: int, value: int):
     """convert_to_rows -> convert_from_rows -> groupby_sum_bounded, once."""
     import torch
     from spark_rapids_jni_tpu_torch.ops import aggregate, row_conversion as rc
@@ -293,7 +377,8 @@ def _main_path(table, dtypes):
     if len(decoded) != 1:
         raise AssertionError(f"expected one row batch, got {len(decoded)}")
     dec = decoded[0]
-    sums, counts = aggregate.groupby_sum_bounded(dec.columns[0].data, dec.columns[1].data, NUM_KEYS)
+    sums, counts = aggregate.groupby_sum_bounded(dec.columns[key].data, dec.columns[value].data,
+                                                 NUM_KEYS)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     stage["encode_ms"] = (t1 - t0) * 1e3
@@ -301,6 +386,17 @@ def _main_path(table, dtypes):
     stage["groupby_ms"] = (t3 - t2) * 1e3
     stage["end_to_end_ms"] = (t3 - t0) * 1e3
     return rows, dec, sums, counts, stage
+
+
+def _check_groupby(keys, vals, sums, counts) -> float:
+    want_c = np.bincount(keys, minlength=NUM_KEYS)
+    want_s = np.bincount(keys, weights=vals.astype(np.float64), minlength=NUM_KEYS)
+    got_s, got_c = sums.cpu().numpy(), counts.cpu().numpy()
+    if not np.array_equal(got_c, want_c):
+        raise AssertionError("group-by counts differ from np.bincount")
+    if not np.allclose(got_s, want_s, rtol=RTOL, atol=ATOL):
+        raise AssertionError("group-by sums outside rtol 2e-6 / atol 1e-3 of the float64 oracle")
+    return float(np.max(np.abs(got_s - want_s)))
 
 
 def _check_main_path(layout, arrays, valids, rows, dec, sums, counts):
@@ -321,15 +417,191 @@ def _check_main_path(layout, arrays, valids, rows, dec, sums, counts):
         vm = col.valid_mask().cpu().numpy()
         if not np.array_equal(vm, np.ones(ROWS, bool) if v is None else v):
             raise AssertionError(f"decoded validity of column {i} differs")
-    keys, vals = arrays[0], arrays[1]
-    want_c = np.bincount(keys, minlength=NUM_KEYS)
-    want_s = np.bincount(keys, weights=vals.astype(np.float64), minlength=NUM_KEYS)
-    got_s, got_c = sums.cpu().numpy(), counts.cpu().numpy()
-    if not np.array_equal(got_c, want_c):
-        raise AssertionError("group-by counts differ from np.bincount")
-    if not np.allclose(got_s, want_s, rtol=RTOL, atol=ATOL):
-        raise AssertionError("group-by sums outside rtol 2e-6 / atol 1e-3 of the float64 oracle")
-    return float(np.max(np.abs(got_s - want_s)))
+    return _check_groupby(arrays[0], arrays[1], sums, counts)
+
+
+def _capture_string_kernels(run):
+    """Run ``run`` once with the wrappers of B8, B9, B10 and B5 recording
+    the arguments the string path hands them, and restore the wrappers.
+    Returns {kernel: [(wrapper, args), ...]}."""
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+
+    seen = {"rotl_take": [], "var_accumulate": [], "asm_epilogue": [], "ragged_compact": []}
+    sites = [(rb, "rotl_take", "rotl_take"), (rb, "rotl_take32", "rotl_take"),
+             (rc, "var_accumulate", "var_accumulate"), (rb, "asm_epilogue", "asm_epilogue"),
+             (hk, "ragged_compact", "ragged_compact")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+
+    def recorder(fn, key):
+        def call(*args, **kwargs):  # kwargs: only B5's pool32, unused on the card
+            seen[key].append((fn, args))
+            return fn(*args, **kwargs)
+        # a wrapper counts through its module-level name, which is this
+        # recorder while it is installed: the capture run's launches land
+        # here and leave the real counts alone
+        call.launches = 0
+        return call
+
+    try:
+        for mod, attr, key in sites:
+            setattr(mod, attr, recorder(getattr(mod, attr), key))
+        run()
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    return seen
+
+
+def _string_kernel_phase(seen, rate: float):
+    """Each string kernel against its plain version on the arguments the
+    string path gave it, and its times summed over the path's launches
+    (CUDA events around all of a shape's launches; ``parts`` splits them
+    by shape)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+
+    def u32(x):
+        return x if x.dtype == torch.int32 else rb._as_u32(x)
+
+    def u8(x):
+        return x if x.dtype == torch.uint8 else rb._as_u8(x)
+
+    def measure(calls, kernel, plain, library, nbytes):
+        for args in calls:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kernel.__name__} disagrees with its plain version")
+        return dict(
+            launches=len(calls),
+            ms=_time_ms(lambda: [kernel(*a) for a in calls]),
+            plain_ms=_time_ms(lambda: [plain(*a) for a in calls], reps=PLAIN_REPS, warm=1),
+            library_ms=None if library is None else _time_ms(
+                lambda: [library(*a) for a in calls], reps=PLAIN_REPS, warm=1),
+            bound_ms=sum(nbytes(*a) for a in calls) / rate * 1e3,
+        )
+
+    def combine(parts, **extra):
+        out = {k: sum(p[k] for p in parts.values()) for k in ("ms", "plain_ms", "bound_ms")}
+        libs = [p["library_ms"] for p in parts.values()]
+        out["library_ms"] = None if None in libs else sum(libs)
+        return dict(out, max_abs_err=0.0, bound_by="bytes", parts=parts, **extra)
+
+    results = {}
+
+    # B8: 16 string extractions (encode) and one fixed-section gather (decode)
+    groups = {}
+    for fn, (x, sh, out_w) in seen["rotl_take"]:
+        groups.setdefault((tuple(u8(x).shape), out_w), []).append((fn, x, sh, out_w))
+    parts = {}
+    for (shape, out_w), calls in groups.items():
+        fn = calls[0][0]
+        parts[f"uint8 [{shape[0]}, {shape[1]}] -> [{shape[0]}, {out_w}]"] = measure(
+            [c[1:] for c in calls], fn,
+            lambda x, sh, w: rb.rotl_take_plain(u32(x), sh, w),
+            lambda x, sh, w: torch.gather(
+                u8(x), 1, (torch.arange(w, device=x.device)[None, :] + sh[:, None]) % u8(x).shape[1]),
+            # the window's bytes, the shift, the output
+            lambda x, sh, w: x.shape[0] * (2 * w + 4),
+        )
+    results["rotl_take"] = combine(parts, library="torch.gather with its index built in the "
+                                                  "timed region")
+
+    # B9: the variable sections, once
+    parts = {}
+    for fn, (mats, shifts, maxvar) in seen["var_accumulate"]:
+        n = mats[0].shape[0]
+        parts[f"{len(mats)} x uint8 [{n}, <= {max(m.shape[1] for m in mats)}] -> "
+              f"[{n}, {maxvar}]"] = measure(
+            [(mats, shifts, maxvar)], fn, rb.var_accumulate_plain, None,
+            lambda m, s, w: sum(x.numel() for x in m) + 4 * n * len(m) + n * w)
+    results["var_accumulate"] = combine(parts, library="none: no one call ORs K byte-shifted "
+                                                      "matrices into one")
+
+    # B10: the row-blob tiles, once
+    parts = {}
+    for fn, args in seen["asm_epilogue"]:
+        t, g = args[0].shape[0], args[-1]
+        parts[f"3 x int32 [{t}, {g // 4}] -> [{t}, {g // 4}]"] = measure(
+            [args], fn, rb.asm_epilogue_plain, None,
+            # G source bytes a tile (alen from the window, the rest from the
+            # next row's head), three scalars, G bytes out
+            lambda *a: a[0].shape[0] * (2 * a[-1] + 12))
+    results["asm_epilogue"] = combine(parts, library="none: the zero-filled shift and the select "
+                                                    "between two sources need a concatenated "
+                                                    "copy before any one gather")
+
+    # B5: one compaction per string column, over the one row blob
+    calls = [args for _, args in seen["ragged_compact"]]
+    pool = calls[0][0]
+    pool32 = rb.build_pool32(pool)  # the plain version's word view, once per blob
+
+    def library(pool, base, offs, total):
+        lens = offs[1:] - offs[:-1]
+        return pool[torch.repeat_interleave(base - offs[:-1], lens, output_size=total)
+                    + torch.arange(total, device=pool.device)]
+
+    parts = {f"{len(calls)} x uint8 blob [{pool.shape[0]}] -> [{calls[0][3]}]": measure(
+        calls, seen["ragged_compact"][0][0],
+        lambda p, b, o, t: hk.ragged_compact_plain(p, b, o, t, pool32=pool32),
+        library,
+        lambda p, b, o, t: 2 * t + 8 * b.shape[0] + 8 * o.shape[0])}
+    results["ragged_compact"] = combine(parts, library="pool[repeat_interleave(base - offs[:-1], "
+                                                      "lens) + arange(total)], index built in "
+                                                      "the timed region")
+    return results
+
+
+def _check_string_path(layout, dtypes, arrays, valids, rows, dec, sums, counts):
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
+
+    if len(rows) != 1 or len(rows[0]) != ROWS:
+        raise AssertionError("row batch count or length is wrong")
+    want_blob, want_offs = _oracle_str_rows(layout, dtypes, arrays, valids, ORACLE_ROWS)
+    offs = rows[0].offsets.cpu().numpy()
+    if not np.array_equal(offs[: ORACLE_ROWS + 1], want_offs):
+        raise AssertionError("row offsets differ from the numpy encoder")
+    lens = sum(np.diff(a[0]).astype(np.int64) for d, a in zip(dtypes, arrays) if d.id == TypeId.STRING)
+    sizes = (layout.fixed_end + lens + 7) // 8 * 8
+    if not np.array_equal(offs, np.concatenate([[0], np.cumsum(sizes)])):
+        raise AssertionError("row offsets are not the cumsum of the 8-aligned row sizes")
+    blob = rows[0].child.data[: want_blob.shape[0]].cpu().numpy().view(np.uint8)
+    if not np.array_equal(blob, want_blob):
+        bad = int(np.flatnonzero(blob != want_blob)[0])
+        raise AssertionError(f"row blob differs from the numpy encoder at byte {bad}")
+    for i, (d, col, a, v) in enumerate(zip(dtypes, dec.columns, arrays, valids)):
+        if d.id == TypeId.STRING:
+            if not (np.array_equal(col.offsets.cpu().numpy(), a[0])
+                    and np.array_equal(col.chars.cpu().numpy(), a[1])):
+                raise AssertionError(f"decoded string column {i} differs from the input")
+        else:
+            got, want = col.to_numpy(), np.ascontiguousarray(a)
+            if got.itemsize != want.itemsize or not np.array_equal(got.view(np.uint8),
+                                                                   want.view(np.uint8)):
+                raise AssertionError(f"decoded column {i} differs from the input bits")
+        vm = col.valid_mask().cpu().numpy()
+        if not np.array_equal(vm, np.ones(ROWS, bool) if v is None else v):
+            raise AssertionError(f"decoded validity of column {i} differs")
+    return _check_groupby(arrays[2], arrays[1], sums, counts)
+
+
+def _run_counted(wrappers, run):
+    """Every launch counter to 0, ``run`` once, the counts back."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = run()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def _print_kernels(kernels):
+    for k, r in kernels.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}), max abs err {r['max_abs_err']}", flush=True)
 
 
 def main() -> int:
@@ -342,6 +614,7 @@ def main() -> int:
     try:
         from spark_rapids_jni_tpu_torch.columnar import Table
         from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+        from spark_rapids_jni_tpu_torch.interop import carry_table
         from spark_rapids_jni_tpu_torch.ops import aggregate
         from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
         from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
@@ -352,66 +625,126 @@ def main() -> int:
 
     name, smi_line = _device_phase()
     _build_phase()
+    rate = _mem_rate(name)
+    wrappers = {"expand_u32_planes": rb.expand_u32_planes, "pack_u8_planes": rb.pack_u8_planes,
+                "groupby_sum_outer": hk.groupby_sum_outer, "rotl_take": rb.rotl_take,
+                "var_accumulate": rb.var_accumulate, "asm_epilogue": rb.asm_epilogue,
+                "ragged_compact": hk.ragged_compact}
+    paths = {}
 
+    # -- the fixed path ------------------------------------------------------
     dtypes = _schema(pdt)
     layout = rc.compute_row_layout(dtypes)
     t0 = time.perf_counter()
     arrays, valids = _host_table(dtypes, ROWS, SEED)
     table = Table.from_numpy(arrays, dtypes, valids, device="cuda")
     torch.cuda.synchronize()
-    print(f"input: {ROWS} rows x {len(dtypes)} columns, {layout.row_size_fixed} B a row, "
+    print(f"fixed input: {ROWS} rows x {len(dtypes)} columns, {layout.row_size_fixed} B a row, "
           f"made and uploaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rate = _mem_rate(name)
     kernels = _kernel_phase(table, layout, rate)
-    for k, r in kernels.items():
-        print(f"kernel {k} [{r['shape']}]: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}), "
-              f"max abs err {r['max_abs_err']}", flush=True)
-
-    wrappers = {"expand_u32_planes": rb.expand_u32_planes, "pack_u8_planes": rb.pack_u8_planes,
-                "groupby_sum_outer": hk.groupby_sum_outer}
-    for w in wrappers.values():
-        w.launches = 0
-    rows, dec, sums, counts, stage = _main_path(table, dtypes)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"main path launches: {launches}", flush=True)
-    for k, c in launches.items():
-        if c < 1:
-            raise AssertionError(f"the main path never launched {k}")
+    _print_kernels(kernels)
+    (rows, dec, sums, counts, stage), launches = _run_counted(
+        wrappers, lambda: _main_path(table, dtypes, key=0, value=1))
+    print(f"fixed path launches: {launches}", flush=True)
+    for k in ("expand_u32_planes", "pack_u8_planes", "groupby_sum_outer"):
+        if launches[k] < 1:
+            raise AssertionError(f"the fixed path never launched {k}")
     sum_err = _check_main_path(layout, arrays, valids, rows, dec, sums, counts)
-    print(f"main path checked against the numpy oracle: rows bit-identical on the first "
+    print(f"fixed path checked against the numpy oracle: rows bit-identical on the first "
           f"{ORACLE_ROWS} rows, {len(dtypes)} decoded columns bit-identical, counts exact, "
           f"sums max abs err {sum_err:.3g} vs float64", flush=True)
     del rows, dec
 
-    def run_path():
+    def run_fixed():
         r = rc.convert_to_rows(table)
         d = rc.convert_from_rows(r[0], dtypes)
         aggregate.groupby_sum_bounded(d.columns[0].data, d.columns[1].data, NUM_KEYS)
 
-    warm_ms = _host_ms(run_path)
-    print(f"main path (first run, host clock): " + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
-          + f"; warm end-to-end median of 3: {warm_ms:.2f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile = _profile_phase(run_path)
+    torch.cuda.reset_peak_memory_stats()
+    warm = _warm_stages(lambda: _main_path(table, dtypes, key=0, value=1))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("fixed path (host clock, ms): first run " + _fmt_stages(stage) + "; warm median of 3 "
+          + _fmt_stages(warm) + f"; peak device memory {peak:.2f} GiB", flush=True)
+    profile = _profile_phase(run_fixed)
+    paths["fixed"] = {**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], "rows": ROWS,
+                      "columns": len(dtypes), "row_bytes": layout.row_size_fixed,
+                      "peak_gib": peak, "launches": launches, "profile": profile}
+    del table, arrays, valids
+    torch.cuda.empty_cache()
 
-    sources = {"expand_u32_planes": "spark_rapids_jni_tpu_torch/csrc/planes.cu",
-               "pack_u8_planes": "spark_rapids_jni_tpu_torch/csrc/planes.cu",
-               "groupby_sum_outer": "spark_rapids_jni_tpu_torch/csrc/groupby.cu"}
+    # -- the string path -----------------------------------------------------
+    sdtypes = _str_schema(pdt)
+    slayout = rc.compute_row_layout(sdtypes)
+    t0 = time.perf_counter()
+    sarrays, svalids = _host_str_table(sdtypes, ROWS, SEED + 1)
+    stable = carry_table(sarrays, sdtypes, svalids, device="cuda")
+    torch.cuda.synchronize()
+    print(f"string input: {ROWS} rows x {len(sdtypes)} columns ({len(slayout.variable_cols)} "
+          f"STRING), fixed_end {slayout.fixed_end}, made and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run_strings():
+        r = rc.convert_to_rows(stable)
+        d = rc.convert_from_rows(r[0], sdtypes)
+        return aggregate.groupby_sum_bounded(d.columns[2].data, d.columns[1].data, NUM_KEYS)
+
+    seen = _capture_string_kernels(run_strings)
+    print("string path hands the kernels: " + ", ".join(
+        f"{k} x{len(v)}" for k, v in seen.items()), flush=True)
+    skernels = _string_kernel_phase(seen, rate)
+    del seen
+    torch.cuda.empty_cache()
+    _print_kernels(skernels)
+
+    (rows, dec, sums, counts, sstage), slaunches = _run_counted(
+        wrappers, lambda: _main_path(stable, sdtypes, key=2, value=1))
+    print(f"string path launches: {slaunches}", flush=True)
+    for k, c in slaunches.items():
+        if c < 1:
+            raise AssertionError(f"the string path never launched {k}")
+    sum_err = _check_string_path(slayout, sdtypes, sarrays, svalids, rows, dec, sums, counts)
+    total = int(rows[0].offsets[-1])
+    print(f"string path checked against the numpy oracle: rows and offsets bit-identical on the "
+          f"first {ORACLE_ROWS} rows, all {ROWS + 1} row offsets exact, {len(sdtypes)} decoded "
+          f"columns (string offsets and chars) bit-identical, counts exact, sums max abs err "
+          f"{sum_err:.3g} vs float64; blob {total} B", flush=True)
+    del rows, dec
+    torch.cuda.reset_peak_memory_stats()
+    swarm = _warm_stages(lambda: _main_path(stable, sdtypes, key=2, value=1))
+    speak = torch.cuda.max_memory_allocated() / 2**30
+    print("string path (host clock, ms): first run " + _fmt_stages(sstage) + "; warm median of 3 "
+          + _fmt_stages(swarm) + f"; peak device memory {speak:.2f} GiB", flush=True)
+    sprofile = _profile_phase(run_strings, top=14)
+    paths["strings"] = {**sstage, "warm": swarm, "warm_end_to_end_ms": swarm["end_to_end_ms"],
+                        "rows": ROWS,
+                        "columns": len(sdtypes), "fixed_end": slayout.fixed_end,
+                        "blob_bytes": total, "peak_gib": speak, "launches": slaunches,
+                        "profile": sprofile}
+
+    csrc = "spark_rapids_jni_tpu_torch/csrc/"
+    sources = {"expand_u32_planes": csrc + "planes.cu", "pack_u8_planes": csrc + "planes.cu",
+               "groupby_sum_outer": csrc + "groupby.cu", "rotl_take": csrc + "strings.cu",
+               "var_accumulate": csrc + "strings.cu", "asm_epilogue": csrc + "strings.cu",
+               "ragged_compact": csrc + "strings.cu"}
     replaces = {"expand_u32_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:185",
                 "pack_u8_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
-                "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416"}
+                "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416",
+                "rotl_take": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324",
+                "var_accumulate": "spark_rapids_jni_tpu/ops/ragged_bytes.py:405",
+                "asm_epilogue": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
+                "ragged_compact": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927"}
+    # launches: the count on the path whose shapes the times are from
+    # (B3/B6/B7 the fixed path, the string kernels the string path)
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for k, r in kernels.items()
-    ], "main_path": {**stage, "warm_end_to_end_ms": warm_ms, "rows": ROWS,
-                     "columns": len(dtypes), "row_bytes": layout.row_size_fixed,
-                     "profile": profile},
-        "card": smi_line}
+         "launches": (launches if k in kernels else slaunches)[k],
+         "launches_by_path": {"fixed": launches[k], "strings": slaunches[k]},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"], **({"parts": r["parts"]} if "parts" in r else {})}
+        for k, r in {**kernels, **skernels}.items()
+    ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}), flush=True)

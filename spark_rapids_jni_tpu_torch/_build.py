@@ -43,6 +43,15 @@ SOURCES: Dict[str, tuple] = {
         "groupby.cu",
         {"groupby_sum_outer_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
     ),
+    "strings": (
+        "strings.cu",
+        {
+            "rotl_take_launch": [_P, _P, _P, _I, _I, _I, _P],
+            "var_accumulate_launch": [_P, _I, _P, _I, _I, _P],
+            "asm_epilogue_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+            "ragged_compact_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P],
+        },
+    ),
 }
 
 NVCC_FLAGS = [

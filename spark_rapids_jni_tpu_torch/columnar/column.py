@@ -1,8 +1,9 @@
 """Device columns over torch tensors: the port of the JAX package's
-``columnar/column.py``, fixed-width part.
+``columnar/column.py`` (fixed width, STRING and LIST<INT8>).
 
 - fixed width:  ``data``     [N]        (DECIMAL128: [N, 4] int32 limbs, LE)
 - validity:     ``validity`` [N] bool   (True == valid; None == all valid)
+- STRING:       ``offsets``  [N+1] int32, ``chars`` [nbytes] uint8
 - LIST<INT8>:   ``offsets``  [N+1] int32, ``child`` Column (JCUDF row batches)
 
 Storage types follow ``DType.torch_dtype``: unsigned widths above 8 bits
@@ -15,7 +16,7 @@ Entry points that build device data take ``device=None``, which means
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,8 +44,12 @@ def _host_to_tensor(host: np.ndarray, t_dtype: torch.dtype, device: torch.device
     return torch.from_numpy(view.copy()).to(device)
 
 
+_OFFSET_TYPES = (TypeId.STRING, TypeId.LIST)
+
+
 class Column:
-    """A device column (fixed-width data or a LIST<INT8> row batch)."""
+    """A device column (fixed-width data, a STRING column or a LIST<INT8>
+    row batch)."""
 
     def __init__(
         self,
@@ -52,22 +57,24 @@ class Column:
         data: Optional[torch.Tensor] = None,
         validity: Optional[torch.Tensor] = None,
         offsets: Optional[torch.Tensor] = None,
+        chars: Optional[torch.Tensor] = None,
         child: Optional["Column"] = None,
     ):
-        if dtype.id == TypeId.STRING or dtype.id == TypeId.STRUCT:
+        if dtype.id == TypeId.STRUCT:
             raise NotImplementedError(
                 f"{dtype!r} columns are not ported yet "
-                "(ROADMAP.md, Open items, section 1, item 4: row transcode, strings)"
+                "(ROADMAP.md, Open items, section 1, item 1: STRUCT handles)"
             )
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.offsets = offsets
+        self.chars = chars
         self.child = child
 
     # -- shape --------------------------------------------------------------
     def __len__(self) -> int:
-        if self.dtype.id == TypeId.LIST:
+        if self.dtype.id in _OFFSET_TYPES:
             return int(self.offsets.shape[0]) - 1
         return int(self.data.shape[0])
 
@@ -77,7 +84,19 @@ class Column:
 
     @property
     def device(self) -> torch.device:
-        return (self.offsets if self.dtype.id == TypeId.LIST else self.data).device
+        return (self.offsets if self.dtype.id in _OFFSET_TYPES else self.data).device
+
+    @property
+    def max_char_len(self) -> int:
+        """Longest string in bytes (STRING columns): the padded width the
+        string encode sizes its matrices by. Cached on the host: at most
+        one device read per column, none for columns built from host
+        values."""
+        ml = self.__dict__.get("_max_char_len")
+        if ml is None:
+            ml = 0 if len(self) == 0 else int((self.offsets[1:] - self.offsets[:-1]).max())
+            self._max_char_len = ml
+        return ml
 
     @property
     def null_count(self) -> int:
@@ -120,6 +139,51 @@ class Column:
         return cls(dtype, data=_host_to_tensor(host, dtype.torch_dtype, dev), validity=v)
 
     @classmethod
+    def from_pylist(cls, values: Sequence[Any], dtype: DType, device=None) -> "Column":
+        """Host python values -> device column; None is null. STRING takes
+        str (UTF-8 encoded) or bytes; fixed-width types take what numpy
+        converts to their storage (FLOAT64 as a float). ``device=None``
+        means the card."""
+        dev = resolve_device(device)
+        validity = None
+        if any(v is None for v in values):
+            validity = np.array([v is not None for v in values], dtype=bool)
+        if dtype.id == TypeId.STRING:
+            encoded = [b"" if v is None else (v.encode() if isinstance(v, str) else bytes(v))
+                       for v in values]
+            lens = np.array([len(e) for e in encoded], dtype=np.int32)
+            offsets = np.zeros(len(values) + 1, dtype=np.int32)
+            np.cumsum(lens, out=offsets[1:])
+            chars = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+            return cls.strings_from_parts(offsets, chars, validity, device=dev)
+        if not dtype.is_fixed_width or dtype.id == TypeId.DECIMAL128:
+            raise ValueError(f"from_pylist takes STRING or a one-word fixed-width type, got {dtype!r}")
+        host = np.array([0 if v is None else v for v in values])
+        return cls.from_numpy(host, dtype, validity, device=dev)
+
+    @classmethod
+    def strings_from_parts(cls, offsets, chars, validity=None, device=None) -> "Column":
+        """STRING column from (offsets [N+1] int32, chars [nbytes] uint8),
+        numpy arrays or tensors; numpy parts go to ``device`` (None means
+        the card), tensors stay where they are."""
+        from . import dtype as dt
+
+        def _to(x, np_dtype, t_dtype):
+            if isinstance(x, torch.Tensor):
+                return x.to(t_dtype)
+            return _host_to_tensor(np.asarray(x).astype(np_dtype, copy=False), t_dtype,
+                                   resolve_device(device))
+
+        if validity is not None and not isinstance(validity, torch.Tensor):
+            validity = torch.from_numpy(np.asarray(validity).astype(bool)).to(resolve_device(device))
+        col = cls(dt.STRING, validity=validity, offsets=_to(offsets, np.int32, torch.int32),
+                  chars=_to(chars, np.uint8, torch.uint8))
+        if not isinstance(offsets, torch.Tensor):
+            offs = np.asarray(offsets, dtype=np.int64)
+            col._max_char_len = int(np.diff(offs).max()) if offs.shape[0] > 1 else 0
+        return col
+
+    @classmethod
     def list_from_parts(cls, offsets: torch.Tensor, child: "Column", validity=None) -> "Column":
         from . import dtype as dt
 
@@ -129,9 +193,26 @@ class Column:
     def to_numpy(self) -> np.ndarray:
         """Data as a host array in the JAX package's storage dtype (the
         bits are those on the device: FLOAT64 comes back as uint64 bits)."""
-        if self.dtype.id == TypeId.LIST:
-            raise ValueError("LIST columns have no flat data; read offsets and child")
+        if self.dtype.id in _OFFSET_TYPES:
+            raise ValueError(f"{self.dtype!r} columns have no flat data; read offsets and chars/child")
         return self.data.cpu().numpy().view(self.dtype.np_dtype)
+
+    def to_pylist(self) -> list:
+        """Host python values, None for nulls: STRING as str (invalid
+        UTF-8 replaced), FLOAT64 as float, other one-word types as their
+        numpy scalar's value."""
+        valid = self.valid_mask().cpu().numpy()
+        if self.dtype.id == TypeId.STRING:
+            offs = self.offsets.cpu().numpy()
+            chars = self.chars.cpu().numpy().tobytes()
+            return [chars[offs[i]:offs[i + 1]].decode("utf-8", errors="replace") if valid[i] else None
+                    for i in range(len(self))]
+        if not self.dtype.is_fixed_width or self.dtype.id == TypeId.DECIMAL128:
+            raise ValueError(f"to_pylist takes STRING or a one-word fixed-width type, got {self.dtype!r}")
+        host = self.to_numpy()
+        if self.dtype.id == TypeId.FLOAT64:
+            host = host.view(np.float64)
+        return [host[i].item() if valid[i] else None for i in range(len(self))]
 
     def __repr__(self):
         return f"Column({self.dtype!r}, rows={len(self)}, nulls={self.null_count})"

@@ -1,22 +1,35 @@
-"""Bounded-domain GROUP BY SUM + COUNT (B3): the port of the JAX
-package's ``pallas_groupby_sum_outer`` (``ops/pallas_kernels.py``).
+"""Ports of the JAX package's ``ops/pallas_kernels.py`` kernels.
 
-``groupby_sum_outer`` launches the hand-written kernel in
-``csrc/groupby.cu`` on a CUDA tensor and runs ``groupby_sum_outer_plain``
-on a CPU tensor. The reference's one-hot bf16-limb matrix product existed
-only because the TPU has no scatter; the kernel computes the same
-function with shared-memory atomics instead.
+- ``groupby_sum_outer`` (B3), bounded-domain GROUP BY SUM + COUNT, the
+  counterpart of ``pallas_groupby_sum_outer``: the hand-written kernel in
+  ``csrc/groupby.cu`` on a CUDA tensor, ``groupby_sum_outer_plain`` on a
+  CPU tensor. The reference's one-hot bf16-limb matrix product existed
+  only because the TPU has no scatter; the kernel computes the same
+  function with shared-memory atomics instead.
+- ``ragged_compact`` (B5), the dense ragged gather of the string decode,
+  the counterpart of ``pallas_ragged_compact``: the kernel in
+  ``csrc/strings.cu`` on a CUDA tensor, ``ragged_compact_plain`` (the
+  reference's scatter/cummax formulation, ``ragged_bytes.ragged_compact``)
+  on a CPU tensor. A CUDA kernel has no VMEM windows to probe, so the
+  reference's window caps and its keep-XLA ``None`` do not apply.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
+from .ragged_bytes import ragged_compact as ragged_compact_plain
 
-__all__ = ["MAX_KEYS", "groupby_sum_outer", "groupby_sum_outer_plain"]
+__all__ = [
+    "MAX_KEYS",
+    "groupby_sum_outer",
+    "groupby_sum_outer_plain",
+    "ragged_compact",
+    "ragged_compact_plain",
+]
 
 MAX_KEYS = 65536
 
@@ -82,3 +95,47 @@ def groupby_sum_outer(
 
 
 groupby_sum_outer.launches = 0
+
+
+# blocks per SM for the ragged compaction's grid-stride word loop
+_COMPACT_BLOCKS_PER_SM = 16
+
+
+def ragged_compact(
+    pool: torch.Tensor,
+    base: torch.Tensor,
+    offs: torch.Tensor,
+    total: int,
+    pool32: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B5: out[offs[r] + j] = pool[base[r] + j] for j < offs[r+1] -
+    offs[r]; uint8 [total]. ``offs`` [N+1] dense from 0, ``base`` [N],
+    as ``ragged_bytes.ragged_compact`` documents. Kernel on CUDA tensors
+    (it reads the byte pool itself and ignores ``pool32``), plain version
+    on CPU tensors (``pool32``: its word view, shared across columns)."""
+    if pool.dim() != 1 or pool.dtype != torch.uint8:
+        raise ValueError(f"ragged_compact expects a 1-D uint8 pool, got {tuple(pool.shape)} {pool.dtype}")
+    n = base.shape[0]
+    if offs.shape != (n + 1,) or base.device != pool.device or offs.device != pool.device:
+        raise ValueError("ragged_compact needs base [N] and offs [N+1] on the pool's device")
+    if pool.device.type == "cpu":
+        return ragged_compact_plain(pool, base, offs, total, pool32=pool32)
+    total = int(total)
+    nwords = (total + 3) // 4
+    out = torch.empty((nwords,), dtype=torch.int32, device=pool.device)
+    if n and total:
+        pool = pool.contiguous()
+        base = base.to(torch.int64).contiguous()
+        offs = offs.to(torch.int64).contiguous()
+        sms = torch.cuda.get_device_properties(pool.device).multi_processor_count
+        rc = _build.library("strings").ragged_compact_launch(
+            pool.data_ptr(), pool.shape[0], base.data_ptr(), offs.data_ptr(), n, total,
+            out.data_ptr(), nwords, sms * _COMPACT_BLOCKS_PER_SM,
+            torch.cuda.current_stream(pool.device).cuda_stream,
+        )
+        _build.check(rc, "ragged_compact")
+        ragged_compact.launches += 1
+    return out.view(torch.uint8)[:total]
+
+
+ragged_compact.launches = 0

@@ -1,33 +1,44 @@
-"""JCUDF row <-> columnar transcode, fixed-width part (port of the JAX
-package's ``ops/row_conversion.py``).
+"""JCUDF row <-> columnar transcode (port of the JAX package's
+``ops/row_conversion.py``).
 
 Row format (reference RowConversion.java:44-117, row_conversion.cu):
 
 - each row is laid out like a C struct: every fixed-width column aligned
-  to its own size (STRING slots are ``{offset:u32, len:u32}``, aligned 4),
+  to its own size (STRING slots are ``{offset:u32, len:u32}``, aligned 4,
+  the offset relative to the row start),
 - validity bytes follow the last column with no extra padding; bit
   ``col % 8`` of byte ``col / 8`` is set when the value is VALID,
+- string characters follow the validity bytes, column after column,
 - every row is padded to a multiple of 8 bytes (JCUDF_ROW_ALIGNMENT),
 - output is one or more LIST<INT8> columns, each holding at most 2 GiB.
 
-The fixed-width path follows the reference's kernel branch. Encode
+The paths follow the reference's kernel branch. Fixed-width encode
 composes the row as u32 word planes ([P, N], one plane per 4 bytes of the
 row) and turns them into byte planes with B6 (``expand_u32_planes``), then
 transposes to rows. Decode transposes the [N, W] rows into byte planes and
 packs them into word planes with B7 (``pack_u8_planes``); every column is
-then a row take of the plane stack plus a constant shift. On CUDA tensors
-B6/B7 are the hand-written kernels, on CPU tensors their plain versions.
-Tables of fewer than 8 rows take the plain versions on every device, as
-the reference keeps them off its kernels.
+then a row take of the plane stack plus a constant shift.
 
-Schemas with STRING columns raise NotImplementedError: the string
-transcode is the next slice of the port.
+With STRING columns, encode builds the fixed sections as u32 lanes, pulls
+each string column into a padded [N, L] matrix (overlapping-tile gather +
+B8 ``rotl_take``), ORs the matrices into the rows' variable sections with
+B9 (``var_accumulate``), and compacts the padded rows into the ragged
+blob with ``assemble_rows`` (B10 ``asm_epilogue``, then B6). Decode
+gathers each row's fixed section (``padded_extract``, B8), decodes it
+through B7, and compacts each string column's characters out of the blob
+with B5 (``hopper_kernels.ragged_compact``). Tables too large for the
+padded form take the reference's scatter path instead (a size gate).
+
+On CUDA tensors the kernels are the hand-written ones, on CPU tensors
+their plain versions. Tables of fewer than 8 rows take the plain plane
+relayouts and the plain fixed-section gather on every device, as the
+reference keeps them off its kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +46,16 @@ import torch
 from ..columnar import Column, Table
 from ..columnar import dtype as dt
 from ..columnar.dtype import DType, TypeId
-from . import uword
+from . import hopper_kernels, uword
 from .ragged_bytes import (
+    assemble_rows,
+    build_pool32,
     expand_u32_planes,
     expand_u32_planes_plain,
     pack_u8_planes,
     pack_u8_planes_plain,
+    padded_extract,
+    var_accumulate,
 )
 
 __all__ = [
@@ -59,11 +74,9 @@ MAX_BATCH_BYTES = (1 << 31) - 1  # cudf size_type limit per LIST<INT8> batch
 MAX_ROW_SIZE_OPTIMIZED = 1024  # RowConversion.java:115-116
 MAX_COLS_OPTIMIZED = 100  # RowConversion.java:27-34
 _KERNEL_MIN_ROWS = 8  # the reference's gate for its plane kernels
-
-_STRINGS_NOT_PORTED = (
-    "STRING columns in JCUDF rows are not ported yet "
-    "(ROADMAP.md, Open items, section 1, item 4: row transcode, strings)"
-)
+# the padded string encode holds N * (fixed_end + maxvar) bytes of padded
+# rows; past this a table takes the scatter path, O(actual bytes)
+_PADDED_ROWS_BYTE_BUDGET = 4 << 30
 
 
 def _round_up(v: int, align: int) -> int:
@@ -119,13 +132,6 @@ def compute_row_layout(dtypes: Sequence[DType]) -> RowLayout:
     )
 
 
-def _fixed_layout(dtypes: Sequence[DType]) -> RowLayout:
-    layout = compute_row_layout(dtypes)
-    if layout.variable_cols:
-        raise NotImplementedError(_STRINGS_NOT_PORTED)
-    return layout
-
-
 # ---------------------------------------------------------------------------
 # entry plan: columns -> scalar entries grouped by storage type
 # ---------------------------------------------------------------------------
@@ -164,13 +170,16 @@ def _entry_width(key: str) -> int:
     return 4 if key == "u4" else int(key[1 : key.index("_")])
 
 
-def _col_u32_parts(col: Column) -> List[Tuple[int, torch.Tensor]]:
-    """One fixed-width column's value as (width_bytes, [N] int64) parts in
+def _col_u32_parts(col: Column, slot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> List[Tuple[int, torch.Tensor]]:
+    """One column's row slot as (width_bytes, [N] int64) parts in
     row-byte order, each part holding up to 4 of the value's bytes as an
-    unsigned value in [0, 2^32)."""
+    unsigned value in [0, 2^32). A STRING column's slot is ``slot``, its
+    (offset from the row start, length) pair."""
     d = col.dtype
     if d.id == TypeId.STRING:
-        raise NotImplementedError(_STRINGS_NOT_PORTED)
+        off, ln = slot
+        return [(4, off.to(torch.int64)), (4, ln.to(torch.int64))]
     if d.id == TypeId.DECIMAL128:
         return [(4, uword.u32_to_i64(col.data[:, k])) for k in range(4)]
     w = d.size_bytes
@@ -188,11 +197,13 @@ def _col_u32_parts(col: Column) -> List[Tuple[int, torch.Tensor]]:
     return [(1, data.to(torch.int64) & 0xFF)]
 
 
-def _fixed_planes32(layout: RowLayout, cols: Sequence[Column], pad_to: int) -> torch.Tensor:
+def _fixed_planes32(layout: RowLayout, cols: Sequence[Column], pad_to: int,
+                    var_slot_vals: Optional[dict] = None) -> torch.Tensor:
     """[ceil(pad_to/4), N] int32 plane stack: plane p holds bytes
     [4p, 4p+4) of every row (column slots + padding + validity) as a
     little-endian u32 word. Each plane is OR-composed from the disjoint
-    shifted parts that fall into it."""
+    shifted parts that fall into it. ``var_slot_vals`` maps each STRING
+    column's index to its slot (offset, length) pair."""
     n = len(cols[0]) if cols else 0
     dev = cols[0].device if cols else torch.device("cpu")
     num_planes = (pad_to + 3) // 4
@@ -205,7 +216,7 @@ def _fixed_planes32(layout: RowLayout, cols: Sequence[Column], pad_to: int) -> t
 
     for i, col in enumerate(cols):
         pos = layout.col_starts[i]
-        for width, val in _col_u32_parts(col):
+        for width, val in _col_u32_parts(col, (var_slot_vals or {}).get(i)):
             _emit(pos, val)
             pos += width
 
@@ -264,7 +275,154 @@ def _slice_column(col: Column, rs: int, re: int) -> Column:
     if rs == 0 and re == len(col):
         return col
     v = None if col.validity is None else col.validity[rs:re]
+    if col.dtype.id == TypeId.STRING:
+        offs = col.offsets[rs : re + 1]
+        base, end = (int(x) for x in offs[[0, -1]].tolist())
+        return Column(col.dtype, validity=v, offsets=offs - base, chars=col.chars[base:end])
     return Column(col.dtype, data=col.data[rs:re], validity=v)
+
+
+# ---------------------------------------------------------------------------
+# convert_to_rows, strings
+# ---------------------------------------------------------------------------
+
+
+def _row_size_stats(layout: RowLayout, var_offsets: Sequence[torch.Tensor]):
+    """([N] int64 8-aligned row sizes, [N+1] int64 row offsets, total,
+    max size): the sizes stay on the device, the two scalars come back in
+    one read."""
+    n = var_offsets[0].shape[0] - 1
+    lens_total = torch.zeros((n,), dtype=torch.int64, device=var_offsets[0].device)
+    for offs in var_offsets:
+        lens_total += (offs[1:] - offs[:-1]).to(torch.int64)
+    sizes = _round_up_t(lens_total + layout.fixed_end, JCUDF_ROW_ALIGNMENT)
+    offsets = torch.cat([torch.zeros((1,), dtype=torch.int64, device=sizes.device),
+                         torch.cumsum(sizes, 0)])
+    total, max_size = torch.stack([offsets[-1], sizes.max()]).tolist()
+    return sizes, offsets, total, max_size
+
+
+def _round_up_t(v: torch.Tensor, align: int) -> torch.Tensor:
+    return torch.div(v + align - 1, align, rounding_mode="floor") * align
+
+
+def _slots(layout: RowLayout, cols: Sequence[Column]):
+    """Per string column: [N] int32 offset of its characters from the row
+    start (fixed_end plus the lengths of the string columns before it) and
+    [N] int32 lengths."""
+    n = len(cols[0])
+    lens = [cols[i].offsets[1:] - cols[i].offsets[:-1] for i in layout.variable_cols]
+    starts = []
+    acc = torch.full((n,), layout.fixed_end, dtype=torch.int32, device=cols[0].device)
+    for ln in lens:
+        starts.append(acc)
+        acc = acc + ln
+    return starts, lens
+
+
+def _var_section(chars, starts, lens, shifts, tail_lane: Optional[torch.Tensor], tail_bytes: int,
+                 maxlens: Sequence[int], maxvar: int) -> torch.Tensor:
+    """All string columns -> the rows' variable region, int32 [N,
+    maxvar/4]: each column's padded extraction (tile gather + B8), masked
+    to its lengths, then one B9 pass over all of them.
+
+    The region starts at byte 4 * (fixed_end // 4): when fixed_end is not
+    a multiple of 4, the trailing validity bytes (``tail_lane``, the
+    partial last word of the fixed section) ride in as a pseudo column at
+    shift 0, so no word is split between the two sections."""
+    p_mats, all_shifts = [], []
+    if tail_bytes:
+        n = tail_lane.shape[0]
+        tail = tail_lane.contiguous().view(torch.uint8).view(n, 4)
+        keep = torch.arange(4, device=tail.device)[None, :] < tail_bytes
+        p_mats.append(torch.where(keep, tail, 0))
+        all_shifts.append(torch.zeros((n,), dtype=torch.int32, device=tail.device))
+    for k in range(len(chars)):
+        lc = min(_round_up(maxlens[k], 4), maxvar)
+        p = padded_extract(chars[k], starts[k], maxlens[k])[:, :lc]
+        keep = torch.arange(lc, device=p.device)[None, :] < lens[k][:, None]
+        p_mats.append(torch.where(keep, p, 0))
+        all_shifts.append(shifts[k])
+    return var_accumulate(p_mats, all_shifts, maxvar)
+
+
+def _encode_strings_padded(layout: RowLayout, cols: Sequence[Column], row_offsets: torch.Tensor,
+                           total: int, maxlens: Sequence[int], maxvar: int) -> torch.Tensor:
+    """Fixed + string table -> uint8 [total] blob through padded rows:
+    fixed sections as u32 lanes, the variable region from B8/B9, and
+    ``assemble_rows`` (B10) to drop each row's padding."""
+    n = len(cols[0])
+    starts, lens = _slots(layout, cols)
+    slot_vals = {ci: (starts[k], lens[k]) for k, ci in enumerate(layout.variable_cols)}
+    fixed32 = _fixed_planes32(layout, cols, layout.fixed_end, slot_vals).t()  # [N, ceil(fe/4)]
+
+    fe4, rem = divmod(layout.fixed_end, 4)
+    region = _round_up(rem + maxvar, 64)
+    chars, cstarts, clens, shifts, mls = [], [], [], [], []
+    for k, ci in enumerate(layout.variable_cols):
+        if maxlens[k] == 0:
+            continue
+        col = cols[ci]
+        chars.append(col.chars)
+        cstarts.append(col.offsets[:-1])
+        clens.append(lens[k])
+        shifts.append(starts[k] - 4 * fe4)
+        # maxlens are the whole table's; a batch's own strings are bounded
+        # by its maxvar, and the extraction width must not grow with an
+        # outlier string of another batch
+        mls.append(min(maxlens[k], maxvar))
+    if not chars and not rem:
+        var32 = torch.zeros((n, region // 4), dtype=torch.int32, device=fixed32.device)
+    else:
+        var32 = _var_section(chars, cstarts, clens, shifts, fixed32[:, fe4] if rem else None, rem,
+                             mls, region)
+    fixed_part = fixed32[:, :fe4] if rem else fixed32
+    sizes = row_offsets[1:] - row_offsets[:-1]
+    return assemble_rows((fixed_part, var32), sizes, row_offsets, total,
+                         _round_up(layout.fixed_end, JCUDF_ROW_ALIGNMENT))
+
+
+def _encode_strings_scatter(layout: RowLayout, cols: Sequence[Column], row_offsets: torch.Tensor,
+                            total: int) -> torch.Tensor:
+    """Fixed + string table -> uint8 [total] blob by byte scatters: the
+    reference's route for tables whose padded rows would not fit the
+    budget (O(actual bytes), element-granular)."""
+    n = len(cols[0])
+    starts, lens = _slots(layout, cols)
+    slot_vals = {ci: (starts[k], lens[k]) for k, ci in enumerate(layout.variable_cols)}
+    planes = _fixed_planes32(layout, cols, layout.fixed_end, slot_vals)
+    fe = layout.fixed_end
+    fixed = planes.t().contiguous().view(torch.uint8).view(n, -1)[:, :fe]
+    dev = fixed.device
+    row_starts = row_offsets[:-1].to(torch.int64)
+    blob = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    # the [rows, fixed_end] index matrix in chunks of ~64 MB
+    chunk = max(1, (64 << 20) // 8 // max(fe, 1))
+    span = torch.arange(fe, dtype=torch.int64, device=dev)[None, :]
+    for r0 in range(0, n, chunk):
+        idx = row_starts[r0 : r0 + chunk, None] + span
+        blob[idx.reshape(-1)] = fixed[r0 : r0 + chunk].reshape(-1)
+    for k, ci in enumerate(layout.variable_cols):
+        col = cols[ci]
+        nchars = int(col.chars.shape[0])
+        if nchars == 0:
+            continue
+        offs = col.offsets.to(torch.int64)
+        j = torch.arange(nchars, dtype=torch.int64, device=dev)
+        row_of = torch.searchsorted(offs, j, right=True) - 1
+        dest = row_starts[row_of] + starts[k][row_of].to(torch.int64) + (j - offs[row_of])
+        blob[dest] = col.chars
+    return blob
+
+
+def _encode_strings(layout: RowLayout, cols: Sequence[Column], row_offsets: torch.Tensor,
+                    total: int, max_size: int, maxlens: Sequence[int]) -> torch.Tensor:
+    """One batch of a table with STRING columns -> its uint8 [total] blob:
+    the padded path unless its padded rows pass the byte budget."""
+    maxvar = max(_round_up(max_size - layout.fixed_end, 64), 8)
+    if len(cols[0]) * (layout.fixed_end + maxvar) <= _PADDED_ROWS_BYTE_BUDGET:
+        return _encode_strings_padded(layout, cols, row_offsets, total, maxlens, maxvar)
+    return _encode_strings_scatter(layout, cols, row_offsets, total)
 
 
 def _wrap_batch_as_list_column(
@@ -282,7 +440,7 @@ def _wrap_batch_as_list_column(
 def convert_to_rows(table: Table) -> List[Column]:
     """Table -> one or more LIST<INT8> columns of JCUDF rows, at most
     2 GiB each (RowConversion.convertToRows)."""
-    layout = _fixed_layout(table.dtypes())
+    layout = compute_row_layout(table.dtypes())
     n = table.num_rows
     cols = table.columns
     if n == 0:
@@ -293,14 +451,33 @@ def convert_to_rows(table: Table) -> List[Column]:
                 torch.zeros((1,), dtype=torch.int32, device=dev),
             )
         ]
-    row_size = layout.row_size_fixed
-    batches = _batch_boundaries(np.full((n,), row_size, dtype=np.int64))
+    if not layout.variable_cols:
+        row_size = layout.row_size_fixed
+        batches = _batch_boundaries(np.full((n,), row_size, dtype=np.int64))
+        out = []
+        for rs, re, _ in batches:
+            batch_cols = [_slice_column(c, rs, re) for c in cols]
+            blob = _to_rows_fixed(layout, batch_cols, re - rs)
+            rel = torch.arange(re - rs + 1, dtype=torch.int32, device=blob.device) * row_size
+            out.append(_wrap_batch_as_list_column(blob, rel, uniform_stride=row_size))
+        return out
+
+    sizes, offsets, total, max_size = _row_size_stats(
+        layout, [cols[i].offsets for i in layout.variable_cols])
+    maxlens = [cols[i].max_char_len for i in layout.variable_cols]
+    if total <= MAX_BATCH_BYTES:  # one batch: no further host reads
+        blob = _encode_strings(layout, cols, offsets, total, max_size, maxlens)
+        return [_wrap_batch_as_list_column(blob, offsets)]
+    row_sizes = sizes.cpu().numpy()
     out = []
-    for rs, re, _ in batches:
+    for rs, re, nbytes in _batch_boundaries(row_sizes):
         batch_cols = [_slice_column(c, rs, re) for c in cols]
-        blob = _to_rows_fixed(layout, batch_cols, re - rs)
-        rel = torch.arange(re - rs + 1, dtype=torch.int32, device=blob.device) * row_size
-        out.append(_wrap_batch_as_list_column(blob, rel, uniform_stride=row_size))
+        bsizes = sizes[rs:re]
+        row_offsets = torch.cat([torch.zeros((1,), dtype=torch.int64, device=bsizes.device),
+                                 torch.cumsum(bsizes, 0)])
+        blob = _encode_strings(layout, batch_cols, row_offsets, nbytes,
+                               int(row_sizes[rs:re].max()), maxlens)
+        out.append(_wrap_batch_as_list_column(blob, row_offsets))
     return out
 
 
@@ -331,8 +508,13 @@ def _offsets_uniform(rows: Column, blob_len: int, stride: int, n: int) -> bool:
 
 def _gather_fixed(layout: RowLayout, blob: torch.Tensor, starts: torch.Tensor, n: int):
     """Each row's fixed section out of a blob with arbitrary row starts:
-    [N, fixed_end] uint8, with the index matrix chunked to ~64 MB."""
+    [N, fixed_end] uint8. Layouts with strings from 8 rows up take one
+    overlapping-tile gather + B8 (``padded_extract``), as the reference
+    does on its kernel branch; the others an index-matrix gather chunked
+    to ~64 MB."""
     fe = layout.fixed_end
+    if layout.variable_cols and n >= _KERNEL_MIN_ROWS:
+        return padded_extract(blob, starts, fe)[:, :fe]
     chunk = max(1, (64 << 20) // 8 // max(fe, 1))
     span = torch.arange(fe, dtype=torch.int64, device=blob.device)[None, :]
     parts = [blob[starts[r0 : r0 + chunk, None] + span] for r0 in range(0, n, chunk)]
@@ -406,9 +588,9 @@ def _decode_groups_from_planes(
 def _extract_column(group_arrays, valid_t, entries, i: int, d: DType):
     """One column's (data, validity) out of the grouped representation."""
     ents = entries[i]
-    if d.id == TypeId.STRING:
-        raise NotImplementedError(_STRINGS_NOT_PORTED)
-    if d.id == TypeId.DECIMAL128:
+    if d.id == TypeId.STRING:  # (offset from the row start, length), u32 bits
+        data = (group_arrays["u4"][ents[0][1]], group_arrays["u4"][ents[1][1]])
+    elif d.id == TypeId.DECIMAL128:
         data = torch.stack([group_arrays["u4"][e[1]] for e in ents], dim=1)
     else:
         key, idx, _ = ents[0]
@@ -429,23 +611,69 @@ def _decode_fixed_groups(layout: RowLayout, dtypes: Sequence[DType], fixed: torc
 
 
 def _empty_column(d: DType, device) -> Column:
+    if d.id == TypeId.STRING:
+        return Column(d, offsets=torch.zeros((1,), dtype=torch.int32, device=device),
+                      chars=torch.zeros((0,), dtype=torch.uint8, device=device))
     shape = (0, 4) if d.id == TypeId.DECIMAL128 else (0,)
     return Column(d, data=torch.zeros(shape, dtype=d.torch_dtype, device=device))
 
 
+def _string_offsets(lens32: torch.Tensor) -> torch.Tensor:
+    """[N] int32 lengths -> [N+1] int32 offsets."""
+    zero = torch.zeros((1,), dtype=torch.int32, device=lens32.device)
+    return torch.cat([zero, torch.cumsum(lens32, 0, dtype=torch.int32)])
+
+
+def _string_chars(blob, starts, in_off32, offs, total: int, pool32=None) -> torch.Tensor:
+    """One string column's characters out of the row blob (B5): row r's
+    bytes start at starts[r] + its slot offset."""
+    base = starts + uword.u32_to_i64(in_off32)
+    return hopper_kernels.ragged_compact(blob, base, offs.to(torch.int64), total, pool32=pool32)
+
+
+def _finish_column(d: DType, data, vmask, blob, starts) -> Column:
+    """Wrap one decoded column as a Column; a STRING column compacts its
+    characters out of the row blob here."""
+    if d.id == TypeId.STRING:
+        in_off, ln32 = data
+        offs = _string_offsets(ln32)
+        chars = _string_chars(blob, starts, in_off, offs, int(offs[-1]))
+        return Column(d, validity=vmask, offsets=offs, chars=chars)
+    return Column(d, data=data, validity=vmask)
+
+
+def _assemble_from_rows(dtypes: Sequence[DType], datas, valids, blob, starts) -> Table:
+    """Decoded (data, validity) per column -> Table. The string columns'
+    offsets come from one cumsum each and their totals from one host
+    read for all of them; the characters come out through B5, over one
+    word view of the blob built for the plain version (the kernel reads
+    the bytes themselves)."""
+    str_idx = [i for i, d in enumerate(dtypes) if d.id == TypeId.STRING]
+    built = {}
+    if str_idx:
+        offs = [_string_offsets(datas[i][1]) for i in str_idx]
+        totals = torch.stack([o[-1] for o in offs]).tolist()
+        pool32 = build_pool32(blob) if blob.device.type == "cpu" and any(totals) else None
+        for k, i in enumerate(str_idx):
+            chars = _string_chars(blob, starts, datas[i][0], offs[k], totals[k], pool32)
+            built[i] = Column(dtypes[i], validity=valids[i], offsets=offs[k], chars=chars)
+    return Table([built[i] if i in built else Column(d, data=datas[i], validity=valids[i])
+                  for i, d in enumerate(dtypes)])
+
+
 def convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     """LIST<INT8> column of JCUDF rows + schema -> Table
-    (RowConversion.convertFromRows). Uniform-stride rows (every batch
-    ``convert_to_rows`` makes) decode from a free reshape of the blob;
-    other row offsets gather each row's fixed section first."""
+    (RowConversion.convertFromRows). Uniform-stride rows (every fixed-width
+    batch ``convert_to_rows`` makes) decode from a free reshape of the
+    blob; other row offsets gather each row's fixed section first."""
     dtypes = list(dtypes)
-    layout = _fixed_layout(dtypes)
+    layout = compute_row_layout(dtypes)
     if len(rows) == 0:
         _rows_blob(rows)
         return Table([_empty_column(d, rows.device) for d in dtypes])
-    _, _, fixed = _fixed_rows(layout, rows)
+    blob, starts, fixed = _fixed_rows(layout, rows)
     datas, valids = _decode_fixed_groups(layout, dtypes, fixed)
-    return Table([Column(d, data=x, validity=v) for d, x, v in zip(dtypes, datas, valids)])
+    return _assemble_from_rows(dtypes, datas, valids, blob, starts)
 
 
 @dataclasses.dataclass
@@ -471,16 +699,22 @@ class GroupedRows:
             return _empty_column(d, self.blob.device)
         _, entries = _entry_plan(self.layout, self.dtypes)
         data, vmask = _extract_column(self.groups, self.valid_t, entries, i, d)
-        return Column(d, data=data, validity=vmask)
+        return _finish_column(d, data, vmask, self.blob, self.starts)
 
     def to_table(self) -> Table:
-        return Table([self.column(i) for i in range(len(self.dtypes))])
+        if len(self) == 0:
+            return Table([_empty_column(d, self.blob.device) for d in self.dtypes])
+        _, entries = _entry_plan(self.layout, self.dtypes)
+        cols = [_extract_column(self.groups, self.valid_t, entries, i, d)
+                for i, d in enumerate(self.dtypes)]
+        return _assemble_from_rows(self.dtypes, [c[0] for c in cols], [c[1] for c in cols],
+                                   self.blob, self.starts)
 
 
 def convert_from_rows_grouped(rows: Column, dtypes: Sequence[DType]) -> GroupedRows:
     """LIST<INT8> rows + schema -> GroupedRows (no per-column buffers)."""
     dtypes = tuple(dtypes)
-    layout = _fixed_layout(dtypes)
+    layout = compute_row_layout(dtypes)
     if len(rows) == 0:
         blob, starts = _rows_blob(rows)
         valid_t = torch.zeros((len(dtypes), 0), dtype=torch.bool, device=blob.device)

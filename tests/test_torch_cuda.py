@@ -6,7 +6,7 @@ run without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-B6/B7 and the row transcode are exact; B3 counts are exact and its
+B5-B10 and the row transcode are exact; B3 counts are exact and its
 float32 sums are held to rtol 2e-6 / atol 1e-3, the reference's bound,
 because the kernel's atomics add in an order that changes from run to
 run."""
@@ -132,5 +132,155 @@ def test_slice_on_the_card_matches_the_cpu(rng):
         np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8))
     for x, y in zip(v0, v1):
         assert torch.equal(x, y)
+    assert torch.equal(c0, c1)
+    torch.testing.assert_close(s0, s1, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# string kernels: B8, B9, B10, B5
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,w,out_w", [(1, 8, 4), (37, 8, 8), (1001, 64, 32), (513, 2048, 1024),
+                                       (7, 256, 128), (300, 12, 12)])
+def test_rotl_take_kernel_matches_plain(rng, n, w, out_w):
+    x = torch.from_numpy(rng.integers(0, 256, (n, w), dtype=np.uint8)).cuda()
+    sh = torch.from_numpy(rng.integers(0, w, n).astype(np.int32)).cuda()
+    sh[0] = 0
+    before = rb.rotl_take.launches
+    got = rb.rotl_take(x, sh, out_w)
+    torch.cuda.synchronize()
+    assert rb.rotl_take.launches == before + 1
+    assert torch.equal(got, rb.rotl_take_plain(rb._as_u32(x), sh, out_w))
+    got32 = rb.rotl_take32(rb._as_u32(x), sh.to(torch.int64), out_w)
+    assert rb.rotl_take.launches == before + 2
+    assert torch.equal(got32, got)
+
+
+def test_rotl_take_kernel_takes_an_unaligned_byte_view(rng):
+    flat = torch.from_numpy(rng.integers(0, 256, 64 * 33 + 1, dtype=np.uint8)).cuda()
+    x = flat[1:].view(33, 64)  # starts one byte past a word
+    sh = torch.from_numpy(rng.integers(0, 64, 33).astype(np.int32)).cuda()
+    assert torch.equal(rb.rotl_take(x, sh, 32), rb.rotl_take_plain(rb._as_u32(x), sh, 32))
+
+
+@pytest.mark.parametrize("n,widths,maxvar,tail", [(1, (4,), 4, False), (1001, (16, 32), 96, False),
+                                                  (333, (4, 32, 32), 128, True),
+                                                  (4097, (32,) * 16, 576, True)])
+def test_var_accumulate_kernel_matches_plain(rng, n, widths, maxvar, tail):
+    mats, shifts = [], []
+    at = np.full(n, 3 if tail else 0)
+    if tail:
+        mats.append(rng.integers(0, 256, (n, 4), dtype=np.uint8))
+        mats[-1][:, 3] = 0
+        shifts.append(np.zeros(n, np.int32))
+    for w in widths:
+        lens = rng.integers(0, w + 1, n)
+        m = rng.integers(0, 256, (n, w), dtype=np.uint8)
+        m[np.arange(w)[None, :] >= lens[:, None]] = 0
+        mats.append(m)
+        shifts.append(at.astype(np.int32))
+        at = at + lens
+    shifts[-1][: min(n, 3)] = maxvar + 1  # shifts past the section clear the row
+    pm = [torch.from_numpy(m).cuda() for m in mats]
+    ps = [torch.from_numpy(s).cuda() for s in shifts]
+    before = rb.var_accumulate.launches
+    got = rb.var_accumulate(pm, ps, maxvar)
+    torch.cuda.synchronize()
+    assert rb.var_accumulate.launches == before + 1
+    assert torch.equal(got, rb.var_accumulate_plain(pm, ps, maxvar))
+
+
+@pytest.mark.parametrize("t,g", [(1, 8), (999, 8), (5001, 64), (2049, 256)])
+def test_asm_epilogue_kernel_matches_plain(rng, t, g):
+    tiles = [torch.from_numpy(rng.integers(0, 2**32, (t, g // 4), dtype=np.uint32).view(np.int32)).cuda()
+             for _ in range(3)]
+    pmod = torch.from_numpy(rng.integers(0, 2 * g, t).astype(np.int32)).cuda()
+    delta = torch.from_numpy(rng.integers(0, g + 9, t).astype(np.int32)).cuda()
+    alen = torch.from_numpy(rng.integers(0, g + 1, t).astype(np.int32)).cuda()  # not word multiples
+    before = rb.asm_epilogue.launches
+    got = rb.asm_epilogue(*tiles, pmod, delta, alen, g)
+    torch.cuda.synchronize()
+    assert rb.asm_epilogue.launches == before + 1
+    assert torch.equal(got, rb.asm_epilogue_plain(*tiles, pmod, delta, alen, g))
+
+
+def _ragged(rng, n, max_len, gap, null_frac, tail):
+    lens = rng.integers(0, max_len + 1, n)
+    lens[rng.random(n) < null_frac] = 0
+    gaps = rng.integers(0, gap + 1, n)
+    base = np.cumsum(np.concatenate([[0], (lens + gaps)[:-1]]))
+    pool = rng.integers(1, 256, int(base[-1] + lens[-1]) + tail).astype(np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return (torch.from_numpy(pool).cuda(), torch.from_numpy(base.astype(np.int64)).cuda(),
+            torch.from_numpy(offs.astype(np.int64)).cuda(), int(offs[-1]))
+
+
+# (rows, max length, gap, null share, pool bytes past the last string):
+# a pool that ends mid-word right after the last string, zero-length rows,
+# many short rows sharing words, one giant row, unaligned N
+@pytest.mark.parametrize("n,max_len,gap,null_frac,tail", [
+    (1, 4097, 0, 0.0, 0), (1001, 3, 0, 0.0, 0), (777, 32, 7, 0.5, 1), (30001, 32, 40, 0.1, 3),
+    (5, 0, 3, 0.0, 2), (200_003, 13, 0, 0.9, 0)])
+def test_ragged_compact_kernel_matches_plain(rng, n, max_len, gap, null_frac, tail):
+    pool, base, offs, total = _ragged(rng, n, max_len, gap, null_frac, tail)
+    before = hk.ragged_compact.launches
+    got = hk.ragged_compact(pool, base, offs, total)
+    torch.cuda.synchronize()
+    assert hk.ragged_compact.launches == before + (1 if total else 0)
+    want = hk.ragged_compact_plain(pool, base, offs, total)
+    assert got.dtype == torch.uint8 and got.shape == (total,)
+    assert torch.equal(got, want)
+
+
+def test_string_slice_on_the_card_matches_the_cpu(rng):
+    names = ["STRING" if i % 10 == 0 else [pdt.INT32, pdt.FLOAT64, pdt.INT64, pdt.INT16][i % 4]
+             for i in range(35)]
+    dtypes = [pdt.STRING if d == "STRING" else d for d in names]
+    dtypes[1], dtypes[2] = pdt.FLOAT32, pdt.INT64
+    n = 5003
+    arrays, valids = [], []
+    for i, d in enumerate(dtypes):
+        v = rng.random(n) < 0.8 if i % 5 == 0 else None
+        if d.id == pdt.TypeId.STRING:
+            lens = rng.integers(1, 33, n) * (v if v is not None else 1)
+            offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+            arrays.append((offs, rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)))
+        elif i == 1:
+            arrays.append(rng.standard_normal(n).astype(np.float32))
+        elif i == 2:
+            arrays.append(rng.integers(0, 512, n))
+        elif d.id == pdt.TypeId.FLOAT64:
+            arrays.append(rng.standard_normal(n))
+        else:
+            info = np.iinfo(d.np_dtype)
+            arrays.append(rng.integers(info.min, info.max, n, dtype=d.np_dtype, endpoint=True))
+        valids.append(v)
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    counts = {k: 0 for k in ("rotl", "vacc", "asm", "compact")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.asm_epilogue.launches,
+                  hk.ragged_compact.launches)
+        t = carry_table(arrays, dtypes, valids, device=dev)
+        rows = rc.convert_to_rows(t)
+        dec = rc.convert_from_rows(rows[0], dtypes)
+        s, c = aggregate.groupby_sum_bounded(dec.columns[2].data, dec.columns[1].data, 512)
+        after = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.asm_epilogue.launches,
+                 hk.ragged_compact.launches)
+        for k, b, a in zip(counts, before, after):
+            counts[k] = a - b
+        out[dev] = (rows[0], dec, s.cpu(), c.cpu())
+    assert all(v > 0 for v in counts.values()), counts  # the card run launched each kernel
+    (r0, d0, s0, c0), (r1, d1, s1, c1) = out["cpu"], out["cuda"]
+    assert torch.equal(r0.child.data, r1.child.data.cpu())
+    assert torch.equal(r0.offsets, r1.offsets.cpu())
+    for a, b in zip(d0.columns, d1.columns):
+        assert torch.equal(a.valid_mask(), b.valid_mask().cpu())
+        if a.dtype.id == pdt.TypeId.STRING:
+            assert torch.equal(a.offsets, b.offsets.cpu()) and torch.equal(a.chars, b.chars.cpu())
+        else:
+            np.testing.assert_array_equal(a.to_numpy().view(np.uint8), b.to_numpy().view(np.uint8))
     assert torch.equal(c0, c1)
     torch.testing.assert_close(s0, s1, rtol=RTOL, atol=ATOL)

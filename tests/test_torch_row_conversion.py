@@ -240,15 +240,11 @@ def test_fixed_width_optimized_limit_errors(names, match):
         prc.convert_from_rows_fixed_width_optimized(rows, pd)
 
 
-def test_string_schema_not_ported():
-    rows = Column.list_from_parts(torch.zeros(1, dtype=torch.int32),
-                                  Column(pdt.INT8, data=torch.zeros(0, dtype=torch.int8)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        prc.convert_from_rows(rows, [pdt.INT32, pdt.STRING])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        prc.convert_from_rows_grouped(rows, [pdt.STRING])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Column(pdt.STRING)
+def test_struct_columns_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 1"):
+        Column(pdt.STRUCT)
+    with pytest.raises(ValueError, match="only STRING compound"):
+        prc.compute_row_layout([pdt.INT32, pdt.STRUCT])
 
 
 def test_rejects_non_list_rows():
