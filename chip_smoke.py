@@ -26,7 +26,21 @@ checkout (one nvcc per source, all at once), then on one card:
    B9, B10 and B5, and each is held against its plain version and timed
    on exactly those; the counted run then must launch all seven kernels,
    and its rows, columns, offsets and chars are checked byte for byte;
-4. prints one ``{"kernels": [...]}`` line (seven kernels) and, last, the
+4. the JOIN path, TPC-DS q3's shape (a fact batch against a dimension):
+   a store_sales-like batch of 1,048,576 rows x 10 columns (INT32
+   surrogate keys, INT32 quantity, FLOAT32 prices and profit, an INT64,
+   a DECIMAL128; item_sk uniform in [0, 131,072) with 10% nulls, every
+   third column nullable) and an item-like dimension of 65,536 rows
+   (unique item_sk, i_brand_id in [0, 4096), i_manufact_id, two STRING
+   columns of 1-50 bytes) through ``hash_partition(fact, 200,
+   ["item_sk"])`` (B1) -> ``inner_join(.., dim, ["item_sk"])`` (the paged
+   table and B4, then the gathers) -> ``groupby_sum_bounded(i_brand_id,
+   ss_ext_sales_price, 4096)`` (B3). B1 and B4 are held against their
+   plain versions at the path's shapes (B4 also on INT64 copies of the
+   keys), the counted run must launch B1, B4 and B3, and the partition
+   ids, both gather maps (inner and left), every joined column, the
+   counts and the sums are checked against numpy oracles;
+5. prints one ``{"kernels": [...]}`` line (nine kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -55,6 +69,15 @@ PLAIN_REPS = 3  # the plain versions at the string path's shapes take seconds
 # kernel's atomics add in an order that changes from run to run
 RTOL, ATOL = 2e-6, 1e-3
 ORACLE_ROWS = 4096  # rows of the blob held against a numpy row encoder
+# the join path: a store_sales-like fact batch against an item-like
+# dimension at the paged table's build cap (TPC-DS q3's shape)
+FACT_ROWS = 1_048_576
+DIM_ROWS = 65_536
+ITEM_DOMAIN = 131_072  # item_sk range: about half the valid probes match
+PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
+STRING_PATH_KERNELS = ("expand_u32_planes", "pack_u8_planes", "groupby_sum_outer", "rotl_take",
+                       "var_accumulate", "asm_epilogue", "ragged_compact")
+JOIN_PATH_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
 
 
 def _mem_rate(name: str) -> float:
@@ -79,6 +102,26 @@ def _time_ms(fn, reps: int = REPS, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the kernels named like ``kernel`` over ``reps``
+    calls of ``fn``, from torch.profiler's CUDA activity: the kernel alone,
+    without the wrapper's host work that CUDA events around a call also
+    take in. None when the profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return float(np.mean(us)) / 1e3 if us else None
 
 
 def _fmt_stages(stage) -> str:
@@ -317,9 +360,11 @@ def _kernel_phase(table, layout, rate: float):
     return results
 
 
-def _profile_phase(run_path, top: int = 8):
+def _profile_phase(run_path, top: int = 8, watch=()):
     """One warm main-path run under torch.profiler: device busy time by
-    kernel and by aten op, and the device's idle share of the host window."""
+    kernel and by aten op, and the device's idle share of the host window.
+    Kernels whose names contain a ``watch`` string are printed whatever
+    their rank, and their device ms land in the result's ``watched``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -356,8 +401,15 @@ def _profile_phase(run_path, top: int = 8):
         print(f"profile kernel: {us / 1e3:9.3f} ms x{cnt:<4d} {name[:110]}", flush=True)
     for name, us, cnt in ops[:top]:
         print(f"profile op (incl. children): {us / 1e3:9.3f} ms x{cnt:<4d} {name}", flush=True)
+    watched = {}
+    for w in watch:
+        hits = [(name, us, cnt) for name, (us, cnt) in by_kernel.items() if w in name]
+        watched[w] = sum(us for _, us, _ in hits) / 1e3
+        for name, us, cnt in hits:
+            print(f"profile kernel (watched): {us / 1e3:9.4f} ms x{cnt:<4d} {name[:110]}", flush=True)
     return {"device_busy_ms": busy_us / 1e3, "host_window_ms": wall_ms,
-            "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(spans)}
+            "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(spans),
+            "watched": watched}
 
 
 def _main_path(table, dtypes, key: int, value: int):
@@ -588,6 +640,282 @@ def _check_string_path(layout, dtypes, arrays, valids, rows, dec, sums, counts):
     return _check_groupby(arrays[2], arrays[1], sums, counts)
 
 
+# ---------------------------------------------------------------------------
+# the join path: shuffle write -> inner join -> group-by
+# ---------------------------------------------------------------------------
+
+FACT_COLS = [  # store_sales-like (name, type); every third column nullable
+    ("ss_sold_date_sk", "INT32"), ("item_sk", "INT32"), ("ss_customer_sk", "INT32"),
+    ("ss_store_sk", "INT32"), ("ss_quantity", "INT32"), ("ss_ext_sales_price", "FLOAT32"),
+    ("ss_sales_price", "FLOAT32"), ("ss_net_profit", "FLOAT32"), ("ss_ticket_number", "INT64"),
+    ("ss_ext_discount_amt", "DECIMAL128")]
+DIM_COLS = [  # item-like
+    ("item_sk", "INT32"), ("i_brand_id", "INT32"), ("i_manufact_id", "INT32"),
+    ("i_brand", "STRING"), ("i_category", "STRING")]
+
+
+def _pdtype(pdt, name):
+    return pdt.decimal128(-2) if name == "DECIMAL128" else getattr(pdt, name)
+
+
+def _np_strings(rng, n, valid):
+    """(offsets int32, chars uint8): 1-50 printable bytes a row (TPC-DS
+    char(50)), null rows empty."""
+    lens = rng.integers(1, 51, n)
+    if valid is not None:
+        lens[~valid] = 0
+    offs = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    return offs, rng.integers(32, 127, int(offs[-1]), dtype=np.uint8)
+
+
+def _join_inputs(seed: int):
+    """Seeded host arrays of the fact batch and the dimension: (arrays,
+    validity masks) for each side."""
+    rng = np.random.default_rng(seed)
+    fa, fv = [], []
+    for i, (name, tn) in enumerate(FACT_COLS):
+        if name == "item_sk":
+            a, v = rng.integers(0, ITEM_DOMAIN, FACT_ROWS).astype(np.int32), rng.random(FACT_ROWS) >= 0.1
+        else:
+            v = rng.random(FACT_ROWS) < 0.9 if i % 3 == 0 else None
+            if tn == "INT32":
+                a = rng.integers(0, 1 << 20, FACT_ROWS).astype(np.int32)
+            elif tn == "INT64":
+                a = rng.integers(0, 1 << 40, FACT_ROWS)
+            elif tn == "FLOAT32":
+                a = (rng.random(FACT_ROWS) * 200.0).astype(np.float32)
+            else:
+                a = rng.integers(0, 2**32, (FACT_ROWS, 4), dtype=np.uint32)
+        fa.append(a)
+        fv.append(v)
+    cat_valid = rng.random(DIM_ROWS) < 0.95
+    da = [rng.choice(ITEM_DOMAIN, DIM_ROWS, replace=False).astype(np.int32),
+          rng.integers(0, NUM_KEYS, DIM_ROWS).astype(np.int32),
+          rng.integers(1, 1001, DIM_ROWS).astype(np.int32),
+          _np_strings(rng, DIM_ROWS, None), _np_strings(rng, DIM_ROWS, cat_valid)]
+    dv = [None, None, None, None, cat_valid]
+    return (fa, fv), (da, dv)
+
+
+def _np_partition(keys: np.ndarray, valid, p: int) -> np.ndarray:
+    """pmod(murmur3_32(key, 42), p) of int32 keys in numpy uint32; a null
+    row keeps the seed."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    with np.errstate(over="ignore"):
+        k = keys.view(np.uint32) * np.uint32(0xCC9E2D51)
+        k = rotl(k, 15) * np.uint32(0x1B873593)
+        h = rotl(np.uint32(42) ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+        h = h ^ np.uint32(4)
+        h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+        h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        h = h ^ (h >> np.uint32(16))
+    h = np.where(valid, h, np.uint32(42))
+    return np.mod(h.view(np.int32).astype(np.int64), p)
+
+
+def _np_join_maps(lk, lvalid, rk, rvalid, how: str):
+    """Sort-probe gather maps in numpy: left rows ascending, and within a
+    left row its matching build rows ascending; -1 for a left join's
+    unmatched rows."""
+    ridx = np.flatnonzero(rvalid) if rvalid is not None else np.arange(rk.shape[0])
+    ridx = ridx[np.argsort(rk[ridx], kind="stable")]
+    rs = rk[ridx]
+    lo = np.searchsorted(rs, lk, side="left")
+    hi = np.searchsorted(rs, lk, side="right")
+    cnt = np.where(lvalid, hi - lo, 0)
+    out_cnt = cnt if how == "inner" else np.maximum(cnt, 1)
+    lmap = np.repeat(np.arange(lk.shape[0]), out_cnt)
+    within = np.arange(lmap.shape[0]) - np.repeat(np.cumsum(out_cnt) - out_cnt, out_cnt)
+    rmap = np.where(cnt[lmap] > 0, ridx[np.minimum(lo[lmap] + within, max(rs.shape[0] - 1, 0))], -1)
+    return lmap, rmap
+
+
+def _np_gather(arr, valid, idx):
+    """numpy gather with the NULLIFY bounds policy: (data, validity)."""
+    oob = idx < 0
+    safe = np.where(oob, 0, idx)
+    v = ~oob if valid is None else valid[safe] & ~oob
+    if isinstance(arr, tuple):
+        offs, chars = arr
+        lens = (offs[1:] - offs[:-1]).astype(np.int64)[safe]
+        new = np.zeros(idx.shape[0] + 1, np.int64)
+        np.cumsum(lens, out=new[1:])
+        src = np.repeat(offs[:-1][safe].astype(np.int64) - new[:-1], lens) + np.arange(new[-1])
+        return (new.astype(np.int32), chars[src]), v
+    return arr[safe], v
+
+
+def _check_join_table(table, side_arrays, lmap, rmap):
+    """Every column of a joined table bit-identical to a numpy gather of
+    its input (left columns by ``lmap``, right non-key columns by ``rmap``
+    with -1 null), STRING offsets and chars included."""
+    (fa, fv), (da, dv) = side_arrays
+    want = [_np_gather(a, v, lmap) for a, v in zip(fa, fv)]
+    want += [_np_gather(a, v, rmap) for (name, _), a, v in zip(DIM_COLS, da, dv)
+             if name != "item_sk"]
+    names = [n for n, _ in FACT_COLS] + [n for n, _ in DIM_COLS if n != "item_sk"]
+    if table.names != names or table.num_rows != lmap.shape[0]:
+        raise AssertionError(f"joined table shape differs: {table.names} x {table.num_rows}")
+    for name, col, (data, valid) in zip(names, table.columns, want):
+        if isinstance(data, tuple):
+            if not (np.array_equal(col.offsets.cpu().numpy(), data[0])
+                    and np.array_equal(col.chars.cpu().numpy(), data[1])):
+                raise AssertionError(f"joined string column {name} differs from the numpy gather")
+        else:
+            got = col.to_numpy()
+            if not np.array_equal(got.view(np.uint8), np.ascontiguousarray(data).view(np.uint8)):
+                raise AssertionError(f"joined column {name} differs from the numpy gather")
+        if not np.array_equal(col.valid_mask().cpu().numpy(), valid):
+            raise AssertionError(f"joined validity of {name} differs from the numpy gather")
+
+
+def _join_path(fact, dim):
+    """hash_partition -> inner_join -> groupby_sum_bounded, once."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import aggregate, join
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part, offsets = shuffle.hash_partition(fact, PARTITIONS, ["item_sk"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    joined = join.inner_join(part, dim, ["item_sk"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sums, counts = aggregate.groupby_sum_bounded(joined.column("i_brand_id").data,
+                                                 joined.column("ss_ext_sales_price").data, NUM_KEYS)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stage = {"shuffle_ms": (t1 - t0) * 1e3, "join_ms": (t2 - t1) * 1e3,
+             "groupby_ms": (t3 - t2) * 1e3, "end_to_end_ms": (t3 - t0) * 1e3}
+    return part, offsets, joined, sums, counts, stage
+
+
+def _join_kernel_phase(fact, part, dim, rate: float):
+    """B1 and B4 against their plain versions at the join path's shapes:
+    B1 on the fact batch's key column, B4 on the partitioned key column
+    against the dimension's table; B4 once more on INT64 copies of both
+    (the 64-bit route)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import paged_join as pj
+
+    results = {}
+    key = fact.column("item_sk")
+    n = key.data.shape[0]
+    got = hk.partition_map(key.data, PARTITIONS, key.validity)
+    want = hk.partition_map_plain(key.data, PARTITIONS, key.validity)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("partition_map disagrees with its plain version")
+    results["partition_map"] = dict(
+        max_abs_err=0.0,
+        ms=_time_ms(lambda: hk.partition_map(key.data, PARTITIONS, key.validity)),
+        device_ms=_device_ms(lambda: hk.partition_map(key.data, PARTITIONS, key.validity),
+                             "partition_map_kernel"),
+        plain_ms=_time_ms(lambda: hk.partition_map_plain(key.data, PARTITIONS, key.validity)),
+        library_ms=None, library="none: no one PyTorch call computes murmur3",
+        # 4 B key + 1 B validity in, 4 B id out a row
+        bound_ms=9 * n / rate * 1e3, bound_by="bytes",
+        shape=f"int32 [{n}] keys + validity, P={PARTITIONS}",
+    )
+
+    pkey, dkey = part.column("item_sk"), dim.column("item_sk")
+    tab = pj.build_paged_table(dkey.data, dkey.validity)
+    if tab is None:
+        raise AssertionError("the dimension's key column did not fit the paged table")
+    print(f"paged table: {tab.num_buckets} buckets, n_pages {tab.n_pages}, c_max {tab.c_max}, "
+          f"nm {tab.nm}", flush=True)
+    lo, eq = hk.probe_paged(pkey.data, pkey.validity, tab)
+    wlo, weq = hk.probe_paged_plain(pkey.data, pkey.validity, tab)
+    torch.cuda.synchronize()
+    if not (torch.equal(lo, wlo) and torch.equal(eq, weq)):
+        raise AssertionError("probe_paged disagrees with its plain version")
+    # the 64-bit route on INT64 copies of the same keys
+    tab64 = pj.build_paged_table(dkey.data.to(torch.int64), dkey.validity)
+    k64 = pkey.data.to(torch.int64)
+    lo64, eq64 = hk.probe_paged(k64, pkey.validity, tab64)
+    wlo64, weq64 = hk.probe_paged_plain(k64, pkey.validity, tab64)
+    torch.cuda.synchronize()
+    if not (torch.equal(lo64, wlo64) and torch.equal(eq64, weq64)):
+        raise AssertionError("probe_paged (INT64 keys) disagrees with its plain version")
+    if not torch.equal(eq64, eq):
+        raise AssertionError("probe_paged match counts differ between INT32 and INT64 keys")
+    print(f"probe_paged held against its plain version on INT32 and INT64 keys "
+          f"({int(eq.sum())} matches)", flush=True)
+
+    # library yardstick: two searchsorted over the composite (bucket << 32
+    # | order word) of the build side, sorted, for the valid probe rows
+    bu = pj.order_words(dkey.data)
+    comp = torch.sort((pj.bucket_of(bu, tab.num_buckets) << 32) | pj.compare_form(bu)).values
+    pu = pj.order_words(pkey.data)
+    pcomp = (pj.bucket_of(pu, tab.num_buckets) << 32) | pj.compare_form(pu)
+    table_bytes = tab.slots.numel() * 4 + tab.counts.numel() * 4 + tab.meta.numel() * 8
+    results["probe_paged"] = dict(
+        max_abs_err=0.0,
+        ms=_time_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab)),
+        device_ms=_device_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab),
+                             "probe_paged_kernel"),
+        plain_ms=_time_ms(lambda: hk.probe_paged_plain(pkey.data, pkey.validity, tab)),
+        library_ms=_time_ms(lambda: (torch.searchsorted(comp, pcomp, side="left"),
+                                     torch.searchsorted(comp, pcomp, side="right"))),
+        library="two torch.searchsorted over the sorted int64 (bucket << 32 | order word) "
+                "of the build side, composites built outside the timed region",
+        # 4 B key + 1 B validity in, 8 B (lo, eq) out a row; the table once
+        bound_ms=(13 * n + table_bytes) / rate * 1e3, bound_by="bytes",
+        shape=f"int32 [{n}] keys + validity vs {tab.nm} build rows, {tab.n_pages} pages",
+        table={"num_buckets": tab.num_buckets, "n_pages": tab.n_pages, "c_max": tab.c_max,
+               "nm": tab.nm},
+    )
+    return results
+
+
+def _check_join_path(side_arrays, fact, part, offsets, dim, joined, sums, counts):
+    """Partition ids, both gather maps, every joined column, counts and
+    sums against numpy oracles; the left join too."""
+    from spark_rapids_jni_tpu_torch.ops import hashing, join
+
+    (fa, fv), (da, dv) = side_arrays
+    key, kv = fa[1], fv[1]
+    pid = _np_partition(key, kv, PARTITIONS)
+    got = hashing.hash_partition_map([fact.column("item_sk")], PARTITIONS).cpu().numpy()
+    if not np.array_equal(got, pid):
+        raise AssertionError("partition ids differ from the numpy murmur3")
+    order = np.argsort(pid, kind="stable")
+    cnt = np.bincount(pid, minlength=PARTITIONS)
+    if offsets != (np.cumsum(cnt) - cnt).tolist():
+        raise AssertionError("partition offsets differ from the numpy oracle")
+    lk, lv = key[order], kv[order]
+    pside = ([a[order] if not isinstance(a, tuple) else a for a in fa],
+             [None if v is None else v[order] for v in fv])
+    maps = {}
+    for how in ("inner", "left"):
+        want_l, want_r = _np_join_maps(lk, lv, da[0], None, how)
+        gl, gr = join.join_gather_maps(part.select(["item_sk"]), dim.select(["item_sk"]), how)
+        if not (np.array_equal(gl.cpu().numpy(), want_l) and np.array_equal(gr.cpu().numpy(), want_r)):
+            raise AssertionError(f"{how} join gather maps differ from the numpy sort-probe")
+        maps[how] = (want_l, want_r)
+    _check_join_table(joined, (pside, (da, dv)), *maps["inner"])
+    left = join.left_join(part, dim, ["item_sk"])
+    _check_join_table(left, (pside, (da, dv)), *maps["left"])
+    lmap, rmap = maps["inner"]
+    brand = da[1][rmap]
+    price = pside[0][5][lmap]
+    want_c = np.bincount(brand, minlength=NUM_KEYS)
+    want_s = np.bincount(brand, weights=price.astype(np.float64), minlength=NUM_KEYS)
+    if not np.array_equal(counts.cpu().numpy(), want_c):
+        raise AssertionError("join path group-by counts differ from np.bincount")
+    got_s = sums.cpu().numpy()
+    if not np.allclose(got_s, want_s, rtol=RTOL, atol=ATOL):
+        raise AssertionError("join path sums outside rtol 2e-6 / atol 1e-3 of the float64 oracle")
+    return {"inner_rows": int(lmap.shape[0]), "left_rows": int(maps["left"][0].shape[0]),
+            "null_keys": int((~kv).sum()), "sum_max_abs_err": float(np.max(np.abs(got_s - want_s)))}
+
+
 def _run_counted(wrappers, run):
     """Every launch counter to 0, ``run`` once, the counts back."""
     for w in wrappers.values():
@@ -599,7 +927,8 @@ def _run_counted(wrappers, run):
 def _print_kernels(kernels):
     for k, r in kernels.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms "
+        dev = "" if r.get("device_ms") is None else f", device {r['device_ms']:.4f} ms"
+        print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms{dev} "
               f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}), max abs err {r['max_abs_err']}", flush=True)
 
@@ -619,6 +948,7 @@ def main() -> int:
         from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
         from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
         from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+        from spark_rapids_jni_tpu_torch.parallel import shuffle
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable here: {e}", file=sys.stderr)
         return 2
@@ -629,7 +959,8 @@ def main() -> int:
     wrappers = {"expand_u32_planes": rb.expand_u32_planes, "pack_u8_planes": rb.pack_u8_planes,
                 "groupby_sum_outer": hk.groupby_sum_outer, "rotl_take": rb.rotl_take,
                 "var_accumulate": rb.var_accumulate, "asm_epilogue": rb.asm_epilogue,
-                "ragged_compact": hk.ragged_compact}
+                "ragged_compact": hk.ragged_compact, "partition_map": hk.partition_map,
+                "probe_paged": hk.probe_paged}
     paths = {}
 
     # -- the fixed path ------------------------------------------------------
@@ -700,8 +1031,8 @@ def main() -> int:
     (rows, dec, sums, counts, sstage), slaunches = _run_counted(
         wrappers, lambda: _main_path(stable, sdtypes, key=2, value=1))
     print(f"string path launches: {slaunches}", flush=True)
-    for k, c in slaunches.items():
-        if c < 1:
+    for k in STRING_PATH_KERNELS:
+        if slaunches[k] < 1:
             raise AssertionError(f"the string path never launched {k}")
     sum_err = _check_string_path(slayout, sdtypes, sarrays, svalids, rows, dec, sums, counts)
     total = int(rows[0].offsets[-1])
@@ -722,28 +1053,84 @@ def main() -> int:
                         "blob_bytes": total, "peak_gib": speak, "launches": slaunches,
                         "profile": sprofile}
 
+    del stable, sarrays, svalids
+    torch.cuda.empty_cache()
+
+    # -- the join path -------------------------------------------------------
+    t0 = time.perf_counter()
+    side_arrays = _join_inputs(SEED + 2)
+    (fa, fv), (da, dv) = side_arrays
+    fact = Table(carry_table(fa, [_pdtype(pdt, t) for _, t in FACT_COLS], fv, device="cuda").columns,
+                 [n for n, _ in FACT_COLS])
+    dim = Table(carry_table(da, [_pdtype(pdt, t) for _, t in DIM_COLS], dv, device="cuda").columns,
+                [n for n, _ in DIM_COLS])
+    torch.cuda.synchronize()
+    print(f"join input: fact {FACT_ROWS} rows x {len(FACT_COLS)} columns (item_sk in "
+          f"[0, {ITEM_DOMAIN}), {int((~fv[1]).sum())} null), dimension {DIM_ROWS} rows x "
+          f"{len(DIM_COLS)} columns ({int(da[3][0][-1]) + int(da[4][0][-1])} string bytes), made "
+          f"and uploaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    part, _ = shuffle.hash_partition(fact, PARTITIONS, ["item_sk"])
+    jkernels = _join_kernel_phase(fact, part, dim, rate)
+    del part
+    _print_kernels(jkernels)
+
+    (part, offsets, joined, sums, counts, jstage), jlaunches = _run_counted(
+        wrappers, lambda: _join_path(fact, dim))
+    print(f"join path launches: {jlaunches}", flush=True)
+    for k in JOIN_PATH_KERNELS:
+        if jlaunches[k] < 1:
+            raise AssertionError(f"the join path never launched {k}")
+    jcheck = _check_join_path(side_arrays, fact, part, offsets, dim, joined, sums, counts)
+    print(f"join path checked against the numpy oracles: partition ids and offsets exact, inner "
+          f"and left gather maps exact ({jcheck['inner_rows']} / {jcheck['left_rows']} rows), "
+          f"every joined column (string offsets and chars included) bit-identical, counts exact, "
+          f"sums max abs err {jcheck['sum_max_abs_err']:.3g} vs float64", flush=True)
+    del part, joined
+
+    def run_join():
+        return _join_path(fact, dim)
+
+    torch.cuda.reset_peak_memory_stats()
+    jwarm = _warm_stages(run_join)
+    jpeak = torch.cuda.max_memory_allocated() / 2**30
+    print("join path (host clock, ms): first run " + _fmt_stages(jstage) + "; warm median of 3 "
+          + _fmt_stages(jwarm) + f"; peak device memory {jpeak:.2f} GiB", flush=True)
+    jprofile = _profile_phase(run_join, top=14, watch=("partition_map_kernel",
+                                                        "probe_paged_kernel", "groupby_"))
+    paths["join"] = {**jstage, "warm": jwarm, "warm_end_to_end_ms": jwarm["end_to_end_ms"],
+                     "fact_rows": FACT_ROWS, "dim_rows": DIM_ROWS, "partitions": PARTITIONS,
+                     **jcheck, "table": jkernels["probe_paged"]["table"], "peak_gib": jpeak,
+                     "launches": jlaunches, "profile": jprofile}
+
     csrc = "spark_rapids_jni_tpu_torch/csrc/"
     sources = {"expand_u32_planes": csrc + "planes.cu", "pack_u8_planes": csrc + "planes.cu",
                "groupby_sum_outer": csrc + "groupby.cu", "rotl_take": csrc + "strings.cu",
                "var_accumulate": csrc + "strings.cu", "asm_epilogue": csrc + "strings.cu",
-               "ragged_compact": csrc + "strings.cu"}
+               "ragged_compact": csrc + "strings.cu", "partition_map": csrc + "partition.cu",
+               "probe_paged": csrc + "join.cu"}
     replaces = {"expand_u32_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:185",
                 "pack_u8_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
                 "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416",
                 "rotl_take": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324",
                 "var_accumulate": "spark_rapids_jni_tpu/ops/ragged_bytes.py:405",
                 "asm_epilogue": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
-                "ragged_compact": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927"}
+                "ragged_compact": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927",
+                "partition_map": "spark_rapids_jni_tpu/ops/pallas_kernels.py:178",
+                "probe_paged": "spark_rapids_jni_tpu/ops/pallas_kernels.py:713"}
     # launches: the count on the path whose shapes the times are from
-    # (B3/B6/B7 the fixed path, the string kernels the string path)
+    # (B3/B6/B7 the fixed path, the string kernels the string path, B1/B4
+    # the join path)
+    timed_on = {**{k: launches for k in kernels}, **{k: slaunches for k in skernels},
+                **{k: jlaunches for k in jkernels}}
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-         "launches": (launches if k in kernels else slaunches)[k],
-         "launches_by_path": {"fixed": launches[k], "strings": slaunches[k]},
+         "launches": timed_on[k][k],
+         "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], **({"parts": r["parts"]} if "parts" in r else {})}
-        for k, r in {**kernels, **skernels}.items()
+         "library_ms": r["library_ms"],
+         **{x: r[x] for x in ("parts", "device_ms") if x in r}}
+        for k, r in {**kernels, **skernels, **jkernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

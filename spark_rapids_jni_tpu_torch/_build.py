@@ -3,8 +3,8 @@ loaded with ctypes.
 
 Each source under ``csrc/`` becomes one library under
 ``build/torch_kernels/`` at the root of the checkout, named by the hash
-of its source, so an edited source rebuilds and an unchanged one is
-reused. Nothing is built when a module is imported: ``library`` builds
+of its source and the shared headers (``csrc/*.cuh``), so an edited
+source rebuilds and an unchanged one is reused. Nothing is built when a module is imported: ``library`` builds
 on the first launch of one of its kernels, and ``build_all`` starts
 every missing build at once (one nvcc per source) for callers that want
 the build out of the way first.
@@ -52,6 +52,14 @@ SOURCES: Dict[str, tuple] = {
             "ragged_compact_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P],
         },
     ),
+    "partition": (
+        "partition.cu",
+        {"partition_map_launch": [_P, _I, _P, _P, _I, _I, _I, _P]},
+    ),
+    "join": (
+        "join.cu",
+        {"probe_paged_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P]},
+    ),
 }
 
 NVCC_FLAGS = [
@@ -74,8 +82,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library's file, named by the hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = CSRC / SOURCES[name][0]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -52,11 +52,19 @@ class Table:
     def num_rows(self) -> int:
         return len(self.columns[0]) if self.columns else 0
 
-    def column(self, i: int) -> Column:
+    def column(self, i) -> Column:
+        """Column by position or by name."""
+        if isinstance(i, str):
+            return self.columns[self.names.index(i)]
         return self.columns[i]
 
     def dtypes(self):
         return [c.dtype for c in self.columns]
+
+    def select(self, idxs) -> "Table":
+        """The columns named or numbered in ``idxs``, in that order."""
+        idxs = [self.names.index(i) if isinstance(i, str) else i for i in idxs]
+        return Table([self.columns[i] for i in idxs], [self.names[i] for i in idxs])
 
     def __repr__(self):
         cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in zip(self.names, self.columns))

@@ -1,5 +1,7 @@
 """Bounded-domain GROUP BY SUM (port of the JAX package's
-``ops/aggregate.groupby_sum_bounded``)."""
+``ops/aggregate.groupby_sum_bounded``), and the segment helpers of its
+sort-based tier (``_keys_equal_neighbor``, ``_segment_ids``) that the
+join's key factorization uses."""
 
 from __future__ import annotations
 
@@ -7,9 +9,46 @@ from typing import Tuple
 
 import torch
 
+from ..columnar import Column, Table
+from ..columnar.dtype import TypeId
 from .hopper_kernels import MAX_KEYS, groupby_sum_outer
+from .sort import _string_prefix_keys
 
 __all__ = ["groupby_sum_bounded"]
+
+
+def _keys_equal_neighbor(col: Column, order: torch.Tensor) -> torch.Tensor:
+    """[N-1] bool: sorted row i equals row i-1 in this key (nulls equal).
+    STRING rows compare their lengths and 16-byte prefix keys only, as
+    the reference does (the sort key's resolution)."""
+    v = col.valid_mask()[order]
+    same_valid = v[1:] == v[:-1]
+    if col.dtype.id == TypeId.STRING:
+        lens = (col.offsets[1:] - col.offsets[:-1])[order]
+        k1, k2 = (k[order] for k in _string_prefix_keys(col))
+        same = (lens[1:] == lens[:-1]) & (k1[1:] == k1[:-1]) & (k2[1:] == k2[:-1])
+    elif col.dtype.id == TypeId.DECIMAL128:
+        d = col.data[order]
+        same = (d[1:] == d[:-1]).all(dim=1)
+    else:
+        d = col.data[order]
+        same = d[1:] == d[:-1]
+    both_null = ~v[1:] & ~v[:-1]
+    return same_valid & (same | both_null)
+
+
+def _segment_ids(keys: Table, order: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Dense segment id (int32) of each sorted row and the segment count."""
+    n = keys.num_rows
+    dev = order.device
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev), 0
+    eq = torch.ones((n - 1,), dtype=torch.bool, device=dev)
+    for col in keys.columns:
+        eq = eq & _keys_equal_neighbor(col, order)
+    starts = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ~eq])
+    seg = (torch.cumsum(starts, 0) - 1).to(torch.int32)
+    return seg, int(seg[-1]) + 1  # host sync: the group count
 
 
 def groupby_sum_bounded(

@@ -1,5 +1,16 @@
 """Ports of the JAX package's ``ops/pallas_kernels.py`` kernels.
 
+- ``partition_map`` (B1), murmur3_32(key, seed 42) pmod P of one 4- or
+  8-byte integer key column, the counterpart of ``pallas_partition_map``:
+  the kernel in ``csrc/partition.cu`` on a CUDA tensor,
+  ``partition_map_plain`` on a CPU tensor. It also takes the column's
+  validity (a null row keeps the seed, as ``hash_partition_map`` has it).
+- ``probe_paged`` (B4), the paged hash-join probe, the counterpart of
+  ``pallas_probe_paged``: per probe row, ``(lo, eq)`` over the table that
+  ``paged_join.build_paged_table`` builds. The kernel in ``csrc/join.cu``
+  binary-searches the row's bucket on a CUDA tensor; ``probe_paged_plain``
+  compares the bucket's pages slot by slot, as the reference does, on a
+  CPU tensor.
 - ``groupby_sum_outer`` (B3), bounded-domain GROUP BY SUM + COUNT, the
   counterpart of ``pallas_groupby_sum_outer``: the hand-written kernel in
   ``csrc/groupby.cu`` on a CUDA tensor, ``groupby_sum_outer_plain`` on a
@@ -21,15 +32,167 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .murmur import SEED, murmur3_words, pmod
+from .paged_join import (PAGE, PagedHashTable, bucket_of, compare_form, key_words, order_words,
+                         unpack_meta)
 from .ragged_bytes import ragged_compact as ragged_compact_plain
+from .uword import split_u64, u32_to_i64
 
 __all__ = [
     "MAX_KEYS",
+    "partition_map",
+    "partition_map_plain",
+    "probe_paged",
+    "probe_paged_plain",
     "groupby_sum_outer",
     "groupby_sum_outer_plain",
     "ragged_compact",
     "ragged_compact_plain",
 ]
+
+# threads a block and blocks per SM for the one-thread-per-row kernels
+# (B1, B4): a grid-stride loop over rows
+_ROW_THREADS = 256
+_ROW_BLOCKS_PER_SM = 16
+
+
+def _row_grid(n: int, dev: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min((n + _ROW_THREADS - 1) // _ROW_THREADS, sms * _ROW_BLOCKS_PER_SM))
+
+
+def _check_valid(valid: Optional[torch.Tensor], keys: torch.Tensor) -> Optional[torch.Tensor]:
+    if valid is None:
+        return None
+    if valid.shape != keys.shape or valid.device != keys.device:
+        raise ValueError("validity must be a [N] mask on the keys' device")
+    return valid.to(torch.bool)
+
+
+def _check_partition(keys: torch.Tensor, num_partitions: int) -> None:
+    if keys.dtype not in (torch.int32, torch.int64) or keys.dim() != 1:
+        raise ValueError(f"partition_map supports 1-D 4/8-byte integer keys, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if not 1 <= num_partitions < 2**31:
+        raise ValueError(f"num_partitions must be in [1, 2^31), got {num_partitions}")
+
+
+def partition_map_plain(keys: torch.Tensor, num_partitions: int,
+                        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of B1: [N] int32 pmod(murmur3_32(key, 42), P), an
+    int64 key hashed as its low then its high word; a null row keeps the
+    seed 42."""
+    _check_partition(keys, num_partitions)
+    valid = _check_valid(valid, keys)
+    if keys.dtype == torch.int64:
+        words = [u32_to_i64(w) for w in split_u64(keys)]
+    else:
+        words = [u32_to_i64(keys)]
+    h = murmur3_words(words, SEED)
+    if valid is not None:
+        h = torch.where(valid, h, SEED)
+    return pmod(h, num_partitions)
+
+
+def partition_map(keys: torch.Tensor, num_partitions: int,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B1: [N] int32 partition ids, bit-exact with ``hash_partition_map``
+    on one INT32/INT64 column. Kernel on CUDA tensors, plain version on
+    CPU tensors; other key types raise ValueError."""
+    _check_partition(keys, num_partitions)
+    valid = _check_valid(valid, keys)
+    if keys.device.type == "cpu":
+        return partition_map_plain(keys, num_partitions, valid)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    if n:
+        keys = keys.contiguous()
+        vptr = None if valid is None else valid.contiguous().data_ptr()
+        rc = _build.library("partition").partition_map_launch(
+            keys.data_ptr(), keys.element_size(), vptr, out.data_ptr(), n, num_partitions,
+            _row_grid(n, keys.device), torch.cuda.current_stream(keys.device).cuda_stream,
+        )
+        _build.check(rc, "partition_map")
+        partition_map.launches += 1
+    return out
+
+
+partition_map.launches = 0
+
+
+def _check_probe(keys: torch.Tensor, table: PagedHashTable) -> None:
+    if keys.dim() != 1:
+        raise ValueError(f"probe keys must be 1-D, got {tuple(keys.shape)}")
+    if (8 if keys.element_size() == 8 else 4) != table.nlimb:
+        raise ValueError("probe key width does not match the build table")
+    if table.meta.device != keys.device:
+        raise ValueError("probe keys and the table must lie on one device")
+
+
+# probe rows compared at once by the plain version ([rows, 128] slots)
+_PLAIN_PROBE_ROWS = 1 << 16
+
+
+def probe_paged_plain(keys: torch.Tensor, valid: Optional[torch.Tensor],
+                      table: PagedHashTable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B4, the reference's algorithm without its limbs:
+    each probe row gathers its bucket's chain pages one step at a time and
+    counts the occupied slots below and equal to its order word. Returns
+    ``(lo, eq)`` int32; a null row visits no pages (``lo`` is its
+    bucket's first rank, ``eq`` 0)."""
+    _check_probe(keys, table)
+    valid = _check_valid(valid, keys)
+    u = order_words(keys)
+    bucket = bucket_of(u, table.num_buckets).clamp(0, table.num_buckets - 1)
+    page_first, _, start = unpack_meta(table.meta[bucket])
+    cnt = table.counts[bucket].to(torch.int64)
+    if valid is not None:
+        cnt = torch.where(valid, cnt, 0)
+    key = compare_form(u)
+    pages = compare_form(table.slots).view(table.n_pages, PAGE)
+    lane = torch.arange(PAGE, device=keys.device)
+    lt = torch.zeros_like(key)
+    eq = torch.zeros_like(key)
+    for r0 in range(0, key.shape[0], _PLAIN_PROBE_ROWS):
+        rows = slice(r0, r0 + _PLAIN_PROBE_ROWS)
+        k, pf, c = key[rows, None], page_first[rows], cnt[rows, None]
+        for step in range(table.c_max):
+            live = (step * PAGE + lane)[None, :] < c
+            s = pages[(pf + step).clamp(max=table.n_pages - 1)]
+            lt[rows] += ((s < k) & live).sum(1)
+            eq[rows] += ((s == k) & live).sum(1)
+    return (start + lt).to(torch.int32), eq.to(torch.int32)
+
+
+def probe_paged(keys: torch.Tensor, valid: Optional[torch.Tensor],
+                table: PagedHashTable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: stream probe keys through the page table. Returns ``(lo, eq)``
+    int32 [N]: probe row i matches build rows
+    ``r_order[lo[i] : lo[i] + eq[i]]`` (equal keys in build-row order).
+    Kernel on CUDA tensors, plain version on CPU tensors."""
+    _check_probe(keys, table)
+    valid = _check_valid(valid, keys)
+    if keys.device.type == "cpu":
+        return probe_paged_plain(keys, valid, table)
+    n = keys.shape[0]
+    dev = keys.device
+    lo = torch.empty((n,), dtype=torch.int32, device=dev)
+    eq = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        words, flip = key_words(keys)
+        words = words.contiguous()
+        vptr = None if valid is None else valid.contiguous().data_ptr()
+        rc = _build.library("join").probe_paged_launch(
+            words.data_ptr(), words.element_size(), int(flip), vptr, table.slots.data_ptr(),
+            table.counts.data_ptr(), table.meta.data_ptr(), table.num_buckets, n,
+            lo.data_ptr(), eq.data_ptr(), _row_grid(n, dev), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(rc, "probe_paged")
+        probe_paged.launches += 1
+    return lo, eq
+
+
+probe_paged.launches = 0
 
 MAX_KEYS = 65536
 

@@ -23,6 +23,8 @@ __all__ = [
     "join_u64",
     "i64_as_i32_pairs",
     "i32_pairs_as_i64",
+    "mul_u32",
+    "rotl_u32",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -76,8 +78,12 @@ def join_u64(lo32: torch.Tensor, hi32: torch.Tensor) -> torch.Tensor:
 
 def i64_as_i32_pairs(x64: torch.Tensor) -> torch.Tensor:
     """Bit reinterpretation [..., N] int64 -> [..., N, 2] int32 (little
-    endian: [..., 0] is the low word). A view where ``x64`` is contiguous."""
+    endian: [..., 0] is the low word). A view where ``x64`` is contiguous
+    and not empty (an empty tensor may carry stride 0, which ``view``
+    refuses)."""
     x64 = x64.contiguous()
+    if x64.numel() == 0:
+        return x64.new_empty((*x64.shape, 2), dtype=torch.int32)
     return x64.view(torch.int32).view(*x64.shape, 2)
 
 
@@ -85,3 +91,26 @@ def i32_pairs_as_i64(x32: torch.Tensor) -> torch.Tensor:
     """Bit reinterpretation [..., N, 2] int32 -> [..., N] int64."""
     x32 = x32.contiguous()
     return x32.view(torch.int64).view(x32.shape[:-1])
+
+
+# The murmur3 arithmetic below works on u32 values held in int64 lanes,
+# each in [0, 2^32): there a signed compare, ``>>`` and ``^`` are already
+# the unsigned ones, and only the multiply and the rotate need care.
+
+
+def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
+    """a * b mod 2^32 for u32 values in int64 lanes (``b`` a tensor of the
+    same kind or an int in [0, 2^32)). A plain int64 product of two 32-bit
+    values reaches 2^64 and overflows the signed lane (it would wrap, and
+    its low 32 bits would still be right, but signed overflow is not a
+    defined result); this splits ``b`` into 16-bit halves instead, so no
+    intermediate exceeds 2^49."""
+    b_lo = b & 0xFFFF
+    b_hi = b >> 16
+    return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & MASK32
+
+
+def rotl_u32(x: torch.Tensor, r: int) -> torch.Tensor:
+    """32-bit rotate left by ``r`` in [1, 32) of u32 values in int64
+    lanes (``x << r`` stays below 2^63)."""
+    return ((x << r) & MASK32) | (x >> (32 - r))

@@ -6,10 +6,10 @@ run without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-B5-B10 and the row transcode are exact; B3 counts are exact and its
-float32 sums are held to rtol 2e-6 / atol 1e-3, the reference's bound,
-because the kernel's atomics add in an order that changes from run to
-run."""
+B1, B4, B5-B10, the row transcode and the join maps are exact; B3
+counts are exact and its float32 sums are held to rtol 2e-6 / atol 1e-3,
+the reference's bound, because the kernel's atomics add in an order that
+changes from run to run."""
 
 import numpy as np
 import pytest
@@ -284,3 +284,131 @@ def test_string_slice_on_the_card_matches_the_cpu(rng):
             np.testing.assert_array_equal(a.to_numpy().view(np.uint8), b.to_numpy().view(np.uint8))
     assert torch.equal(c0, c1)
     torch.testing.assert_close(s0, s1, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the join path: B1 (partition_map) and B4 (probe_paged)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 100_003])
+@pytest.mark.parametrize("p", [1, 7, 200])
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+@pytest.mark.parametrize("nulls", [False, True])
+def test_partition_map_kernel_matches_plain(rng, n, p, np_dt, nulls):
+    info = np.iinfo(np_dt)
+    keys = torch.from_numpy(rng.integers(info.min, info.max, n, dtype=np_dt, endpoint=True)).cuda()
+    valid = torch.from_numpy(rng.random(n) < 0.7).cuda() if nulls else None
+    before = hk.partition_map.launches
+    got = hk.partition_map(keys, p, valid)
+    torch.cuda.synchronize()
+    assert hk.partition_map.launches == before + (1 if n else 0)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, hk.partition_map_plain(keys, p, valid))
+    assert torch.equal(got.cpu(), hk.partition_map_plain(keys.cpu(), p,
+                                                         None if valid is None else valid.cpu()))
+
+
+def _probe_case(rng, case, np_dt):
+    from spark_rapids_jni_tpu_torch.ops import paged_join as pj
+
+    info = np.iinfo(np_dt)
+    if case == "skew":
+        rk = np.full(2000, 7, np_dt)
+        lk = np.asarray([7] * 600 + [3] * 50, np_dt)
+    else:
+        pool = rng.integers(info.min, info.max, 3000, dtype=np_dt, endpoint=True)
+        rk = pool[rng.integers(0, 3000, 40_000 if case == "random" else 5000)]
+        lk = np.concatenate([pool[rng.integers(0, 3000, 200_000)],
+                             rng.integers(info.min, info.max, 50_000, dtype=np_dt)])
+    heavy = case == "null_heavy"
+    rv = torch.from_numpy(rng.random(rk.shape[0]) < (0.3 if heavy else 0.95)).cuda()
+    lv = torch.from_numpy(rng.random(lk.shape[0]) < (0.3 if heavy else 0.9)).cuda()
+    tab = pj.build_paged_table(torch.from_numpy(rk).cuda(), rv)
+    assert tab is not None
+    return torch.from_numpy(lk).cuda(), lv, tab
+
+
+@pytest.mark.parametrize("case", ["random", "null_heavy", "skew"])
+@pytest.mark.parametrize("np_dt", [np.int8, np.int32, np.int64])
+def test_probe_paged_kernel_matches_plain(rng, case, np_dt):
+    lk, lv, tab = _probe_case(rng, case, np_dt)
+    if case == "skew":
+        assert tab.c_max >= 16
+    before = hk.probe_paged.launches
+    lo, eq = hk.probe_paged(lk, lv, tab)
+    torch.cuda.synchronize()
+    assert hk.probe_paged.launches == before + 1
+    wlo, weq = hk.probe_paged_plain(lk, lv, tab)
+    assert torch.equal(lo, wlo) and torch.equal(eq, weq)
+    lo2, eq2 = hk.probe_paged(lk, None, tab)
+    wlo2, weq2 = hk.probe_paged_plain(lk, None, tab)
+    assert torch.equal(lo2, wlo2) and torch.equal(eq2, weq2)
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full"])
+@pytest.mark.parametrize("np_dt,name", [(np.int32, "INT32"), (np.int64, "INT64"),
+                                        (np.uint32, "UINT32")])
+def test_join_gather_maps_on_the_card_match_the_cpu(rng, how, np_dt, name):
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+
+    lk = rng.integers(0, 5000, 100_000).astype(np_dt)
+    rk = rng.choice(8000, 4000, replace=False).astype(np_dt)
+    lv, rv = rng.random(100_000) < 0.9, rng.random(4000) < 0.95
+    out = {}
+    for dev in ("cpu", "cuda"):
+        left = Table.from_numpy([lk], [getattr(pdt, name)], [lv], names=["k"], device=dev)
+        right = Table.from_numpy([rk], [getattr(pdt, name)], [rv], names=["k"], device=dev)
+        before = hk.probe_paged.launches
+        lmap, rmap = pjoin.join_gather_maps(left, right, how)
+        out[dev] = (lmap.cpu(), rmap.cpu(), hk.probe_paged.launches - before)
+    assert torch.equal(out["cpu"][0], out["cuda"][0]) and torch.equal(out["cpu"][1], out["cuda"][1])
+    assert out["cuda"][2] == (0 if how == "full" else 1)
+
+
+def test_join_path_on_the_card_matches_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    nf, nd = 200_000, 16_384
+    fv = rng.random(nf) < 0.9
+    fact = [rng.integers(0, 32_768, nf).astype(np.int32), rng.random(nf).astype(np.float32)]
+    lens = rng.integers(1, 51, nd)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    dim = [rng.choice(32_768, nd, replace=False).astype(np.int32),
+           rng.integers(0, 4096, nd).astype(np.int32),
+           (offs, rng.integers(97, 123, int(offs[-1]), dtype=np.uint8))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        f = Table(carry_table(fact, [pdt.INT32, pdt.FLOAT32], [fv, None], device=dev).columns,
+                  ["item_sk", "price"])
+        d = Table(carry_table(dim, [pdt.INT32, pdt.INT32, pdt.STRING], device=dev).columns,
+                  ["item_sk", "brand_id", "brand"])
+        part, offsets = shuffle.hash_partition(f, 200, ["item_sk"])
+        j = pjoin.inner_join(part, d, ["item_sk"])
+        s, c = aggregate.groupby_sum_bounded(j.column("brand_id").data, j.column("price").data, 4096)
+        out[dev] = (offsets, [x.cpu() for x in (j.column("item_sk").data, j.column("brand").offsets,
+                                                j.column("brand").chars, c)], s.cpu())
+    assert out["cpu"][0] == out["cuda"][0]
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(out["cpu"][2], out["cuda"][2], rtol=RTOL, atol=ATOL)
+
+
+def test_a_failing_launch_raises_and_nothing_degrades(rng, monkeypatch):
+    from spark_rapids_jni_tpu_torch import _build
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+
+    class _Refused:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    host = rng.integers(0, 100, 1000).astype(np.int32)
+    keys = torch.from_numpy(host).cuda()
+    left = Table.from_numpy([host], [pdt.INT32], names=["k"], device="cuda")
+    monkeypatch.setattr(_build, "library", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="partition_map"):
+        hk.partition_map(keys, 7)
+    with pytest.raises(RuntimeError, match="probe_paged"):
+        pjoin.inner_join(left, left, ["k"])

@@ -65,6 +65,15 @@ def test_port_imports_no_jax():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+@pytest.mark.parametrize("mod", ["ops.murmur", "ops.hashing", "ops.bitutils", "ops.sort",
+                                 "ops.copying", "ops.paged_join", "ops.join",
+                                 "parallel.shuffle"])
+def test_join_path_modules_are_walked(mod):
+    # the walk above covers these by name; a module missing from the
+    # package fails here rather than silently leaving the scan
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
 def test_chip_smoke_imports_no_jax():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = []
@@ -99,6 +108,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_kernel_modules_import_without_nvcc():
     code = (
         f"import {PKG}.ops.ragged_bytes, {PKG}.ops.hopper_kernels, {PKG}.ops.row_conversion\n"
+        f"import {PKG}.ops.join, {PKG}.ops.hashing, {PKG}.parallel.shuffle\n"
         f"import {PKG}._build as b\n"
         "print(len(b._libs))\n"
     )
