@@ -40,7 +40,25 @@ checkout (one nvcc per source, all at once), then on one card:
    keys), the counted run must launch B1, B4 and B3, and the partition
    ids, both gather maps (inner and left), every joined column, the
    counts and the sums are checked against numpy oracles;
-5. prints one ``{"kernels": [...]}`` line (nine kernels) and, last, the
+5. the ONEHOT path, B2's own entry point
+   (``hopper_kernels.groupby_sum_bounded``, the counterpart of the
+   reference's ``pallas_groupby_sum_bounded``) at the shape its comment
+   measures: 1,000,000 INT64 keys uniform in [-5, 4101) with a few >= 2^32
+   (dropped, not wrapped) x 4096 keys, float32 values N(0, 1) x 100. B2
+   is held against its plain version and against B3's sums on the same
+   inputs (rtol/atol 1e-4, the reference's bound), timed beside one
+   ``index_add_`` library call, and the counted run must launch it once;
+6. the TPCH path, BASELINE.json configs[1]: the port's ``gen_lineitem`` at
+   6,001,215 rows (TPC-H SF1's lineitem cardinality, 7 columns) through
+   ``q1`` and ``q6`` on the operator tier, then ``q1_fused`` and
+   ``q6_fused`` through the pipeline. Every sum and mean is held bit for
+   bit against an exact rational oracle (integer mantissas summed per
+   exponent in numpy, combined as Python integers, rounded once by
+   ``Fraction``), counts exactly, and the pipeline against the operator
+   tier bit for bit; per-stage times (filter, project, aggregate, end to
+   end), peak memory and a profile. It also times the exact accumulator's
+   two per-segment reductions (masked sums, ``index_add_``) at q1's shape;
+7. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -78,6 +96,11 @@ PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
 STRING_PATH_KERNELS = ("expand_u32_planes", "pack_u8_planes", "groupby_sum_outer", "rotl_take",
                        "var_accumulate", "asm_epilogue", "ragged_compact")
 JOIN_PATH_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
+# the onehot path: B2's entry point at the shape its reference measures
+ONEHOT_ROWS = 1_000_000
+B2_TOL = 1e-4  # the reference's bound for its one-hot kernel
+# the tpch path: TPC-H SF1's lineitem cardinality (TPC-H spec 4.2.5)
+LINEITEM_ROWS = 6_001_215
 
 
 def _mem_rate(name: str) -> float:
@@ -916,6 +939,276 @@ def _check_join_path(side_arrays, fact, part, offsets, dim, joined, sums, counts
             "null_keys": int((~kv).sum()), "sum_max_abs_err": float(np.max(np.abs(got_s - want_s)))}
 
 
+# ---------------------------------------------------------------------------
+# the onehot path: B2's entry point
+# ---------------------------------------------------------------------------
+
+
+def _onehot_inputs(seed: int):
+    """INT64 keys uniform in [-5, 4101) with every 100,003rd >= 2^32, and
+    float32 values N(0, 1) x 100."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-5, NUM_KEYS + 5, ONEHOT_ROWS)
+    keys[::100_003] = 2**32 + rng.integers(0, NUM_KEYS, keys[::100_003].shape[0])
+    vals = (rng.standard_normal(ONEHOT_ROWS) * 100).astype(np.float32)
+    return keys, vals
+
+
+def _onehot_kernel_phase(keys, vals, rate: float):
+    """B2 against its plain version and against B3's sums, with its times."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    got = hk.groupby_sum_bounded(keys, vals, NUM_KEYS)
+    want = hk.groupby_sum_bounded_plain(keys, vals, NUM_KEYS)
+    b3, _ = hk.groupby_sum_outer(keys, vals, NUM_KEYS)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=B2_TOL, atol=B2_TOL):
+        raise AssertionError("groupby_sum_bounded disagrees with its plain version")
+    if not torch.allclose(got, b3, rtol=B2_TOL, atol=B2_TOL):
+        raise AssertionError("groupby_sum_bounded disagrees with B3's sums")
+    seg = torch.where((keys >= 0) & (keys < NUM_KEYS), keys, NUM_KEYS)  # outside the timed call
+    n = keys.shape[0]
+    return {"groupby_sum_bounded": dict(
+        max_abs_err=float((got - want).abs().max()),
+        max_abs_err_vs_b3=float((got - b3).abs().max()),
+        ms=_time_ms(lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS)),
+        device_ms=_device_ms(lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS),
+                             "groupby_shared_kernel"),
+        plain_ms=_time_ms(lambda: hk.groupby_sum_bounded_plain(keys, vals, NUM_KEYS)),
+        library_ms=_time_ms(lambda: torch.zeros(NUM_KEYS + 1, dtype=torch.float32,
+                                                device=keys.device).index_add_(0, seg, vals)[:NUM_KEYS]),
+        library="torch.zeros(K + 1).index_add_(0, seg, vals)[:K], seg built outside the timed region",
+        # reads 12 B a row (int64 key, f32 value), writes 4 B a key
+        bound_ms=(12 * n + 4 * NUM_KEYS) / rate * 1e3, bound_by="bytes",
+        shape=f"int64 [{n}] keys, float32 [{n}] values, K={NUM_KEYS}",
+    )}
+
+
+def _check_onehot(keys, vals, sums) -> float:
+    ind = (keys >= 0) & (keys < NUM_KEYS)
+    want = np.bincount(keys[ind], weights=vals[ind].astype(np.float64), minlength=NUM_KEYS)
+    got = sums.cpu().numpy()
+    if not np.allclose(got, want, rtol=B2_TOL, atol=B2_TOL):
+        raise AssertionError("onehot sums outside rtol/atol 1e-4 of the float64 oracle")
+    return float(np.max(np.abs(got - want)))
+
+
+# ---------------------------------------------------------------------------
+# the tpch path: q1 and q6 on the operator tier and through the pipeline
+# ---------------------------------------------------------------------------
+
+Q1_SUMS = [("qty_sum", "l_quantity"), ("price_sum", "l_extendedprice"),
+           ("disc_price_sum", "disc_price"), ("charge_sum", "charge")]
+Q1_MEANS = [("qty_mean", "l_quantity"), ("price_mean", "l_extendedprice"),
+            ("disc_mean", "l_discount")]
+
+
+def _exact_sums(x: np.ndarray, group: np.ndarray, num: int):
+    """Exact per-group sums of float64 values as Python integers over a
+    common power of two: each value is an integer mantissa times 2^e; the
+    mantissas, split into 27-bit halves so every float64 partial sum stays
+    an exact integer below 2^53, are summed per (group, e) in numpy and
+    combined in Python integers. Returns ([num] numerators, exponent)."""
+    m, e = np.frexp(x)
+    mi = (m * 2.0**53).astype(np.int64)
+    e = e.astype(np.int64) - 53
+    e0 = int(e.min()) if e.size else 0
+    es = np.unique(e)
+    key = group * es.shape[0] + np.searchsorted(es, e)
+    hi = np.bincount(key, weights=(mi >> 27).astype(np.float64), minlength=num * es.shape[0])
+    lo = np.bincount(key, weights=(mi & ((1 << 27) - 1)).astype(np.float64),
+                     minlength=num * es.shape[0])
+    out = [0] * num
+    for g in range(num):
+        for j, ej in enumerate(es):
+            k = g * es.shape[0] + j
+            out[g] += ((int(hi[k]) << 27) + int(lo[k])) << int(ej - e0)
+    return out, e0
+
+
+def _frac_float(num_: int, e0: int, den: int = 1) -> float:
+    from fractions import Fraction
+
+    return float(Fraction(num_ * 2**max(e0, 0), den * 2**max(-e0, 0)))
+
+
+def _tpch_oracle(li):
+    """q1 (dense over the 3 x 2 domain) and q6 from the host copy of
+    lineitem, every float exact: the row products are float64 products
+    (one rounding per operator, as the expression tier computes them), and
+    the sums and means the nearest float64 of the exact rationals."""
+    h = {n: c.to_numpy() for n, c in zip(li.names, li.columns)}
+    f = {n: h[n].view(np.float64) for n in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
+    ship = h["l_shipdate"]
+    keep = ship <= 2526 - 90
+    grp = (h["l_returnflag"].astype(np.int64) * 2 + h["l_linestatus"])[keep]
+    cols = {k: v[keep] for k, v in f.items()}
+    cols["disc_price"] = cols["l_extendedprice"] * (1.0 - cols["l_discount"])
+    cols["charge"] = cols["l_extendedprice"] * (1.0 - cols["l_discount"]) * (1.0 + cols["l_tax"])
+    count = np.bincount(grp, minlength=6)
+    q1 = {"count": count}
+    for name, src in Q1_SUMS:
+        nums, e0 = _exact_sums(cols[src], grp, 6)
+        q1[name] = np.array([_frac_float(v, e0) for v in nums])
+    for name, src in Q1_MEANS:
+        nums, e0 = _exact_sums(cols[src], grp, 6)
+        q1[name] = np.array([_frac_float(v, e0, int(c)) if c else 0.0 for v, c in zip(nums, count)])
+    m6 = ((ship >= 731) & (ship < 1096) & (f["l_discount"] >= 0.05) & (f["l_discount"] <= 0.07)
+          & (f["l_quantity"] < 24.0))
+    rev = f["l_extendedprice"][m6] * f["l_discount"][m6]
+    nums, e0 = _exact_sums(rev, np.zeros(rev.shape[0], np.int64), 1)
+    return q1, _frac_float(nums[0], e0), int(keep.sum()), int(m6.sum())
+
+
+def _q1_dense(out):
+    """Operator-tier q1 rows as the pipeline's dense [6] arrays."""
+    slot = out.column("l_returnflag").to_numpy() * 2 + out.column("l_linestatus").to_numpy()
+    res = {}
+    for name in [n for n, _ in Q1_SUMS + Q1_MEANS]:
+        dense = np.zeros(6, np.float64)
+        dense[slot] = out.column(name).to_numpy().view(np.float64)
+        res[name] = dense
+    res["count"] = np.zeros(6, np.int64)
+    res["count"][slot] = out.column("qty_count_all").to_numpy()
+    return res
+
+
+def _q1_stages(li):
+    """tpch.q1's steps (the same calls, in order) with a synchronize after
+    each: filter (predicate + apply_boolean_mask), project (the two
+    expressions), aggregate (groupby_aggregate)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import copying
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.ops.expressions import col, lit
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = (col("l_shipdate") <= lit(np.int32(tpch.D_1998_12_01 - 90))).evaluate(li)
+    t = copying.apply_boolean_mask(li, pred)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    disc_price = (col("l_extendedprice") * (lit(1.0) - col("l_discount"))).evaluate(t)
+    charge = (col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+              * (lit(1.0) + col("l_tax"))).evaluate(t)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    values = Table([t.column("l_quantity"), t.column("l_extendedprice"), disc_price, charge,
+                    t.column("l_discount")], ["qty", "price", "disc_price", "charge", "disc"])
+    out = groupby_aggregate(t.select(["l_returnflag", "l_linestatus"]), values,
+                            [("qty", "sum"), ("price", "sum"), ("disc_price", "sum"),
+                             ("charge", "sum"), ("qty", "mean"), ("price", "mean"),
+                             ("disc", "mean"), ("qty", "count_all")])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return out, {"filter_ms": (t1 - t0) * 1e3, "project_ms": (t2 - t1) * 1e3,
+                 "aggregate_ms": (t3 - t2) * 1e3, "end_to_end_ms": (t3 - t0) * 1e3}
+
+
+def _q6_stages(li):
+    """tpch.q6's steps with a synchronize after each: filter, project,
+    aggregate (the constant-key groupby_aggregate and the host read)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.models import tpch
+    from spark_rapids_jni_tpu_torch.ops import copying
+    from spark_rapids_jni_tpu_torch.ops.aggregate import groupby_aggregate
+    from spark_rapids_jni_tpu_torch.ops.expressions import col, lit
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = ((col("l_shipdate") >= lit(np.int32(tpch._D_1994_01_01)))
+            & (col("l_shipdate") < lit(np.int32(tpch._D_1995_01_01)))
+            & (col("l_discount") >= lit(0.05)) & (col("l_discount") <= lit(0.07))
+            & (col("l_quantity") < lit(24.0))).evaluate(li)
+    t = copying.apply_boolean_mask(li, pred)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    revenue = (col("l_extendedprice") * col("l_discount")).evaluate(t)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    key = Table([Column(pdt.INT8, data=torch.zeros((t.num_rows,), dtype=torch.int8,
+                                                   device=revenue.device))], ["g"])
+    out = groupby_aggregate(key, Table([revenue], ["revenue"]), [("revenue", "sum")])
+    value = float(out.column("revenue_sum").data[:1].cpu().numpy().view(np.float64)[0])
+    t3 = time.perf_counter()
+    return value, {"filter_ms": (t1 - t0) * 1e3, "project_ms": (t2 - t1) * 1e3,
+                   "aggregate_ms": (t3 - t2) * 1e3, "end_to_end_ms": (t3 - t0) * 1e3}
+
+
+def _tpch_path(li):
+    """q1 and q6 on the operator tier, then q1_fused and q6_fused, once;
+    host ms of each, each ending in a synchronize."""
+    import torch
+    from spark_rapids_jni_tpu_torch.models import compiled, tpch
+
+    out, stage = {}, {}
+    for name, fn in (("q1", tpch.q1), ("q6", tpch.q6), ("q1_fused", compiled.q1_fused),
+                     ("q6_fused", compiled.q6_fused)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(li)
+        torch.cuda.synchronize()
+        stage[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    stage["end_to_end_ms"] = sum(stage.values())
+    return out, stage
+
+
+def _check_tpch(li, out):
+    """Every sum and mean bit-identical to the exact oracle, counts exact,
+    and the pipeline bit-identical to the operator tier."""
+    q1_want, q6_want, n_q1, n_q6 = _tpch_oracle(li)
+    op = _q1_dense(out["q1"])
+    if out["q1"].num_rows != int((q1_want["count"] > 0).sum()):
+        raise AssertionError("q1 group count differs from the oracle")
+    for name, want in q1_want.items():
+        if not np.array_equal(op[name].view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"q1 {name} differs from the exact oracle: {op[name]} vs {want}")
+        fused = out["q1_fused"][name]
+        if not np.array_equal(fused.view(np.uint8), op[name].view(np.uint8)):
+            raise AssertionError(f"q1_fused {name} differs from the operator tier")
+    if not (out["q6"] == q6_want == out["q6_fused"]):
+        raise AssertionError(f"q6 differs: op {out['q6']!r}, fused {out['q6_fused']!r}, "
+                             f"oracle {q6_want!r}")
+    return {"q1_rows_kept": n_q1, "q6_rows_kept": n_q6, "q6_revenue": q6_want,
+            "q1_counts": q1_want["count"].tolist()}
+
+
+def _f64acc_reductions(li, rounds: int = 6):
+    """The exact accumulator at q1's shape (6 groups) over all of
+    lineitem's l_extendedprice, with its per-segment reductions as masked
+    sums and as one index_add_, timed in turns (masked, index_add_, ...;
+    CUDA events, median of 3 a turn) after checking that they agree."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import f64acc
+
+    bits = li.column("l_extendedprice").data
+    seg = (li.column("l_returnflag").data.to(torch.int64) * 2 + li.column("l_linestatus").data)
+    keep = f64acc.SMALL_SEGMENTS
+
+    def run(small: int):
+        f64acc.SMALL_SEGMENTS = small
+        try:
+            return f64acc.segment_sum_f64bits(bits, seg, 6)
+        finally:
+            f64acc.SMALL_SEGMENTS = keep
+
+    if not torch.equal(run(16), run(0)):
+        raise AssertionError("the two per-segment reductions of f64acc disagree")
+    masked, index_add = [], []
+    for _ in range(rounds):
+        masked.append(_time_ms(lambda: run(16), reps=3))
+        index_add.append(_time_ms(lambda: run(0), reps=3))
+    return {"rows": int(bits.shape[0]), "segments": 6, "masked_ms": float(np.median(masked)),
+            "index_add_ms": float(np.median(index_add)), "masked_turns_ms": masked,
+            "index_add_turns_ms": index_add,
+            "index_add_faster_turns": int(sum(b < a for a, b in zip(masked, index_add)))}
+
+
 def _run_counted(wrappers, run):
     """Every launch counter to 0, ``run`` once, the counts back."""
     for w in wrappers.values():
@@ -944,6 +1237,7 @@ def main() -> int:
         from spark_rapids_jni_tpu_torch.columnar import Table
         from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
         from spark_rapids_jni_tpu_torch.interop import carry_table
+        from spark_rapids_jni_tpu_torch.models import tpch
         from spark_rapids_jni_tpu_torch.ops import aggregate
         from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
         from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
@@ -960,7 +1254,7 @@ def main() -> int:
                 "groupby_sum_outer": hk.groupby_sum_outer, "rotl_take": rb.rotl_take,
                 "var_accumulate": rb.var_accumulate, "asm_epilogue": rb.asm_epilogue,
                 "ragged_compact": hk.ragged_compact, "partition_map": hk.partition_map,
-                "probe_paged": hk.probe_paged}
+                "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded}
     paths = {}
 
     # -- the fixed path ------------------------------------------------------
@@ -1102,12 +1396,89 @@ def main() -> int:
                      **jcheck, "table": jkernels["probe_paged"]["table"], "peak_gib": jpeak,
                      "launches": jlaunches, "profile": jprofile}
 
+    del fact, dim, side_arrays
+    torch.cuda.empty_cache()
+
+    # -- the onehot path: B2's entry point -----------------------------------
+    okeys_h, ovals_h = _onehot_inputs(SEED + 3)
+    okeys, ovals = torch.from_numpy(okeys_h).cuda(), torch.from_numpy(ovals_h).cuda()
+    print(f"onehot input: {ONEHOT_ROWS} INT64 keys in [-5, {NUM_KEYS + 5}), "
+          f"{int((okeys_h >= 2**32).sum())} of them >= 2^32, float32 values", flush=True)
+    okernels = _onehot_kernel_phase(okeys, ovals, rate)
+    _print_kernels(okernels)
+
+    def run_onehot():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hk.groupby_sum_bounded(okeys, ovals, NUM_KEYS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, {"groupby_ms": ms, "end_to_end_ms": ms}
+
+    (osums, ostage), olaunches = _run_counted(wrappers, run_onehot)
+    print(f"onehot path launches: {olaunches}", flush=True)
+    if olaunches["groupby_sum_bounded"] != 1:
+        raise AssertionError("the onehot path did not launch groupby_sum_bounded once")
+    oerr = _check_onehot(okeys_h, ovals_h, osums)
+    owarm = _warm_stages(run_onehot)
+    print(f"onehot path checked against np.bincount in float64: max abs err {oerr:.3g}; host ms: "
+          f"first run {_fmt_stages(ostage)}; warm median of 3 {_fmt_stages(owarm)}", flush=True)
+    paths["onehot"] = {**ostage, "warm": owarm, "warm_end_to_end_ms": owarm["end_to_end_ms"],
+                       "rows": ONEHOT_ROWS, "num_keys": NUM_KEYS, "max_abs_err": oerr,
+                       "launches": olaunches}
+    del okeys, ovals, osums
+
+    # -- the tpch path: q1 and q6 at TPC-H SF1's lineitem cardinality --------
+    t0 = time.perf_counter()
+    li = tpch.gen_lineitem(LINEITEM_ROWS, seed=SEED + 4)
+    torch.cuda.synchronize()
+    li_bytes = sum(c.data.numel() * c.data.element_size() for c in li.columns)
+    print(f"tpch input: lineitem {LINEITEM_ROWS} rows x {li.num_columns} columns, {li_bytes} B, "
+          f"made and uploaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    (tout, tstage), tlaunches = _run_counted(wrappers, lambda: _tpch_path(li))
+    print(f"tpch path launches: {tlaunches}", flush=True)
+    tcheck = _check_tpch(li, tout)
+    print(f"tpch path checked against the exact rational oracle: q1 ({tcheck['q1_rows_kept']} rows "
+          f"kept, counts {tcheck['q1_counts']}) sums and means bit-identical on the operator tier, "
+          f"q1_fused bit-identical to it, q6 = q6_fused = {tcheck['q6_revenue']!r} "
+          f"({tcheck['q6_rows_kept']} rows)", flush=True)
+    del tout
+    torch.cuda.reset_peak_memory_stats()
+    twarm = _warm_stages(lambda: _tpch_path(li))
+    tpeak = torch.cuda.max_memory_allocated() / 2**30
+    q1_runs = [_q1_stages(li) for _ in range(4)]
+    if not all(np.array_equal(a.view(np.uint8), b.view(np.uint8))
+               for a, b in zip(_q1_dense(q1_runs[-1][0]).values(), _q1_dense(tpch.q1(li)).values())):
+        raise AssertionError("the staged q1 differs from tpch.q1")
+    q1_split = {k: float(np.median([r[1][k] for r in q1_runs[1:]])) for k in q1_runs[0][1]}
+    q6_runs = [_q6_stages(li) for _ in range(4)]
+    if q6_runs[-1][0] != tcheck["q6_revenue"]:
+        raise AssertionError("the staged q6 differs from the exact oracle")
+    q6_split = {k: float(np.median([r[1][k] for r in q6_runs[1:]])) for k in q6_runs[0][1]}
+    print("tpch path (host clock, ms): first run " + _fmt_stages(tstage) + "; warm median of 3 "
+          + _fmt_stages(twarm) + f"; peak device memory {tpeak:.2f} GiB; q1 stages: first "
+          + _fmt_stages(q1_runs[0][1]) + ", warm median of 3 " + _fmt_stages(q1_split)
+          + "; q6 stages: warm median of 3 " + _fmt_stages(q6_split), flush=True)
+    reductions = _f64acc_reductions(li)
+    print(f"f64acc at q1's shape ({reductions['rows']} rows, 6 segments), median of "
+          f"{len(reductions['masked_turns_ms'])} turns: masked sums {reductions['masked_ms']:.3f} ms, "
+          f"index_add_ {reductions['index_add_ms']:.3f} ms; index_add_ faster in "
+          f"{reductions['index_add_faster_turns']} turns", flush=True)
+    tprofile = _profile_phase(lambda: _tpch_path(li), top=14)
+    paths["tpch"] = {**tstage, "warm": twarm, "warm_end_to_end_ms": twarm["end_to_end_ms"],
+                     "q1_stages_first": q1_runs[0][1], "q1_stages_warm": q1_split,
+                     "q6_stages_first": q6_runs[0][1], "q6_stages_warm": q6_split,
+                     "rows": LINEITEM_ROWS, "input_bytes": li_bytes, **tcheck, "peak_gib": tpeak,
+                     "f64acc_reductions": reductions, "launches": tlaunches, "profile": tprofile}
+    del li, q1_runs, q6_runs
+    torch.cuda.empty_cache()
+
     csrc = "spark_rapids_jni_tpu_torch/csrc/"
     sources = {"expand_u32_planes": csrc + "planes.cu", "pack_u8_planes": csrc + "planes.cu",
                "groupby_sum_outer": csrc + "groupby.cu", "rotl_take": csrc + "strings.cu",
                "var_accumulate": csrc + "strings.cu", "asm_epilogue": csrc + "strings.cu",
                "ragged_compact": csrc + "strings.cu", "partition_map": csrc + "partition.cu",
-               "probe_paged": csrc + "join.cu"}
+               "probe_paged": csrc + "join.cu", "groupby_sum_bounded": csrc + "groupby.cu"}
     replaces = {"expand_u32_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:185",
                 "pack_u8_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
                 "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416",
@@ -1116,21 +1487,23 @@ def main() -> int:
                 "asm_epilogue": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
                 "ragged_compact": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927",
                 "partition_map": "spark_rapids_jni_tpu/ops/pallas_kernels.py:178",
-                "probe_paged": "spark_rapids_jni_tpu/ops/pallas_kernels.py:713"}
+                "probe_paged": "spark_rapids_jni_tpu/ops/pallas_kernels.py:713",
+                "groupby_sum_bounded": "spark_rapids_jni_tpu/ops/pallas_kernels.py:287"}
     # launches: the count on the path whose shapes the times are from
     # (B3/B6/B7 the fixed path, the string kernels the string path, B1/B4
-    # the join path)
+    # the join path, B2 the onehot path)
     timed_on = {**{k: launches for k in kernels}, **{k: slaunches for k in skernels},
-                **{k: jlaunches for k in jkernels}}
+                **{k: jlaunches for k in jkernels}, **{k: olaunches for k in okernels}}
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
          "launches": timed_on[k][k],
-         "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k]},
+         "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
+                              "onehot": olaunches[k], "tpch": tlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{x: r[x] for x in ("parts", "device_ms") if x in r}}
-        for k, r in {**kernels, **skernels, **jkernels}.items()
+         **{x: r[x] for x in ("parts", "device_ms", "max_abs_err_vs_b3") if x in r}}
+        for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

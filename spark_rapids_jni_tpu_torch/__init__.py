@@ -8,8 +8,15 @@ CPU tensors every kernel wrapper runs its plain PyTorch version.
 Slices in this package: the ColumnarBatch handles (``columnar``), the
 JCUDF row <-> column transcode (``ops.row_conversion`` over
 ``ops.ragged_bytes``), the bounded GROUP BY SUM
-(``ops.aggregate.groupby_sum_bounded``), and the shuffle write and
+(``ops.aggregate.groupby_sum_bounded``; the one-hot kernel B2 as
+``ops.hopper_kernels.groupby_sum_bounded``), the shuffle write and
 equi-join tier (``parallel.shuffle.hash_partition`` over
 ``ops.hashing``; ``ops.join`` over ``ops.paged_join``, ``ops.sort`` and
-``ops.copying``).
+``ops.copying``), and TPC-H q1/q6: the expression tier
+(``ops.expressions``), the exact FLOAT64 accumulator (``ops.f64acc``),
+the sort-based GROUP BY (``ops.aggregate.groupby_aggregate``), the
+compiled-plan mechanism (``pipeline``) and the models (``models.datagen``,
+``models.tpch``, ``models.compiled``). All ten TPU kernels of the
+reference have a hand-written counterpart (``ops.hopper_kernels``,
+``ops.ragged_bytes``).
 """

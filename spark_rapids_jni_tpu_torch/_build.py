@@ -41,7 +41,10 @@ SOURCES: Dict[str, tuple] = {
     ),
     "groupby": (
         "groupby.cu",
-        {"groupby_sum_outer_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        {
+            "groupby_sum_outer_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+            "groupby_sum_bounded_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+        },
     ),
     "strings": (
         "strings.cu",

@@ -1,6 +1,15 @@
-"""Order keys for sorting and comparing fixed-width columns (port of the
-JAX package's ``ops/bitutils.total_order_key``; the rest of that module
-is not ported yet).
+"""FLOAT64 bits <-> arithmetic values, and order keys for sorting and
+comparing fixed-width columns (port of the JAX package's
+``ops/bitutils``: ``float_view``, ``float_store``, ``backend_has_f64``
+and ``total_order_key``; ``to_le_bytes`` and ``ragged_positions`` are not
+ported yet).
+
+FLOAT64 columns hold IEEE-754 bits in int64 lanes (``columnar/dtype.py``).
+The reference converts those bits through float32 on backends without a
+float64 datapath; the port computes real float64 on the CPU and on the
+card alike, so it always takes the reference's ``backend_has_f64()``
+branch: ``float_view`` reinterprets the bits, ``float_store`` reinterprets
+back, and a float32 value widens to float64 exactly by a cast.
 
 The reference maps each column to an unsigned integer whose unsigned
 order is the value order. Torch has no unsigned 32/64-bit compare or
@@ -18,7 +27,7 @@ import torch
 from ..columnar.dtype import DType, TypeId
 from .uword import MASK32, u32_to_i64
 
-__all__ = ["total_order_key", "SIGN64"]
+__all__ = ["total_order_key", "SIGN64", "float_view", "float_store", "backend_has_f64"]
 
 SIGN64 = -(1 << 63)
 _INT64_MAX = (1 << 63) - 1
@@ -55,3 +64,28 @@ def total_order_key(data: torch.Tensor, d: DType) -> torch.Tensor:
     if width == 64:
         return data.view(torch.int64) ^ SIGN64
     return data.to(torch.int64) & ((1 << width) - 1)
+
+
+def backend_has_f64() -> bool:
+    """True: torch computes real float64 on the CPU and on the card."""
+    return True
+
+
+def float_view(data: torch.Tensor, d: DType) -> torch.Tensor:
+    """Column storage -> floating values for arithmetic: FLOAT64 bits
+    reinterpreted as float64 (exact), FLOAT32 as it is."""
+    if d.id == TypeId.FLOAT64:
+        return data.view(torch.float64)
+    if d.id == TypeId.FLOAT32:
+        return data
+    raise ValueError(f"float_view on non-floating dtype {d!r}")
+
+
+def float_store(values: torch.Tensor, d: DType) -> torch.Tensor:
+    """Floating values -> column storage: FLOAT64 as int64 IEEE bits (a
+    float32 value widens exactly), FLOAT32 as float32."""
+    if d.id == TypeId.FLOAT64:
+        return values.to(torch.float64).view(torch.int64)
+    if d.id == TypeId.FLOAT32:
+        return values.to(torch.float32)
+    raise ValueError(f"float_store on non-floating dtype {d!r}")

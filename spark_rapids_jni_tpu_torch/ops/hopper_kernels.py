@@ -11,6 +11,13 @@
   binary-searches the row's bucket on a CUDA tensor; ``probe_paged_plain``
   compares the bucket's pages slot by slot, as the reference does, on a
   CPU tensor.
+- ``groupby_sum_bounded`` (B2), the one-hot bounded GROUP BY SUM over
+  at most 4096 keys, the counterpart of ``pallas_groupby_sum_bounded``
+  (the ``pallas_`` prefix dropped, as for the others): the kernel in
+  ``csrc/groupby.cu`` on a CUDA tensor, ``groupby_sum_bounded_plain`` on
+  a CPU tensor. Not to be confused with ``ops.aggregate.groupby_sum_bounded``,
+  the GROUP BY SUM + COUNT entry point of the aggregate tier, which
+  routes float32 values to B3 as the reference's does.
 - ``groupby_sum_outer`` (B3), bounded-domain GROUP BY SUM + COUNT, the
   counterpart of ``pallas_groupby_sum_outer``: the hand-written kernel in
   ``csrc/groupby.cu`` on a CUDA tensor, ``groupby_sum_outer_plain`` on a
@@ -40,6 +47,9 @@ from .uword import split_u64, u32_to_i64
 
 __all__ = [
     "MAX_KEYS",
+    "MAX_ONEHOT_KEYS",
+    "groupby_sum_bounded",
+    "groupby_sum_bounded_plain",
     "partition_map",
     "partition_map_plain",
     "probe_paged",
@@ -258,6 +268,65 @@ def groupby_sum_outer(
 
 
 groupby_sum_outer.launches = 0
+
+
+MAX_ONEHOT_KEYS = 4096
+
+
+def _check_onehot(keys: torch.Tensor, vals: torch.Tensor, num_keys: int) -> None:
+    if num_keys > MAX_ONEHOT_KEYS:
+        raise ValueError(f"groupby_sum_bounded supports num_keys <= {MAX_ONEHOT_KEYS}, "
+                         f"got {num_keys}")
+    if num_keys < 0:
+        raise ValueError(f"num_keys must not be negative, got {num_keys}")
+    if keys.dim() != 1 or vals.dim() != 1 or keys.shape[0] != vals.shape[0]:
+        raise ValueError("keys and vals must be 1-D tensors of equal length")
+    if keys.is_floating_point() or keys.dtype == torch.bool:
+        raise ValueError(f"keys must be integers, got {keys.dtype}")
+    if keys.device != vals.device:
+        raise ValueError("keys and vals must lie on one device")
+
+
+def groupby_sum_bounded_plain(keys: torch.Tensor, vals: torch.Tensor,
+                              num_keys: int) -> torch.Tensor:
+    """Plain version of B2: float32 [num_keys] sums. The domain check runs
+    on the key's own width, so an int64 key >= 2^32 drops; values are cast
+    to float32, then summed in float64 and rounded once, as the kernel
+    does."""
+    _check_onehot(keys, vals, num_keys)
+    keep = (keys >= 0) & (keys < num_keys)
+    v = vals[keep].to(torch.float32).to(torch.float64)
+    sums = torch.zeros(num_keys, dtype=torch.float64, device=keys.device)
+    return sums.index_add_(0, keys[keep].to(torch.int64), v).to(torch.float32)
+
+
+def groupby_sum_bounded(keys: torch.Tensor, vals: torch.Tensor, num_keys: int) -> torch.Tensor:
+    """B2: GROUP BY SUM over [0, num_keys), num_keys <= 4096 (ValueError
+    above), float32 [num_keys]; out-of-domain keys are dropped, an empty
+    input gives zeros. Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    _check_onehot(keys, vals, num_keys)
+    if keys.device.type == "cpu":
+        return groupby_sum_bounded_plain(keys, vals, num_keys)
+    dev = keys.device
+    if keys.dtype not in (torch.int32, torch.int64):
+        keys = keys.to(torch.int64)  # widening keeps every value
+    keys = keys.contiguous()
+    vals = vals.to(torch.float32).contiguous()
+    sums = torch.zeros(num_keys, dtype=torch.float64, device=dev)
+    n = keys.shape[0]
+    if n and num_keys:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rc = _build.library("groupby").groupby_sum_bounded_launch(
+            keys.data_ptr(), keys.element_size(), vals.data_ptr(), sums.data_ptr(), n, num_keys,
+            sms * _BLOCKS_PER_SM, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(rc, "groupby_sum_bounded")
+        groupby_sum_bounded.launches += 1
+    return sums.to(torch.float32)
+
+
+groupby_sum_bounded.launches = 0
 
 
 # blocks per SM for the ragged compaction's grid-stride word loop

@@ -112,8 +112,3 @@ def test_groupby_sum_bounded_integer_exact(rng, np_dt):
     np.testing.assert_array_equal(ps.numpy(), np.asarray(js).view(np.int64))
     np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
 
-
-def test_groupby_sum_bounded_f64_bits_not_ported():
-    with pytest.raises(NotImplementedError, match="f64acc"):
-        groupby_sum_bounded(torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
-                            4, f64_bits=True)

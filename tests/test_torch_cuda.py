@@ -412,3 +412,148 @@ def test_a_failing_launch_raises_and_nothing_degrades(rng, monkeypatch):
         hk.partition_map(keys, 7)
     with pytest.raises(RuntimeError, match="probe_paged"):
         pjoin.inner_join(left, left, ["k"])
+
+
+# -- B2, the exact FLOAT64 accumulator and TPC-H q1/q6 ---------------------------------
+
+B2_TOL = 1e-4  # the reference's bound for its one-hot kernel
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 1_000_000])
+@pytest.mark.parametrize("num_keys", [1, 4096])
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+def test_groupby_sum_bounded_kernel_matches_plain(rng, n, num_keys, np_dt):
+    keys = rng.integers(-5, num_keys + 5, n).astype(np_dt)
+    if np_dt == np.int64 and n:
+        keys[:: max(n // 5, 1)] = 2**32 + rng.integers(0, num_keys)  # drop, not wrap
+    k = torch.from_numpy(keys).cuda()
+    v = torch.from_numpy((rng.standard_normal(n) * 100).astype(np.float32)).cuda()
+    before = hk.groupby_sum_bounded.launches
+    got = hk.groupby_sum_bounded(k, v, num_keys)
+    torch.cuda.synchronize()
+    assert hk.groupby_sum_bounded.launches == before + (1 if n else 0)
+    want = hk.groupby_sum_bounded_plain(k, v, num_keys)
+    assert got.dtype == torch.float32 and got.shape == (num_keys,)
+    torch.testing.assert_close(got, want, rtol=B2_TOL, atol=B2_TOL)
+    torch.testing.assert_close(got.cpu(), hk.groupby_sum_bounded(k.cpu(), v.cpu(), num_keys),
+                               rtol=B2_TOL, atol=B2_TOL)
+
+
+def test_groupby_sum_bounded_kernel_agrees_with_b3(rng):
+    keys = torch.from_numpy(rng.integers(-5, 4101, 1_000_000)).cuda()
+    vals = torch.from_numpy((rng.standard_normal(1_000_000) * 100).astype(np.float32)).cuda()
+    s3, _ = hk.groupby_sum_outer(keys, vals, 4096)
+    torch.testing.assert_close(hk.groupby_sum_bounded(keys, vals, 4096), s3, rtol=RTOL, atol=ATOL)
+
+
+def test_groupby_sum_bounded_rejects_large_domain_on_the_card():
+    with pytest.raises(ValueError, match="num_keys"):
+        hk.groupby_sum_bounded(torch.zeros(8, dtype=torch.int32, device="cuda"),
+                               torch.zeros(8, device="cuda"), 4097)
+
+
+def _f64_values(rng, n):
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-300, 300, n)
+    v[::97] = np.inf
+    v[5::101] = -np.inf
+    v[7::211] = np.nan
+    v[::13] = rng.integers(1, 1 << 52, v[::13].shape[0]).view(np.float64)  # subnormals
+    v[3::17] = -0.0
+    return v
+
+
+@pytest.mark.parametrize("n,g", [(0, 3), (1, 1), (10_000, 7), (100_000, 41), (1_000_000, 6)])
+def test_f64acc_on_the_card_matches_the_cpu(rng, n, g):
+    from spark_rapids_jni_tpu_torch.ops import f64acc
+
+    bits = torch.from_numpy(_f64_values(rng, n).view(np.int64))
+    seg = torch.from_numpy(rng.integers(0, g, n))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    for fn in (f64acc.segment_sum_f64bits, f64acc.segment_mean_f64bits):
+        cpu = fn(bits, seg, g, valid=valid)
+        gpu = fn(bits.cuda(), seg.cuda(), g, valid=valid.cuda())
+        cpu, gpu = (cpu, gpu) if isinstance(cpu, torch.Tensor) else (cpu[0], gpu[0])
+        assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_f64acc_conversions_on_the_card_match_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch.ops import f64acc
+
+    x = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, 10_000, dtype=np.int64))
+    cnt = torch.from_numpy(rng.integers(0, 2**31, 10_000))
+    bits = torch.from_numpy(_f64_values(rng, 10_000).view(np.int64))
+    for fn, args in [(f64acc.i64_to_f64bits, (x,)), (f64acc.u64_to_f64bits, (x,)),
+                     (f64acc.mean_i64_div, (x, cnt)),
+                     (lambda s, c: f64acc.mean_i64_div(s, c, unsigned=True), (x, cnt)),
+                     (f64acc.div_f64bits_by_int, (bits, cnt))]:
+        assert torch.equal(fn(*[a.cuda() for a in args]).cpu(), fn(*args))
+
+
+def test_tpch_on_the_card_matches_the_cpu():
+    from spark_rapids_jni_tpu_torch.interop import table_to_numpy
+    from spark_rapids_jni_tpu_torch.models import compiled, tpch
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        li = tpch.gen_lineitem(200_000, seed=7, device=dev)
+        q1 = table_to_numpy(tpch.q1(li))[0]
+        out[dev] = (q1, tpch.q6(li), compiled.q1_fused(li), compiled.q6_fused(li))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert out["cpu"][1] == out["cuda"][1] == out["cuda"][3] == out["cpu"][3]
+    for k, v in out["cpu"][2].items():
+        assert np.array_equal(v.view(np.uint8), out["cuda"][2][k].view(np.uint8)), k
+
+
+def test_groupby_aggregate_on_the_card_matches_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch.interop import carry_table, table_to_numpy
+
+    n = 50_000
+    keys = [rng.integers(0, 40, n).astype(np.int32), rng.integers(0, 3, n).astype(np.int8)]
+    vals = [rng.standard_normal(n).view(np.uint64), rng.integers(-10**9, 10**9, n),
+            rng.integers(0, 2**32, n, dtype=np.uint32)]
+    valid = [rng.random(n) < 0.9, None, rng.random(n) < 0.8]
+    aggs = [(c, h) for c in ("f", "i", "u") for h in ("sum", "mean", "min", "max", "count",
+                                                      "nunique")]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        kt = Table(carry_table(keys, [pdt.INT32, pdt.INT8], device=dev).columns, ["a", "b"])
+        vt = Table(carry_table(vals, [pdt.FLOAT64, pdt.INT64, pdt.UINT32], valid,
+                               device=dev).columns, ["f", "i", "u"])
+        out[dev] = table_to_numpy(aggregate.groupby_aggregate(kt, vt, aggs))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert (a is None and b is None) or np.array_equal(a, b)
+
+
+def test_pipeline_joins_on_the_card_match_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch import pipeline as pp
+    from spark_rapids_jni_tpu_torch.interop import carry_table, table_to_numpy
+    from spark_rapids_jni_tpu_torch.ops.expressions import col
+
+    n, nd = 100_000, 4096
+    fact = [rng.integers(0, 5000, n).astype(np.int32), rng.integers(0, 3, n).astype(np.int8),
+            rng.standard_normal(n).view(np.uint64)]
+    dim = [rng.permutation(5000)[:nd].astype(np.int32), rng.standard_normal(nd).view(np.uint64),
+           rng.integers(0, 2, nd).astype(np.int8)]
+    plans = [
+        pp.PlanSpec(joins=(pp.JoinSpec("d", "fk", "dk", num_keys=5000, payload=("dp",)),),
+                    group_by=(pp.GroupKey("g", 3),),
+                    aggregates=(pp.Agg("dp", "sum"), pp.Agg("v", "mean"), pp.Agg("v", "max"))),
+        pp.PlanSpec(joins=(pp.JoinSpec("d", "fk", "dk", payload=("dp",),
+                                       build_filter=col("flag") == 1),),
+                    aggregates=(pp.Agg("dp", "sum"), pp.Agg("v", "count_all"))),
+        pp.PlanSpec(joins=(pp.JoinSpec("d", "fk", "dk", num_keys=5000, how="anti"),),
+                    filter=col("v") > 0.0, aggregates=(pp.Agg("v", "sum"),)),
+    ]
+    for plan in plans:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            f = Table(carry_table(fact, [pdt.INT32, pdt.INT8, pdt.FLOAT64], device=dev).columns,
+                      ["fk", "g", "v"])
+            d = Table(carry_table(dim, [pdt.INT32, pdt.FLOAT64, pdt.INT8], device=dev).columns,
+                      ["dk", "dp", "flag"])
+            out[dev] = table_to_numpy(pp.compile_plan(plan)(f, {"d": d}))[0]
+        for a, b in zip(out["cpu"], out["cuda"]):
+            assert np.array_equal(a.view(np.uint8), b.view(np.uint8))

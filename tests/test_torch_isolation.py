@@ -67,7 +67,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("mod", ["ops.murmur", "ops.hashing", "ops.bitutils", "ops.sort",
                                  "ops.copying", "ops.paged_join", "ops.join",
-                                 "parallel.shuffle"])
+                                 "parallel.shuffle", "ops.f64acc", "ops.expressions",
+                                 "ops.aggregate", "pipeline", "models", "models.datagen",
+                                 "models.tpch", "models.compiled"])
 def test_join_path_modules_are_walked(mod):
     # the walk above covers these by name; a module missing from the
     # package fails here rather than silently leaving the scan
@@ -101,14 +103,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         Table.from_numpy([arr])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         carry_table([arr], [pdt.INT32])
+    from spark_rapids_jni_tpu_torch.models import datagen, tpch
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpch.gen_lineitem(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        datagen.create_random_table([pdt.INT32, pdt.FLOAT64], 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        datagen.create_random_column(pdt.INT32, 8, np.random.default_rng(0))
     # an explicit CPU device is honoured
     assert Column.from_numpy(arr, device="cpu").device.type == "cpu"
+    assert tpch.gen_lineitem(8, device="cpu").columns[0].device.type == "cpu"
 
 
 def test_kernel_modules_import_without_nvcc():
     code = (
         f"import {PKG}.ops.ragged_bytes, {PKG}.ops.hopper_kernels, {PKG}.ops.row_conversion\n"
         f"import {PKG}.ops.join, {PKG}.ops.hashing, {PKG}.parallel.shuffle\n"
+        f"import {PKG}.pipeline, {PKG}.models\n"
         f"import {PKG}._build as b\n"
         "print(len(b._libs))\n"
     )
