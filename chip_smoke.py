@@ -47,7 +47,10 @@ checkout (one nvcc per source, all at once), then on one card:
    (dropped, not wrapped) x 4096 keys, float32 values N(0, 1) x 100. B2
    is held against its plain version and against B3's sums on the same
    inputs (rtol/atol 1e-4, the reference's bound), timed beside one
-   ``index_add_`` library call, and the counted run must launch it once;
+   ``index_add_`` library call (CUDA events in 30 alternating turns, the
+   profiler's device time, the host's enqueue time), the counted run must launch it once, and the
+   same run under the profiler must put one kernel, B2's, on the card and
+   nothing else;
 6. the TPCH path, BASELINE.json configs[1]: the port's ``gen_lineitem`` at
    6,001,215 rows (TPC-H SF1's lineitem cardinality, 7 columns) through
    ``q1`` and ``q6`` on the operator tier, then ``q1_fused`` and
@@ -127,24 +130,84 @@ def _time_ms(fn, reps: int = REPS, warm: int = 2) -> float:
     return float(np.median(times))
 
 
-def _device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the kernels named like ``kernel`` over ``reps``
-    calls of ``fn``, from torch.profiler's CUDA activity: the kernel alone,
-    without the wrapper's host work that CUDA events around a call also
-    take in. None when the profiler recorded none."""
+def _time_turns(fns, reps: int = 3 * REPS, warm: int = 2):
+    """Median CUDA-event time of one call of each of ``fns``, timed in
+    turns (one call of each a round), so that drift on the shared host
+    falls on all of them alike."""
+    import torch
+
+    for fn in fns:
+        for _ in range(warm):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
+def _device_activities(fn, reps: int = 1, warm: bool = True):
+    """The device activities (kernels, copies, fills) that ``reps`` calls
+    of ``fn`` enqueue, as (name, us) from torch.profiler's CUDA activity,
+    after one warm call unless ``warm`` is False. The tracer runs a
+    warm-up step with one sleep kernel first, so the calls' first launch
+    is not lost to its start; that marker is left out of the result."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    got = []
+
+    def keep(prof):
+        got.extend((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return float(np.mean(us)) / 1e3 if us else None
+        prof.step()
+    return got
+
+
+def _host_us(fn, reps: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work (no
+    synchronize inside the timed loop), after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the kernels named like ``kernel`` over ``reps``
+    calls of ``fn``: the kernel alone, without the wrapper's host work that
+    CUDA events around a call also take in. Raises when the profiler
+    recorded no such kernel (a wrong name, or a kernel that did not run)."""
+    us = [t for name, t in _device_activities(fn, reps) if kernel in name]
+    if not us:
+        raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r}")
+    return float(np.mean(us)) / 1e3
 
 
 def _fmt_stages(stage) -> str:
@@ -373,6 +436,8 @@ def _kernel_phase(table, layout, rate: float):
     results["groupby_sum_outer"] = dict(
         max_abs_err=float((gs - ws).abs().max()),
         ms=_time_ms(lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS)),
+        device_ms=_device_ms(lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS),
+                             "groupby_shared_kernel"),
         plain_ms=_time_ms(lambda: hk.groupby_sum_outer_plain(keys, vals, NUM_KEYS)),
         library_ms=_time_ms(library),
         # reads 12 B a row (int64 key, f32 value), writes 12 B a key
@@ -593,8 +658,11 @@ def _string_kernel_phase(seen, rate: float):
               f"[{n}, {maxvar}]"] = measure(
             [(mats, shifts, maxvar)], fn, rb.var_accumulate_plain, None,
             lambda m, s, w: sum(x.numel() for x in m) + 4 * n * len(m) + n * w)
-    results["var_accumulate"] = combine(parts, library="none: no one call ORs K byte-shifted "
-                                                      "matrices into one")
+    results["var_accumulate"] = combine(
+        parts, library="none: no one call ORs K byte-shifted matrices into one",
+        device_ms=sum(_device_ms(lambda: fn(*args), "var_accumulate_tile_kernel")
+                      for fn, args in seen["var_accumulate"]),
+        host_us=sum(_host_us(lambda: fn(*args), reps=10) for fn, args in seen["var_accumulate"]))
 
     # B10: the row-blob tiles, once
     parts = {}
@@ -969,15 +1037,24 @@ def _onehot_kernel_phase(keys, vals, rate: float):
         raise AssertionError("groupby_sum_bounded disagrees with B3's sums")
     seg = torch.where((keys >= 0) & (keys < NUM_KEYS), keys, NUM_KEYS)  # outside the timed call
     n = keys.shape[0]
+
+    def library():
+        return torch.zeros(NUM_KEYS + 1, dtype=torch.float32,
+                           device=keys.device).index_add_(0, seg, vals)[:NUM_KEYS]
+
+    # both a few microseconds of device work behind ~20 us of host work:
+    # timed in turns, 30 rounds
+    ms, library_ms = _time_turns([lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS), library])
     return {"groupby_sum_bounded": dict(
         max_abs_err=float((got - want).abs().max()),
         max_abs_err_vs_b3=float((got - b3).abs().max()),
-        ms=_time_ms(lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS)),
+        ms=ms,
         device_ms=_device_ms(lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS),
-                             "groupby_shared_kernel"),
+                             "groupby_bounded_kernel"),
+        host_us=_host_us(lambda: hk.groupby_sum_bounded(keys, vals, NUM_KEYS)),
+        library_host_us=_host_us(library),
         plain_ms=_time_ms(lambda: hk.groupby_sum_bounded_plain(keys, vals, NUM_KEYS)),
-        library_ms=_time_ms(lambda: torch.zeros(NUM_KEYS + 1, dtype=torch.float32,
-                                                device=keys.device).index_add_(0, seg, vals)[:NUM_KEYS]),
+        library_ms=library_ms,
         library="torch.zeros(K + 1).index_add_(0, seg, vals)[:K], seg built outside the timed region",
         # reads 12 B a row (int64 key, f32 value), writes 4 B a key
         bound_ms=(12 * n + 4 * NUM_KEYS) / rate * 1e3, bound_by="bytes",
@@ -1221,6 +1298,7 @@ def _print_kernels(kernels):
     for k, r in kernels.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         dev = "" if r.get("device_ms") is None else f", device {r['device_ms']:.4f} ms"
+        dev += "" if r.get("host_us") is None else f", host {r['host_us']:.1f} us a call"
         print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms{dev} "
               f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}), max abs err {r['max_abs_err']}", flush=True)
@@ -1419,13 +1497,31 @@ def main() -> int:
     print(f"onehot path launches: {olaunches}", flush=True)
     if olaunches["groupby_sum_bounded"] != 1:
         raise AssertionError("the onehot path did not launch groupby_sum_bounded once")
+    # the path once more under the profiler: B2's kernel is all it puts on
+    # the card, no fill and no copy. The tracer has missed a launch on rare
+    # occasions, so up to three counted runs are traced: none may show any
+    # other device work, and one must show B2's kernel alone.
+    for attempt in range(1, 4):
+        oacts, oprof_launches = _run_counted(wrappers, lambda: _device_activities(
+            lambda: hk.groupby_sum_bounded(okeys, ovals, NUM_KEYS), warm=False))
+        print(f"onehot path under the profiler (run {attempt}): {len(oacts)} device activities "
+              f"{[(name[:80], us) for name, us in oacts]}, launches {oprof_launches}", flush=True)
+        if oprof_launches["groupby_sum_bounded"] != 1 or any(
+                "groupby_bounded_kernel" not in name for name, _ in oacts):
+            raise AssertionError("one groupby_sum_bounded call enqueued other device work than "
+                                 "its one kernel")
+        if len(oacts) == 1:
+            break
+    else:
+        raise AssertionError("the profiler never showed groupby_sum_bounded's one kernel")
     oerr = _check_onehot(okeys_h, ovals_h, osums)
     owarm = _warm_stages(run_onehot)
     print(f"onehot path checked against np.bincount in float64: max abs err {oerr:.3g}; host ms: "
           f"first run {_fmt_stages(ostage)}; warm median of 3 {_fmt_stages(owarm)}", flush=True)
     paths["onehot"] = {**ostage, "warm": owarm, "warm_end_to_end_ms": owarm["end_to_end_ms"],
                        "rows": ONEHOT_ROWS, "num_keys": NUM_KEYS, "max_abs_err": oerr,
-                       "launches": olaunches}
+                       "launches": olaunches, "device_activities": oacts,
+                       "profiled_runs": attempt}
     del okeys, ovals, osums
 
     # -- the tpch path: q1 and q6 at TPC-H SF1's lineitem cardinality --------
@@ -1502,7 +1598,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{x: r[x] for x in ("parts", "device_ms", "max_abs_err_vs_b3") if x in r}}
+         **{x: r[x] for x in ("parts", "device_ms", "host_us", "library_host_us",
+                              "max_abs_err_vs_b3") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)

@@ -16,6 +16,7 @@ Every C entry point returns ``cudaGetLastError()`` as an int;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,14 +44,14 @@ SOURCES: Dict[str, tuple] = {
         "groupby.cu",
         {
             "groupby_sum_outer_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-            "groupby_sum_bounded_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+            "groupby_sum_bounded_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
         },
     ),
     "strings": (
         "strings.cu",
         {
             "rotl_take_launch": [_P, _P, _P, _I, _I, _I, _P],
-            "var_accumulate_launch": [_P, _I, _P, _I, _I, _P],
+            "var_accumulate_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
             "asm_epilogue_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
             "ragged_compact_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P],
         },
@@ -137,6 +138,22 @@ def library(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, without building a
+    ``torch.cuda.Stream`` object (a few microseconds a call saved)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

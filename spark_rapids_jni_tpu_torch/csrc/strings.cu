@@ -8,9 +8,10 @@
 //   (j + sh/4) % L and the next one, shifted by 8 * (sh % 4).
 // var_accumulate (B9): u32 [N, Lo] = OR over k of the zero-filled byte
 //   shift-right of matrix k (u32 [N, L_k]) by s_k[r] bytes.
-//   Replaces ragged_bytes.py var_accumulate (Pallas body _vacc_kernel).
-//   The K matrices come as a device table of pointers, so nothing is
-//   packed or copied; each output word reads at most two words of each.
+//   Replaces ragged_bytes.py var_accumulate (Pallas body _vacc_kernel:
+//   the K matrices packed into one lane-padded operand, then per column a
+//   log2(W) ladder of conditional lane shifts OR-ed into the output
+//   block). The design is below the general one.
 // asm_epilogue (B10): per destination tile t (G bytes, g4 = G/4 words),
 //   byte i < alen[t] is byte i of (a0 || a1) rotated left by pmod[t], the
 //   rest byte i of c0 shifted right by delta[t] (zero fill).
@@ -24,7 +25,7 @@
 // Bound on an H100: device-memory bytes for all four; none does arithmetic
 // worth counting.
 //
-// Design. B8, B9 and B10 give one thread each output word. A block owns a
+// Design. B8 and B10 give one thread each output word. A block owns a
 // run of whole rows (rows_per_block * words_per_row <= about 2048 words),
 // so the row and word of a thread come from a 32-bit division by the row
 // width, and neighbouring threads write neighbouring words. Shifts are read
@@ -42,6 +43,32 @@
 // byte from the u8 blob itself, and a read past the blob's end yields 0,
 // so no padded word view of the blob is built. All index math is 64-bit:
 // addresses are < 2^31, products with row widths are not.
+//
+// B9 is a scatter, not a gather. A thread an output word that walks all
+// K matrices (the first design) runs about 1,800 loop iterations a row
+// at the string path's shape (K = 16, Lo = 112) for about 140 words that
+// land, and reached a tenth of the byte bound on an NVIDIA H100 80GB HBM3
+// at 700.00 W. Here a block owns a
+// tile of the output in shared memory: tile_rows whole rows, or, where
+// one row is wider than the tile budget, one row's range of tile_words
+// words (the wrapper's vacc_tile_plan picks both). The block zeroes the
+// tile and cuts each matrix's slab (the tile's rows, contiguous in device
+// memory; for a word range, only the source words that can land in it)
+// into items of kVaccGroup words of one row. A thread issues the loads of
+// kVaccItems items (16-byte loads where the address allows, 4-byte loads
+// otherwise) and the items' shifts before it uses any, to keep bytes in
+// flight; then it funnels each item: output word q0 + t of the row, where
+// q0 = (4 j + s_k[r]) / 4 for the item's first word j, takes word t
+// shifted up by the sub-word bits and what word t - 1 spills, one
+// shared-memory atomicOr each (zero words and words outside the tile
+// drop, so shifts >= maxvar leave nothing). After a barrier the tile goes
+// out with coalesced stores. Device traffic is then what the bound
+// counts: each source word and shift read once, each output word written
+// once. OR is order-free, so any shifts are right: overlapping windows,
+// shifts that fall across k. Up to kVaccByValue matrices travel in the
+// kernel's arguments (a __grid_constant__ table, no per-call copy);
+// above that the wrapper passes a device table of the same layout, and
+// the block takes kVaccPass matrices a pass.
 
 #include <cuda_runtime.h>
 
@@ -95,24 +122,146 @@ __global__ void rotl_take_kernel(const uint32_t* __restrict__ x, const int32_t* 
   });
 }
 
-// table: K matrix pointers, then K shift pointers, then K row widths (words)
-__global__ void var_accumulate_kernel(const int64_t* __restrict__ table, int64_t K,
-                                      uint32_t* __restrict__ out, int64_t n, int64_t Lo,
-                                      int64_t rows_per_block) {
-  for_each_word(n, Lo, rows_per_block, [&](int64_t r, int64_t w) {
-    uint32_t acc = 0;
-    for (int64_t k = 0; k < K; ++k) {
-      const uint32_t* mat = reinterpret_cast<const uint32_t*>(table[k]);
-      const int32_t* shifts = reinterpret_cast<const int32_t*>(table[K + k]);
-      const int64_t L = table[2 * K + k];
-      // output byte 4w + i is byte 4w + i - s of the row (zero outside it);
-      // shifts of the row's width or more leave nothing
-      const int64_t t = 4 * w - (int64_t)shifts[r];
-      if (t + 4 <= 0 || t >= 4 * L) continue;
-      acc |= window_word(mat + r * L, L, t);
+// one matrix of B9: [n, L] words and its [n] byte shifts
+struct VaccMat {
+  const uint32_t* mat;
+  const int32_t* shifts;
+  int64_t L;
+};
+constexpr int kVaccByValue = 32;  // matrices passed in the kernel's arguments
+struct VaccTable {
+  VaccMat m[kVaccByValue];
+};
+constexpr int kVaccThreads = 128;
+constexpr int64_t kVaccMaxSmem = 48 * 1024;  // no opt-in attribute below this
+constexpr int kVaccGroup = 8;  // source words an item funnels (two 16-byte loads)
+constexpr int kVaccItems = 4;  // items a thread loads before it funnels them
+constexpr int kVaccPass = 32;  // matrices whose items one pass spreads over the block
+
+// one matrix's source window in a block's tile: words [j0, j0 + words) of
+// each of the tile's rows, as rows x groups items of kVaccGroup words
+struct VaccWin {
+  const uint32_t* src;  // word j0 of row r0
+  const int32_t* sh;    // the shift of row r0
+  int64_t L;            // words a source row
+  int64_t j0, words;
+  uint32_t groups;
+  uint32_t first;  // the pass's items before this matrix's
+};
+
+// grid: one block a tile, either tile_rows rows x all Lo words or, with
+// tile_rows == 1, one row's words [c0, c0 + tile_words); the tile is
+// tile_rows x tile_words words of shared memory, rounded up to whole
+// 16-byte chunks
+__global__ void __launch_bounds__(kVaccThreads)
+    var_accumulate_tile_kernel(const __grid_constant__ VaccTable by_value,
+                               const VaccMat* __restrict__ table, int64_t K,
+                               uint32_t* __restrict__ out, int64_t n, int64_t Lo,
+                               int64_t tile_rows, int64_t tile_words) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  __shared__ VaccWin win[kVaccPass + 1];
+  const VaccMat* mats = table != nullptr ? table : by_value.m;
+  const int64_t col_tiles = (Lo + tile_words - 1) / tile_words;
+  const int64_t r0 = (int64_t)(blockIdx.x / col_tiles) * tile_rows;
+  const int64_t c0 = (int64_t)(blockIdx.x % col_tiles) * tile_words;
+  const int64_t rows = tile_rows < n - r0 ? tile_rows : n - r0;
+  const int64_t cw = tile_words < Lo - c0 ? tile_words : Lo - c0;
+  const int64_t chunks = (rows * tile_words + 3) / 4;
+  for (int64_t i = threadIdx.x; i < chunks; i += blockDim.x)
+    reinterpret_cast<uint4*>(tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int64_t k0 = 0; k0 < K; k0 += kVaccPass) {
+    const int np = K - k0 < kVaccPass ? (int)(K - k0) : kVaccPass;
+    __syncthreads();  // the tile is zero; the last pass is done with win
+    if (threadIdx.x < np) {
+      const VaccMat m = mats[k0 + threadIdx.x];
+      VaccWin v;
+      v.L = m.L;
+      v.sh = m.shifts + r0;
+      v.j0 = 0;
+      v.words = m.L;
+      if (col_tiles > 1 && m.L > 0) {  // one row: the words that land in [4 c0, 4 (c0 + cw))
+        const int64_t s = m.shifts[r0];
+        const int64_t lo = 4 * c0 - s, hi = 4 * (c0 + cw) - s;
+        v.j0 = lo <= 0 ? 0 : lo >> 2;
+        const int64_t j1 = hi <= 0 ? 0 : ((hi + 3) >> 2 < m.L ? (hi + 3) >> 2 : m.L);
+        v.words = j1 > v.j0 ? j1 - v.j0 : 0;
+      }
+      v.src = m.mat + r0 * m.L + v.j0;
+      v.groups = (uint32_t)((v.words + kVaccGroup - 1) / kVaccGroup);
+      win[threadIdx.x] = v;
     }
-    out[r * Lo + w] = acc;
-  });
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t first = 0;
+      for (int b = 0; b < np; ++b) {
+        win[b].first = first;
+        first += (uint32_t)rows * win[b].groups;
+      }
+      win[np].first = first;
+    }
+    __syncthreads();
+
+    const uint32_t total = win[np].first;
+    int m = 0;  // the matrix of a thread's item; its items only rise
+    for (uint32_t base = threadIdx.x; base < total; base += kVaccItems * blockDim.x) {
+      uint32_t w[kVaccItems][kVaccGroup];
+      int64_t d0[kVaccItems];  // the byte of the output row where the item's word 0 lands
+      uint32_t* trow[kVaccItems];
+      bool live[kVaccItems];
+#pragma unroll
+      for (int it = 0; it < kVaccItems; ++it) {
+        const uint32_t i = base + it * blockDim.x;
+        live[it] = i < total;
+        if (!live[it]) continue;
+        while (win[m + 1].first <= i) ++m;
+        const VaccWin& v = win[m];
+        const uint32_t local = i - v.first, rl = local / v.groups, g = local - rl * v.groups;
+        const int64_t jj = (int64_t)g * kVaccGroup;
+        const int64_t cnt = v.words - jj;  // > 0; the item's words are min(cnt, kVaccGroup)
+        const uint32_t* p = v.src + rl * v.L + jj;
+        d0[it] = 4 * (v.j0 + jj) + (int64_t)v.sh[rl];
+        trow[it] = tile + rl * tile_words;
+        if (cnt >= kVaccGroup && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+          const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+          const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+          w[it][0] = a.x, w[it][1] = a.y, w[it][2] = a.z, w[it][3] = a.w;
+          w[it][4] = b.x, w[it][5] = b.y, w[it][6] = b.z, w[it][7] = b.w;
+        } else {
+#pragma unroll
+          for (int t = 0; t < kVaccGroup; ++t) w[it][t] = t < cnt ? __ldg(p + t) : 0u;
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < kVaccItems; ++it) {
+        if (!live[it]) continue;
+        // output word q0 + t takes word t shifted up by b bits and what
+        // word t - 1 spills; words outside the tile's range drop
+        const int64_t q0 = (d0[it] >> 2) - c0;
+        const int b = (int)(d0[it] & 3) * 8;
+        uint32_t prev = 0u;
+#pragma unroll
+        for (int t = 0; t <= kVaccGroup; ++t) {
+          const uint32_t cur = t < kVaccGroup ? w[it][t] : 0u;
+          const uint32_t val = b == 0 ? cur : (cur << b) | (prev >> (32 - b));
+          const int64_t q = q0 + t;
+          if (val != 0u && q >= 0 && q < cw) atomicOr(trow[it] + q, val);
+          prev = cur;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's rows are contiguous in the output when it holds whole rows
+  uint32_t* dst = out + r0 * Lo + c0;
+  const int64_t span = col_tiles == 1 ? rows * Lo : cw;
+  if ((span & 3) == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int64_t i = threadIdx.x; i < span / 4; i += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(tile)[i];
+  } else {
+    for (int64_t i = threadIdx.x; i < span; i += blockDim.x) dst[i] = tile[i];
+  }
 }
 
 __global__ void asm_epilogue_kernel(const uint32_t* __restrict__ a0, const uint32_t* __restrict__ a1,
@@ -188,12 +337,30 @@ extern "C" int rotl_take_launch(const void* x, const void* sh, void* out, int64_
   return (int)cudaGetLastError();
 }
 
-extern "C" int var_accumulate_launch(const void* table, int64_t K, void* out, int64_t n,
-                                     int64_t Lo, void* stream) {
+// B9: host_table holds K VaccMat entries (matrix, shifts, L in words).
+// With dev_table null they travel in the kernel's arguments (K <=
+// kVaccByValue); otherwise dev_table is the same table on the device. out
+// [n, Lo] needs no initial value. tile_rows and tile_words as the
+// wrapper's vacc_tile_plan gives them (tile_rows == 1 where tile_words <
+// Lo).
+extern "C" int var_accumulate_launch(const void* host_table, const void* dev_table, int64_t K,
+                                     void* out, int64_t n, int64_t Lo, int64_t tile_rows,
+                                     int64_t tile_words, void* stream) {
   if (n > 0 && Lo > 0) {
-    const int64_t rpb = rows_per_block(Lo);
-    var_accumulate_kernel<<<row_blocks(n, rpb), kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const int64_t*>(table), K, static_cast<uint32_t*>(out), n, Lo, rpb);
+    if (K < 1 || tile_rows < 1 || tile_words < 1 || (tile_words < Lo && tile_rows != 1) ||
+        (K > kVaccByValue && dev_table == nullptr))
+      return (int)cudaErrorInvalidValue;
+    VaccTable by_value = {};
+    if (dev_table == nullptr) {
+      const VaccMat* host = static_cast<const VaccMat*>(host_table);
+      std::copy(host, host + K, by_value.m);
+    }
+    const int64_t blocks = (n + tile_rows - 1) / tile_rows * ((Lo + tile_words - 1) / tile_words);
+    const size_t smem = (size_t)((tile_rows * tile_words + 3) / 4) * 16;
+    if (blocks > 0x7fffffff || (int64_t)smem > kVaccMaxSmem) return (int)cudaErrorInvalidConfiguration;
+    var_accumulate_tile_kernel<<<(unsigned)blocks, kVaccThreads, smem, (cudaStream_t)stream>>>(
+        by_value, static_cast<const VaccMat*>(dev_table), K, static_cast<uint32_t*>(out), n, Lo,
+        tile_rows, tile_words);
   }
   return (int)cudaGetLastError();
 }

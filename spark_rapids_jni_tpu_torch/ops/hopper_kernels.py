@@ -206,9 +206,9 @@ probe_paged.launches = 0
 
 MAX_KEYS = 65536
 
-# blocks per SM for the kernel's grid-stride row loop: enough to hide
-# atomic latency, few enough that the per-block histogram flush stays
-# small beside the row pass
+# blocks per SM for B3's grid-stride row loop: enough to hide atomic
+# latency, few enough that the per-block histogram flush stays small
+# beside the row pass (B2's launcher sizes its own cooperative grid)
 _BLOCKS_PER_SM = 2
 
 
@@ -300,30 +300,43 @@ def groupby_sum_bounded_plain(keys: torch.Tensor, vals: torch.Tensor,
     return sums.index_add_(0, keys[keep].to(torch.int64), v).to(torch.float32)
 
 
+# B2's most blocks a SM (kOnehotBlocksPerSM in csrc/groupby.cu): the rows
+# of its [blocks, K] float64 partial sums
+_ONEHOT_BLOCKS_PER_SM = 2
+
+
 def groupby_sum_bounded(keys: torch.Tensor, vals: torch.Tensor, num_keys: int) -> torch.Tensor:
     """B2: GROUP BY SUM over [0, num_keys), num_keys <= 4096 (ValueError
     above), float32 [num_keys]; out-of-domain keys are dropped, an empty
     input gives zeros. Kernel on CUDA tensors, plain version on CPU
-    tensors."""
+    tensors. With INT32/INT64 keys and float32 values a call enqueues one
+    kernel and nothing else: its output and its per-block float64 partial
+    sums come from ``torch.empty``."""
     _check_onehot(keys, vals, num_keys)
-    if keys.device.type == "cpu":
-        return groupby_sum_bounded_plain(keys, vals, num_keys)
     dev = keys.device
-    if keys.dtype not in (torch.int32, torch.int64):
-        keys = keys.to(torch.int64)  # widening keeps every value
-    keys = keys.contiguous()
-    vals = vals.to(torch.float32).contiguous()
-    sums = torch.zeros(num_keys, dtype=torch.float64, device=dev)
+    if dev.type == "cpu":
+        return groupby_sum_bounded_plain(keys, vals, num_keys)
     n = keys.shape[0]
-    if n and num_keys:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rc = _build.library("groupby").groupby_sum_bounded_launch(
-            keys.data_ptr(), keys.element_size(), vals.data_ptr(), sums.data_ptr(), n, num_keys,
-            sms * _BLOCKS_PER_SM, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(rc, "groupby_sum_bounded")
-        groupby_sum_bounded.launches += 1
-    return sums.to(torch.float32)
+    if not n or not num_keys:
+        return torch.zeros(num_keys, dtype=torch.float32, device=dev)
+    if keys.dtype != torch.int32 and keys.dtype != torch.int64:
+        keys = keys.to(torch.int64)  # widening keeps every value
+    if vals.dtype != torch.float32:
+        vals = vals.to(torch.float32)
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    blocks = _build.sm_count(dev.index) * _ONEHOT_BLOCKS_PER_SM
+    out = torch.empty(num_keys, dtype=torch.float32, device=dev)
+    partial = torch.empty((blocks, num_keys), dtype=torch.float64, device=dev)
+    rc = _build.library("groupby").groupby_sum_bounded_launch(
+        keys.data_ptr(), keys.element_size(), vals.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        n, num_keys, blocks, _build.raw_stream(dev),
+    )
+    _build.check(rc, "groupby_sum_bounded")
+    groupby_sum_bounded.launches += 1
+    return out
 
 
 groupby_sum_bounded.launches = 0

@@ -30,7 +30,8 @@ whose kernel wrapper lives in ``hopper_kernels``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +54,7 @@ __all__ = [
     "rotl_take_plain",
     "var_accumulate",
     "var_accumulate_plain",
+    "vacc_tile_plan",
     "asm_epilogue",
     "asm_epilogue_plain",
     "padded_extract",
@@ -348,11 +350,12 @@ def _check_vacc(p_mats: Sequence[torch.Tensor], shifts: Sequence[torch.Tensor], 
     if maxvar % 4:
         raise ValueError(f"maxvar must be a multiple of 4, got {maxvar}")
     n = p_mats[0].shape[0]
+    dev = p_mats[0].device
     for p, s in zip(p_mats, shifts):
         if p.dim() != 2 or p.dtype != torch.uint8 or p.shape[1] % 4 or p.shape[1] > maxvar:
             raise ValueError(f"each matrix must be uint8 [N, L] with L % 4 == 0 and L <= {maxvar}, "
                              f"got {tuple(p.shape)} {p.dtype}")
-        if p.shape[0] != n or s.shape != (n,) or p.device != p_mats[0].device or s.device != p.device:
+        if p.shape[0] != n or s.shape != (n,) or p.device != dev or s.device != dev:
             raise ValueError("matrices and shifts must share N rows and one device")
     return n
 
@@ -370,25 +373,63 @@ def var_accumulate_plain(p_mats, shifts, maxvar: int) -> torch.Tensor:
     return _as_u32(v)
 
 
+# B9's shared-memory tile: at most _VACC_TILE_WORDS words (16 KB) and
+# _VACC_TILE_ROWS rows a block; up to _VACC_BY_VALUE matrices travel in the
+# kernel's arguments (kVaccByValue in csrc/strings.cu), more in a device
+# table
+_VACC_TILE_WORDS = 4096
+_VACC_TILE_ROWS = 64
+_VACC_BY_VALUE = 32
+
+
+def vacc_tile_plan(out_words: int, budget: int) -> Tuple[int, int]:
+    """B9's tile of an int32 [N, out_words] output in at most ``budget``
+    words (a positive multiple of 4): ``(tile_rows, tile_words)``. Whole
+    rows where one row fits, at most ``_VACC_TILE_ROWS`` of them and a
+    multiple of 4 where there are 4 or more (so a row slab of a 16-byte
+    aligned matrix stays 16-byte aligned); else one row's range of
+    ``budget`` words. The kernel launches a block for each tile,
+    ``ceil(N / tile_rows) * ceil(out_words / tile_words)``."""
+    if budget < 4 or budget % 4:
+        raise ValueError(f"the tile budget must be a positive multiple of 4 words, got {budget}")
+    if out_words < 1:
+        raise ValueError(f"nothing to tile: out_words={out_words}")
+    if out_words <= budget:
+        rows = min(_VACC_TILE_ROWS, budget // out_words)
+        if rows >= 4:
+            rows -= rows % 4
+        return rows, out_words
+    return 1, budget
+
+
 def var_accumulate(p_mats: Sequence[torch.Tensor], shifts: Sequence[torch.Tensor],
                    maxvar: int) -> torch.Tensor:
     """B9: the variable sections of N rows, int32 [N, maxvar/4] u32 lanes,
     from K uint8 [N, L_k] string matrices (L_k % 4 == 0, L_k <= maxvar)
-    each shifted right by its [N] byte shifts (>= maxvar clears) and
+    each shifted right by its [N] byte shifts (>= 0; >= maxvar clears) and
     OR-ed. Kernel on CUDA tensors, plain version on CPU tensors."""
     n = _check_vacc(p_mats, shifts, maxvar)
     dev = p_mats[0].device
     if dev.type == "cpu":
         return var_accumulate_plain(p_mats, shifts, maxvar)
-    mats = [_as_u32(p) for p in p_mats]  # kept alive until the launch is queued
-    shs = [s.to(torch.int32).contiguous() for s in shifts]
     out = torch.empty((n, maxvar // 4), dtype=torch.int32, device=dev)
     if n and maxvar:
-        k = len(mats)
-        table = torch.tensor([m.data_ptr() for m in mats] + [s.data_ptr() for s in shs]
-                             + [m.shape[1] for m in mats], dtype=torch.int64).to(dev)
+        keep, entries = [], []  # copies stay alive until the launch is queued
+        for p, s in zip(p_mats, shifts):
+            if p.data_ptr() % 4 or not p.is_contiguous():  # the kernel reads 4-byte words
+                p = p.clone(memory_format=torch.contiguous_format)
+            if s.dtype != torch.int32 or not s.is_contiguous():
+                s = s.to(torch.int32).contiguous()
+            keep += (p, s)
+            entries += (p.data_ptr(), s.data_ptr(), p.shape[1] // 4)
+        host = (ctypes.c_int64 * len(entries))(*entries)
+        table = None
+        if len(p_mats) > _VACC_BY_VALUE:
+            table = torch.tensor(entries, dtype=torch.int64).to(dev)
+        rows, words = vacc_tile_plan(maxvar // 4, _VACC_TILE_WORDS)
         rc = _build.library("strings").var_accumulate_launch(
-            table.data_ptr(), k, out.data_ptr(), n, maxvar // 4, _stream(out)
+            ctypes.addressof(host), None if table is None else table.data_ptr(), len(p_mats),
+            out.data_ptr(), n, maxvar // 4, rows, words, _build.raw_stream(dev)
         )
         _build.check(rc, "var_accumulate")
         var_accumulate.launches += 1

@@ -98,3 +98,37 @@ def test_agrees_with_b3_sums(rng):
     vals = torch.from_numpy((rng.standard_normal(20_000) * 100).astype(np.float32))
     s3, _ = hk.groupby_sum_outer(keys, vals, 4096)
     assert torch.equal(hk.groupby_sum_bounded(keys, vals, 4096), s3)
+
+
+def _bincount(keys, vals, num_keys):
+    ind = (keys >= 0) & (keys < num_keys)
+    return np.bincount(keys[ind], weights=vals[ind].astype(np.float64),
+                       minlength=num_keys).astype(np.float32)
+
+
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [0, 1, 1000])
+@pytest.mark.parametrize("num_keys", [0, 1])
+def test_plain_tiny_domains_match_bincount(rng, np_dt, n, num_keys):
+    keys = rng.integers(-2, 3, n).astype(np_dt)
+    vals = (rng.standard_normal(n) * 100).astype(np.float32)
+    got = hk.groupby_sum_bounded_plain(torch.from_numpy(keys), torch.from_numpy(vals), num_keys)
+    assert got.dtype == torch.float32 and got.shape == (num_keys,)
+    np.testing.assert_allclose(got.numpy(), _bincount(keys, vals, num_keys), rtol=TOL, atol=TOL)
+
+
+# (bin, value) pairs written into the values: a NaN bin, +inf and -inf
+# bins, a bin where +inf meets -inf (NaN), a NaN beside an inf
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+@pytest.mark.parametrize("specials", [
+    [(1, np.nan)], [(2, np.inf)], [(3, -np.inf)], [(4, np.inf), (4, -np.inf)],
+    [(5, np.nan), (5, np.inf)], [(0, np.inf), (1, -np.inf), (2, np.nan)]])
+def test_plain_nan_and_inf_bins_match_bincount(rng, np_dt, specials):
+    keys = rng.integers(-1, 9, 2000).astype(np_dt)
+    vals = (rng.standard_normal(2000) * 100).astype(np.float32)
+    for i, (key, special) in enumerate(specials):
+        vals[np.flatnonzero(keys == key)[i]] = special  # i: the pairs' rows differ
+    got = hk.groupby_sum_bounded_plain(torch.from_numpy(keys), torch.from_numpy(vals), 8)
+    want = _bincount(keys, vals, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL, equal_nan=True)
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))

@@ -104,14 +104,19 @@ def test_rotate_guards_the_shift_by_32(rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("widths,maxvar,tail", [
-    ((16, 32), 96, False),
-    ((4, 8, 12, 32), 64, False),
-    ((4, 32, 32), 128, True),   # the tail-lane pseudo column at shift 0
-    ((32,) * 6, 256, True),
-])
-def test_var_accumulate_matches_jax_kernel(rng, widths, maxvar, tail):
-    n = 130
+def _vacc_any(rng, n, widths, maxvar, shift_hi):
+    """Random uint8 [n, w] matrices with every byte possibly set, and
+    independent random shifts in [0, shift_hi) a matrix and a row: windows
+    overlap and shifts fall as well as rise across k."""
+    mats = [rng.integers(0, 256, (n, w), dtype=np.uint8) for w in widths]
+    shifts = [rng.integers(0, shift_hi, n).astype(np.int32) for _ in widths]
+    return mats, shifts
+
+
+def _vacc_disjoint(rng, n, widths, maxvar, tail):
+    """The main path's inputs: strings of one row at increasing, disjoint
+    offsets, the tail-lane pseudo column at shift 0, and the last column's
+    first rows shifted past the section."""
     mats, shifts = [], []
     at = np.full(n, 4 if tail else 0)
     if tail:
@@ -125,6 +130,26 @@ def test_var_accumulate_matches_jax_kernel(rng, widths, maxvar, tail):
         shifts.append(at.astype(np.int32))
         at = at + lens  # strings of one row are disjoint
     shifts[-1][:4] = maxvar + 5  # shifts past the section clear those rows
+    return mats, shifts
+
+
+# the main path's disjoint sections (ids as before), then the input classes
+# a tiled kernel must also get right: overlapping windows, non-monotone
+# shifts, one matrix, one row, a section far wider than the strings
+@pytest.mark.parametrize("make,n,widths,maxvar,arg", [
+    pytest.param(_vacc_disjoint, 130, (16, 32), 96, False, id="widths0-96-False"),
+    pytest.param(_vacc_disjoint, 130, (4, 8, 12, 32), 64, False, id="widths1-64-False"),
+    pytest.param(_vacc_disjoint, 130, (4, 32, 32), 128, True, id="widths2-128-True"),
+    pytest.param(_vacc_disjoint, 130, (32,) * 6, 256, True, id="widths3-256-True"),
+    pytest.param(_vacc_any, 130, (16, 32, 8), 96, 96, id="overlapping"),
+    pytest.param(_vacc_any, 61, (32, 4, 32, 4), 64, 40, id="non-monotone"),
+    pytest.param(_vacc_any, 1, (32, 16), 64, 64, id="one-row"),
+    pytest.param(_vacc_any, 130, (32,), 128, 140, id="one-matrix"),
+    pytest.param(_vacc_disjoint, 1, (8,), 16, False, id="one-row-one-matrix"),
+    pytest.param(_vacc_any, 3, (32, 64, 4096), 4096, 4100, id="wide-section"),
+])
+def test_var_accumulate_matches_jax_kernel(rng, make, n, widths, maxvar, arg):
+    mats, shifts = make(rng, n, widths, maxvar, arg)
     want = np.asarray(jrb.var_accumulate(tuple(jnp.asarray(m) for m in mats),
                                          tuple(jnp.asarray(s) for s in shifts),
                                          maxvar, interpret=True))
