@@ -23,9 +23,15 @@ checkout (one nvcc per source, all at once), then on one card:
    bytes; column 1 the FLOAT32 value, column 2 the INT64 key; validity on
    every third column, string columns among them, so null strings occur),
    about 1.3 KB a row. One run records the arguments the path hands B8,
-   B9, B10 and B5, and each is held against its plain version and timed
-   on exactly those; the counted run then must launch all seven kernels,
-   and its rows, columns, offsets and chars are checked byte for byte;
+   B9, B10 (``assemble_rows``, the blob's compaction from the padded rows)
+   and B5 (``ragged_compact_many``, every string column's characters in
+   one launch), and each is held against its plain version and timed on
+   exactly those, the profiler's device time beside the events; B10's
+   function-level ``asm_epilogue`` kernel is held against its plain
+   version on the tiles the plain composition builds from the same
+   arguments. The counted run then must launch the six kernels of the
+   path (B10 and B5 once each), and its rows, columns, offsets and chars
+   are checked byte for byte;
 4. the JOIN path, TPC-DS q3's shape (a fact batch against a dimension):
    a store_sales-like batch of 1,048,576 rows x 10 columns (INT32
    surrogate keys, INT32 quantity, FLOAT32 prices and profit, an INT64,
@@ -37,7 +43,8 @@ checkout (one nvcc per source, all at once), then on one card:
    table and B4, then the gathers) -> ``groupby_sum_bounded(i_brand_id,
    ss_ext_sales_price, 4096)`` (B3). B1 and B4 are held against their
    plain versions at the path's shapes (B4 also on INT64 copies of the
-   keys), the counted run must launch B1, B4 and B3, and the partition
+   keys; B4, like B3 on the fixed path, timed in turns with its library
+   call), the counted run must launch B1, B4 and B3, and the partition
    ids, both gather maps (inner and left), every joined column, the
    counts and the sums are checked against numpy oracles;
 5. the ONEHOT path, B2's own entry point
@@ -96,8 +103,11 @@ FACT_ROWS = 1_048_576
 DIM_ROWS = 65_536
 ITEM_DOMAIN = 131_072  # item_sk range: about half the valid probes match
 PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
-STRING_PATH_KERNELS = ("expand_u32_planes", "pack_u8_planes", "groupby_sum_outer", "rotl_take",
-                       "var_accumulate", "asm_epilogue", "ragged_compact")
+STRING_PATH_KERNELS = ("pack_u8_planes", "groupby_sum_outer", "rotl_take", "var_accumulate",
+                       "assemble_rows", "ragged_compact_many")
+# launched exactly once by the string path: the blob's compaction and the
+# decode's compaction of all string columns
+STRING_PATH_ONCE = ("assemble_rows", "ragged_compact_many")
 JOIN_PATH_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
 # the onehot path: B2's entry point at the shape its reference measures
 ONEHOT_ROWS = 1_000_000
@@ -433,13 +443,16 @@ def _kernel_phase(table, layout, rate: float):
         return s, torch.bincount(keys, minlength=NUM_KEYS)
 
     n = keys.shape[0]
+    # a few microseconds of device work behind the host's: timed in turns
+    # with the library call, 30 rounds
+    ms, library_ms = _time_turns([lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS), library])
     results["groupby_sum_outer"] = dict(
         max_abs_err=float((gs - ws).abs().max()),
-        ms=_time_ms(lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS)),
+        ms=ms,
         device_ms=_device_ms(lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS),
                              "groupby_shared_kernel"),
         plain_ms=_time_ms(lambda: hk.groupby_sum_outer_plain(keys, vals, NUM_KEYS)),
-        library_ms=_time_ms(library),
+        library_ms=library_ms, library="index_add_ + bincount, in turns with the kernel",
         # reads 12 B a row (int64 key, f32 value), writes 12 B a key
         # (f32 sum, int64 count); one add a row is far below the f32 rate
         bound_ms=(12 * n + 12 * NUM_KEYS) / rate * 1e3, bound_by="bytes",
@@ -561,22 +574,23 @@ def _check_main_path(layout, arrays, valids, rows, dec, sums, counts):
 
 
 def _capture_string_kernels(run):
-    """Run ``run`` once with the wrappers of B8, B9, B10 and B5 recording
-    the arguments the string path hands them, and restore the wrappers.
-    Returns {kernel: [(wrapper, args), ...]}."""
+    """Run ``run`` once with the wrappers of B8, B9, B10 (``assemble_rows``)
+    and B5 (``ragged_compact_many``) recording the arguments the string
+    path hands them, and restore the wrappers. Returns {kernel: [(wrapper,
+    args, kwargs), ...]}."""
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
     from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
     from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
 
-    seen = {"rotl_take": [], "var_accumulate": [], "asm_epilogue": [], "ragged_compact": []}
+    seen = {"rotl_take": [], "var_accumulate": [], "assemble_rows": [], "ragged_compact_many": []}
     sites = [(rb, "rotl_take", "rotl_take"), (rb, "rotl_take32", "rotl_take"),
-             (rc, "var_accumulate", "var_accumulate"), (rb, "asm_epilogue", "asm_epilogue"),
-             (hk, "ragged_compact", "ragged_compact")]
+             (rc, "var_accumulate", "var_accumulate"), (rc, "assemble_rows", "assemble_rows"),
+             (hk, "ragged_compact_many", "ragged_compact_many")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
 
     def recorder(fn, key):
-        def call(*args, **kwargs):  # kwargs: only B5's pool32, unused on the card
-            seen[key].append((fn, args))
+        def call(*args, **kwargs):  # kwargs: only B5's row_starts
+            seen[key].append((fn, args, kwargs))
             return fn(*args, **kwargs)
         # a wrapper counts through its module-level name, which is this
         # recorder while it is installed: the capture run's launches land
@@ -598,10 +612,15 @@ def _string_kernel_phase(seen, rate: float):
     """Each string kernel against its plain version on the arguments the
     string path gave it, and its times summed over the path's launches
     (CUDA events around all of a shape's launches; ``parts`` splits them
-    by shape)."""
+    by shape; "device" the profiler's kernel time, per launch times the
+    launches). B10's row also holds the function-level ``asm_epilogue``
+    kernel against its plain version on the tiles the plain composition
+    builds from the path's arguments, and times the blob's compaction
+    from the padded rows concatenated first (the other way to read them)."""
     import torch
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
     from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+    from spark_rapids_jni_tpu_torch.ops import uword
 
     def u32(x):
         return x if x.dtype == torch.int32 else rb._as_u32(x)
@@ -634,7 +653,7 @@ def _string_kernel_phase(seen, rate: float):
 
     # B8: 16 string extractions (encode) and one fixed-section gather (decode)
     groups = {}
-    for fn, (x, sh, out_w) in seen["rotl_take"]:
+    for fn, (x, sh, out_w), _ in seen["rotl_take"]:
         groups.setdefault((tuple(u8(x).shape), out_w), []).append((fn, x, sh, out_w))
     parts = {}
     for (shape, out_w), calls in groups.items():
@@ -647,12 +666,14 @@ def _string_kernel_phase(seen, rate: float):
             # the window's bytes, the shift, the output
             lambda x, sh, w: x.shape[0] * (2 * w + 4),
         )
-    results["rotl_take"] = combine(parts, library="torch.gather with its index built in the "
-                                                  "timed region")
+    b8 = seen["rotl_take"]
+    results["rotl_take"] = combine(
+        parts, library="torch.gather with its index built in the timed region",
+        device_ms=_device_ms(lambda: [fn(*a) for fn, a, _ in b8], "rotl_take_kernel") * len(b8))
 
     # B9: the variable sections, once
     parts = {}
-    for fn, (mats, shifts, maxvar) in seen["var_accumulate"]:
+    for fn, (mats, shifts, maxvar), _ in seen["var_accumulate"]:
         n = mats[0].shape[0]
         parts[f"{len(mats)} x uint8 [{n}, <= {max(m.shape[1] for m in mats)}] -> "
               f"[{n}, {maxvar}]"] = measure(
@@ -661,40 +682,101 @@ def _string_kernel_phase(seen, rate: float):
     results["var_accumulate"] = combine(
         parts, library="none: no one call ORs K byte-shifted matrices into one",
         device_ms=sum(_device_ms(lambda: fn(*args), "var_accumulate_tile_kernel")
-                      for fn, args in seen["var_accumulate"]),
-        host_us=sum(_host_us(lambda: fn(*args), reps=10) for fn, args in seen["var_accumulate"]))
+                      for fn, args, _ in seen["var_accumulate"]),
+        host_us=sum(_host_us(lambda: fn(*args), reps=10) for fn, args, _ in seen["var_accumulate"]))
 
-    # B10: the row-blob tiles, once
-    parts = {}
-    for fn, args in seen["asm_epilogue"]:
-        t, g = args[0].shape[0], args[-1]
-        parts[f"3 x int32 [{t}, {g // 4}] -> [{t}, {g // 4}]"] = measure(
-            [args], fn, rb.asm_epilogue_plain, None,
+    # B10: the blob's compaction from the padded rows, once
+    parts, extra = {}, {}
+    for fn, args, _ in seen["assemble_rows"]:
+        rp_parts, sizes, offsets, total, min_row = args
+        n = sizes.shape[0]
+        rows_u8 = torch.cat(list(rp_parts), dim=1).view(torch.uint8)  # the library's input
+
+        def library(rp_parts, sizes, offsets, total, min_row, rows_u8=rows_u8):
+            r = torch.arange(sizes.shape[0], device=sizes.device) * rows_u8.shape[1]
+            idx = torch.repeat_interleave(r - offsets[:-1], sizes, output_size=total)
+            return rows_u8.view(-1)[idx + torch.arange(total, device=sizes.device)]
+
+        parts[f"{len(rp_parts)} parts " + " + ".join(
+            f"int32 [{p.shape[0]}, {p.shape[1]}]{' (transposed view)' if p.stride(0) == 1 else ''}"
+            for p in rp_parts) + f" -> uint8 [{total}]"] = measure(
+            [args], fn, rb.assemble_rows_plain, library,
+            # the output's bytes read from the rows and written, the offsets
+            lambda p, s, o, t, m: 2 * t + 8 * (s.shape[0] + 1))
+        got_cat = fn([torch.cat(list(rp_parts), dim=1)], sizes, offsets, total, min_row)
+        if not torch.equal(got_cat, fn(*args)):
+            raise AssertionError("assemble_rows reads concatenated rows otherwise than their parts")
+        extra["layouts_ms"] = {
+            "parts_as_the_path_gives_them": _time_ms(lambda: fn(*args)),
+            "concatenated_first_cat_included": _time_ms(lambda: fn(
+                [torch.cat(list(rp_parts), dim=1)], sizes, offsets, total, min_row))}
+        extra["device_ms"] = _device_ms(lambda: fn(*args), "assemble_rows_kernel")
+        extra["host_us"] = _host_us(lambda: fn(*args), reps=10)
+        del rows_u8, got_cat
+        # the function-level B10 kernel on the tiles the plain composition builds
+        tiles = rb.assemble_tiles(*args)
+        got, want = rb.asm_epilogue(*tiles), rb.asm_epilogue_plain(*tiles)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("asm_epilogue disagrees with its plain version")
+        t, g = tiles[0].shape[0], tiles[-1]
+        extra["function_level"] = dict(
+            name="asm_epilogue", shape=f"3 x int32 [{t}, {g // 4}] -> [{t}, {g // 4}]",
+            max_abs_err=0.0, ms=_time_ms(lambda: rb.asm_epilogue(*tiles)),
+            device_ms=_device_ms(lambda: rb.asm_epilogue(*tiles), "asm_epilogue_kernel"),
+            plain_ms=_time_ms(lambda: rb.asm_epilogue_plain(*tiles), reps=PLAIN_REPS, warm=1),
             # G source bytes a tile (alen from the window, the rest from the
             # next row's head), three scalars, G bytes out
-            lambda *a: a[0].shape[0] * (2 * a[-1] + 12))
-    results["asm_epilogue"] = combine(parts, library="none: the zero-filled shift and the select "
-                                                    "between two sources need a concatenated "
-                                                    "copy before any one gather")
+            bound_ms=t * (2 * g + 12) / rate * 1e3, bound_by="bytes")
+        del tiles, got, want
+    results["assemble_rows"] = combine(
+        parts, library="rows_u8.view(-1)[repeat_interleave(r * S - offsets[:-1], sizes) + "
+                       "arange(total)], index built in the timed region, the padded rows "
+                       "concatenated outside it", **extra)
 
-    # B5: one compaction per string column, over the one row blob
-    calls = [args for _, args in seen["ragged_compact"]]
-    pool = calls[0][0]
+    # B5: every string column's compaction out of the one row blob, one launch
+    (fn, (pool, columns), kwargs), = seen["ragged_compact_many"]
+    starts = kwargs["row_starts"]
     pool32 = rb.build_pool32(pool)  # the plain version's word view, once per blob
 
-    def library(pool, base, offs, total):
-        lens = offs[1:] - offs[:-1]
-        return pool[torch.repeat_interleave(base - offs[:-1], lens, output_size=total)
-                    + torch.arange(total, device=pool.device)]
+    def plain(pool, columns):
+        return [hk.ragged_compact_plain(pool, starts + uword.u32_to_i64(b), o, t, pool32=pool32)
+                for b, o, t in columns]
 
-    parts = {f"{len(calls)} x uint8 blob [{pool.shape[0]}] -> [{calls[0][3]}]": measure(
-        calls, seen["ragged_compact"][0][0],
-        lambda p, b, o, t: hk.ragged_compact_plain(p, b, o, t, pool32=pool32),
-        library,
-        lambda p, b, o, t: 2 * t + 8 * b.shape[0] + 8 * o.shape[0])}
-    results["ragged_compact"] = combine(parts, library="pool[repeat_interleave(base - offs[:-1], "
-                                                      "lens) + arange(total)], index built in "
-                                                      "the timed region")
+    def library(pool, columns):
+        out = []
+        for b, o, t in columns:
+            base = starts + uword.u32_to_i64(b)
+            o = o.to(torch.int64)
+            idx = torch.repeat_interleave(base - o[:-1], o[1:] - o[:-1], output_size=t)
+            out.append(pool[idx + torch.arange(t, device=pool.device)])
+        return out
+
+    def b5(pool, columns):
+        return fn(pool, columns, row_starts=starts)
+
+    got, want = b5(pool, columns), plain(pool, columns)
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("ragged_compact_many disagrees with its plain version")
+    del got, want
+    n = starts.shape[0]
+    totals = [int(t) for _, _, t in columns]
+    results["ragged_compact_many"] = dict(
+        launches=1, max_abs_err=0.0, bound_by="bytes",
+        shape=f"{len(columns)} columns of uint8 blob [{pool.shape[0]}] -> {sum(totals)} B",
+        ms=_time_ms(lambda: b5(pool, columns)),
+        device_ms=_device_ms(lambda: b5(pool, columns), "ragged_compact_rows_kernel"),
+        host_us=_host_us(lambda: b5(pool, columns), reps=10),
+        plain_ms=_time_ms(lambda: plain(pool, columns), reps=PLAIN_REPS, warm=1),
+        library_ms=_time_ms(lambda: library(pool, columns), reps=PLAIN_REPS, warm=1),
+        library="per column pool[repeat_interleave(starts + slot - offs[:-1], lens) + "
+                "arange(total)], index built in the timed region",
+        # the row starts once; a column's int32 slot offsets and offsets,
+        # its bytes read and written
+        bound_ms=(8 * n + sum(4 * n + 4 * (n + 1) + 2 * t for t in totals)) / rate * 1e3,
+        # the per-column kernel's inputs: an int64 base and int64 offsets a column
+        bound_ms_int64_base=sum(2 * t + 8 * n + 8 * (n + 1) for t in totals) / rate * 1e3)
     return results
 
 
@@ -946,16 +1028,19 @@ def _join_kernel_phase(fact, part, dim, rate: float):
     pu = pj.order_words(pkey.data)
     pcomp = (pj.bucket_of(pu, tab.num_buckets) << 32) | pj.compare_form(pu)
     table_bytes = tab.slots.numel() * 4 + tab.counts.numel() * 4 + tab.meta.numel() * 8
+    ms, library_ms = _time_turns([lambda: hk.probe_paged(pkey.data, pkey.validity, tab),
+                                  lambda: (torch.searchsorted(comp, pcomp, side="left"),
+                                           torch.searchsorted(comp, pcomp, side="right"))])
     results["probe_paged"] = dict(
         max_abs_err=0.0,
-        ms=_time_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab)),
+        ms=ms,
         device_ms=_device_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab),
                              "probe_paged_kernel"),
         plain_ms=_time_ms(lambda: hk.probe_paged_plain(pkey.data, pkey.validity, tab)),
-        library_ms=_time_ms(lambda: (torch.searchsorted(comp, pcomp, side="left"),
-                                     torch.searchsorted(comp, pcomp, side="right"))),
+        library_ms=library_ms,
         library="two torch.searchsorted over the sorted int64 (bucket << 32 | order word) "
-                "of the build side, composites built outside the timed region",
+                "of the build side, composites built outside the timed region, in turns "
+                "with the kernel",
         # 4 B key + 1 B validity in, 8 B (lo, eq) out a row; the table once
         bound_ms=(13 * n + table_bytes) / rate * 1e3, bound_by="bytes",
         shape=f"int32 [{n}] keys + validity vs {tab.nm} build rows, {tab.n_pages} pages",
@@ -1302,6 +1387,14 @@ def _print_kernels(kernels):
         print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms{dev} "
               f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}), max abs err {r['max_abs_err']}", flush=True)
+        if "layouts_ms" in r:
+            print(f"kernel {k} by layout (ms): {r['layouts_ms']}", flush=True)
+        if "function_level" in r:
+            f = r["function_level"]
+            print(f"kernel {k}, function-level {f['name']} [{f['shape']}]: {f['ms']:.4f} ms, "
+                  f"device {f['device_ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
+                  f"{f['bound_ms']:.4f} by {f['bound_by']}), max abs err {f['max_abs_err']}",
+                  flush=True)
 
 
 def main() -> int:
@@ -1330,9 +1423,11 @@ def main() -> int:
     rate = _mem_rate(name)
     wrappers = {"expand_u32_planes": rb.expand_u32_planes, "pack_u8_planes": rb.pack_u8_planes,
                 "groupby_sum_outer": hk.groupby_sum_outer, "rotl_take": rb.rotl_take,
-                "var_accumulate": rb.var_accumulate, "asm_epilogue": rb.asm_epilogue,
-                "ragged_compact": hk.ragged_compact, "partition_map": hk.partition_map,
-                "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded}
+                "var_accumulate": rb.var_accumulate, "assemble_rows": rb.assemble_rows,
+                "ragged_compact_many": hk.ragged_compact_many, "partition_map": hk.partition_map,
+                "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded,
+                # the function-level entries of B10 and B5, which no path launches now
+                "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
     paths = {}
 
     # -- the fixed path ------------------------------------------------------
@@ -1406,6 +1501,9 @@ def main() -> int:
     for k in STRING_PATH_KERNELS:
         if slaunches[k] < 1:
             raise AssertionError(f"the string path never launched {k}")
+    for k in STRING_PATH_ONCE:
+        if slaunches[k] != 1:
+            raise AssertionError(f"the string path launched {k} {slaunches[k]} times, not once")
     sum_err = _check_string_path(slayout, sdtypes, sarrays, svalids, rows, dec, sums, counts)
     total = int(rows[0].offsets[-1])
     print(f"string path checked against the numpy oracle: rows and offsets bit-identical on the "
@@ -1418,7 +1516,9 @@ def main() -> int:
     speak = torch.cuda.max_memory_allocated() / 2**30
     print("string path (host clock, ms): first run " + _fmt_stages(sstage) + "; warm median of 3 "
           + _fmt_stages(swarm) + f"; peak device memory {speak:.2f} GiB", flush=True)
-    sprofile = _profile_phase(run_strings, top=14)
+    sprofile = _profile_phase(run_strings, top=14, watch=(
+        "ragged_compact_rows_kernel", "assemble_rows_kernel", "rotl_take_kernel",
+        "var_accumulate_tile_kernel", "pack_u8", "groupby_shared"))
     paths["strings"] = {**sstage, "warm": swarm, "warm_end_to_end_ms": swarm["end_to_end_ms"],
                         "rows": ROWS,
                         "columns": len(sdtypes), "fixed_end": slayout.fixed_end,
@@ -1572,16 +1672,16 @@ def main() -> int:
     csrc = "spark_rapids_jni_tpu_torch/csrc/"
     sources = {"expand_u32_planes": csrc + "planes.cu", "pack_u8_planes": csrc + "planes.cu",
                "groupby_sum_outer": csrc + "groupby.cu", "rotl_take": csrc + "strings.cu",
-               "var_accumulate": csrc + "strings.cu", "asm_epilogue": csrc + "strings.cu",
-               "ragged_compact": csrc + "strings.cu", "partition_map": csrc + "partition.cu",
+               "var_accumulate": csrc + "strings.cu", "assemble_rows": csrc + "strings.cu",
+               "ragged_compact_many": csrc + "strings.cu", "partition_map": csrc + "partition.cu",
                "probe_paged": csrc + "join.cu", "groupby_sum_bounded": csrc + "groupby.cu"}
     replaces = {"expand_u32_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:185",
                 "pack_u8_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
                 "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416",
                 "rotl_take": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324",
                 "var_accumulate": "spark_rapids_jni_tpu/ops/ragged_bytes.py:405",
-                "asm_epilogue": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
-                "ragged_compact": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927",
+                "assemble_rows": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
+                "ragged_compact_many": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927",
                 "partition_map": "spark_rapids_jni_tpu/ops/pallas_kernels.py:178",
                 "probe_paged": "spark_rapids_jni_tpu/ops/pallas_kernels.py:713",
                 "groupby_sum_bounded": "spark_rapids_jni_tpu/ops/pallas_kernels.py:287"}
@@ -1599,7 +1699,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{x: r[x] for x in ("parts", "device_ms", "host_us", "library_host_us",
-                              "max_abs_err_vs_b3") if x in r}}
+                              "max_abs_err_vs_b3", "layouts_ms", "function_level",
+                              "bound_ms_int64_base") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)

@@ -53,7 +53,8 @@ SOURCES: Dict[str, tuple] = {
             "rotl_take_launch": [_P, _P, _P, _I, _I, _I, _P],
             "var_accumulate_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
             "asm_epilogue_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-            "ragged_compact_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P],
+            "ragged_compact_launch": [_P, _P, _I, _I, _P, _I, _I, _P],
+            "assemble_rows_launch": [_P, _I, _P, _I, _P, _I, _P],
         },
     ),
     "partition": (

@@ -30,11 +30,15 @@
   reference's scatter/cummax formulation, ``ragged_bytes.ragged_compact``)
   on a CPU tensor. A CUDA kernel has no VMEM windows to probe, so the
   reference's window caps and its keep-XLA ``None`` do not apply.
+  ``ragged_compact_many`` runs the same kernel over every string column
+  of a decode in one launch, and can add each row's start to its slot
+  offset in the kernel; ``ragged_compact`` is its table of one column.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +46,7 @@ from .. import _build
 from .murmur import SEED, murmur3_words, pmod
 from .paged_join import (PAGE, PagedHashTable, bucket_of, compare_form, key_words, order_words,
                          unpack_meta)
+from .ragged_bytes import build_pool32
 from .ragged_bytes import ragged_compact as ragged_compact_plain
 from .uword import split_u64, u32_to_i64
 
@@ -56,7 +61,9 @@ __all__ = [
     "probe_paged_plain",
     "groupby_sum_outer",
     "groupby_sum_outer_plain",
+    "compact_block_plan",
     "ragged_compact",
+    "ragged_compact_many",
     "ragged_compact_plain",
 ]
 
@@ -342,8 +349,84 @@ def groupby_sum_bounded(keys: torch.Tensor, vals: torch.Tensor, num_keys: int) -
 groupby_sum_bounded.launches = 0
 
 
-# blocks per SM for the ragged compaction's grid-stride word loop
-_COMPACT_BLOCKS_PER_SM = 16
+# B5's grid: output words a block owns (kCompactWords in csrc/strings.cu);
+# up to _COMPACT_BY_VALUE columns travel in the kernel's arguments
+# (kCompactByValue), more in a device table
+_COMPACT_WORDS = 2048
+_COMPACT_BY_VALUE = 32
+
+
+def compact_block_plan(totals: Sequence[int], words: int = _COMPACT_WORDS) -> Tuple[List[int], int]:
+    """B5's grid over string columns of ``totals`` bytes: each column's
+    first block and the launch's block count. A column owns
+    ceil(ceil(total / 4) / words) blocks, in order; an empty one none."""
+    first, blocks = [], 0
+    for t in totals:
+        first.append(blocks)
+        blocks += ((int(t) + 3) // 4 + words - 1) // words
+    return first, blocks
+
+
+def _check_compact(pool: torch.Tensor, columns, row_starts: Optional[torch.Tensor] = None) -> None:
+    if pool.dim() != 1 or pool.dtype != torch.uint8:
+        raise ValueError(f"ragged_compact expects a 1-D uint8 pool, got {tuple(pool.shape)} {pool.dtype}")
+    dev = pool.device
+    for base, offs, _ in columns:
+        if offs.shape != (base.shape[0] + 1,) or base.device != dev or offs.device != dev:
+            raise ValueError("ragged_compact needs base [N] and offs [N+1] on the pool's device")
+        if row_starts is not None and row_starts.shape != base.shape:
+            raise ValueError("row_starts must be [N] on the pool's device")
+    if row_starts is not None and row_starts.device != dev:
+        raise ValueError("row_starts must be [N] on the pool's device")
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor, without a dispatch when it
+    already is one (a launch over 16 columns calls this 48 times)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _compact_launch(pool: torch.Tensor, cols, counter) -> List[torch.Tensor]:
+    """One B5 launch over ``cols``, each ``(base64, off32, offs, total)``
+    (``base64`` int64 [N] or None, ``off32`` int32 [N] u32 bits or None;
+    row r's bytes start at their sum). The outputs are slices of one
+    uint8 buffer, each column 16-byte aligned. ``counter`` is the wrapper
+    whose ``.launches`` moves."""
+    dev = pool.device
+    totals = [int(c[3]) if c[2].shape[0] > 1 else 0 for c in cols]
+    starts, nbytes = [], 0
+    for t in totals:
+        starts.append(nbytes)
+        nbytes += (t + 15) // 16 * 16
+    buf = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    outs = [buf[b : b + t] for b, t in zip(starts, totals)]
+    live = [k for k, t in enumerate(totals) if t]
+    if not live:
+        return outs
+    otype = torch.int32 if all(cols[k][2].dtype == torch.int32 for k in live) else torch.int64
+    first, blocks = compact_block_plan([totals[k] for k in live])
+    pool = _as(pool, torch.uint8)
+    keep, entries = [pool], []
+    addr = buf.data_ptr()
+    for k, fb in zip(live, first):
+        base64, off32, offs, t = cols[k]
+        base64 = None if base64 is None else _as(base64, torch.int64)
+        off32 = None if off32 is None else _as(off32, torch.int32)
+        offs = _as(offs, otype)
+        keep += (base64, off32, offs)
+        entries += (0 if base64 is None else base64.data_ptr(),
+                    0 if off32 is None else off32.data_ptr(), offs.data_ptr(), addr + starts[k],
+                    offs.shape[0] - 1, t, fb)
+    host = (ctypes.c_int64 * len(entries))(*entries)
+    table = None
+    if len(live) > _COMPACT_BY_VALUE:
+        table = torch.tensor(entries, dtype=torch.int64).to(dev)
+    rc = _build.library("strings").ragged_compact_launch(
+        ctypes.addressof(host), None if table is None else table.data_ptr(), len(live),
+        otype.itemsize, pool.data_ptr(), pool.shape[0], blocks, _build.raw_stream(dev))
+    _build.check(rc, "ragged_compact")
+    counter.launches += 1
+    return outs
 
 
 def ragged_compact(
@@ -358,29 +441,41 @@ def ragged_compact(
     as ``ragged_bytes.ragged_compact`` documents. Kernel on CUDA tensors
     (it reads the byte pool itself and ignores ``pool32``), plain version
     on CPU tensors (``pool32``: its word view, shared across columns)."""
-    if pool.dim() != 1 or pool.dtype != torch.uint8:
-        raise ValueError(f"ragged_compact expects a 1-D uint8 pool, got {tuple(pool.shape)} {pool.dtype}")
-    n = base.shape[0]
-    if offs.shape != (n + 1,) or base.device != pool.device or offs.device != pool.device:
-        raise ValueError("ragged_compact needs base [N] and offs [N+1] on the pool's device")
+    _check_compact(pool, [(base, offs, total)])
     if pool.device.type == "cpu":
         return ragged_compact_plain(pool, base, offs, total, pool32=pool32)
-    total = int(total)
-    nwords = (total + 3) // 4
-    out = torch.empty((nwords,), dtype=torch.int32, device=pool.device)
-    if n and total:
-        pool = pool.contiguous()
-        base = base.to(torch.int64).contiguous()
-        offs = offs.to(torch.int64).contiguous()
-        sms = torch.cuda.get_device_properties(pool.device).multi_processor_count
-        rc = _build.library("strings").ragged_compact_launch(
-            pool.data_ptr(), pool.shape[0], base.data_ptr(), offs.data_ptr(), n, total,
-            out.data_ptr(), nwords, sms * _COMPACT_BLOCKS_PER_SM,
-            torch.cuda.current_stream(pool.device).cuda_stream,
-        )
-        _build.check(rc, "ragged_compact")
-        ragged_compact.launches += 1
-    return out.view(torch.uint8)[:total]
+    return _compact_launch(pool, [(base, None, offs, total)], ragged_compact)[0]
 
 
 ragged_compact.launches = 0
+
+
+def ragged_compact_many(
+    pool: torch.Tensor,
+    columns: Sequence[Tuple[torch.Tensor, torch.Tensor, int]],
+    row_starts: Optional[torch.Tensor] = None,
+) -> List[torch.Tensor]:
+    """B5 over several string columns of one pool, one launch: for each
+    ``(base, offs, total)`` the uint8 [total] ``ragged_compact(pool, base,
+    offs, total)``. With ``row_starts`` ([N] int64), each ``base`` is an
+    [N] int32 of u32 slot offsets and row r's bytes start at
+    ``row_starts[r] + base[r]`` (the decode's row start plus the slot's
+    offset, added in the kernel). Kernel on CUDA tensors, the plain
+    version column by column on CPU tensors."""
+    _check_compact(pool, columns, row_starts)
+    if pool.device.type == "cpu":
+        pool32 = build_pool32(pool) if any(int(t) for _, _, t in columns) else None
+        out = []
+        for base, offs, total in columns:
+            if row_starts is not None:
+                base = row_starts.to(torch.int64) + u32_to_i64(base)
+            out.append(ragged_compact_plain(pool, base, offs, total, pool32=pool32))
+        return out
+    if row_starts is None:
+        cols = [(base, None, offs, total) for base, offs, total in columns]
+    else:
+        cols = [(row_starts, base, offs, total) for base, offs, total in columns]
+    return _compact_launch(pool, cols, ragged_compact_many)
+
+
+ragged_compact_many.launches = 0

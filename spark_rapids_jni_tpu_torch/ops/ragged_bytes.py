@@ -12,8 +12,13 @@ and counts its launches in ``.launches``:
   count in ``rotl_take.launches``);
 - ``var_accumulate`` (B9): OR of K byte-shifted string matrices into the
   rows' variable sections (``csrc/strings.cu``);
-- ``asm_epilogue`` (B10): the final row-blob tiles of ``assemble_rows``
-  (``csrc/strings.cu``).
+- ``asm_epilogue`` (B10): the final row-blob tiles of the reference's
+  ``assemble_rows`` (``csrc/strings.cu``), kept as the function-level
+  counterpart of the reference's ``_asm_epilogue``;
+- ``assemble_rows`` (B10 on the encode's path): the whole compaction of
+  padded rows into the ragged blob in one kernel (``csrc/strings.cu``),
+  whose plain version ``assemble_rows_plain`` is the reference's
+  composition around ``asm_epilogue_plain``.
 
 Every ragged access is decomposed as in the reference: a row gather of
 fixed-width OVERLAPPING tiles (stride s, width 2s, so any window of at
@@ -59,6 +64,8 @@ __all__ = [
     "asm_epilogue_plain",
     "padded_extract",
     "assemble_rows",
+    "assemble_rows_plain",
+    "assemble_tiles",
     "build_pool32",
     "ragged_compact",
 ]
@@ -526,15 +533,14 @@ def padded_extract(pool: torch.Tensor, starts: torch.Tensor, max_len: int) -> to
     return rotl_take(g, sh, stride)
 
 
-def assemble_rows(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: int,
-                  min_row_size: int) -> torch.Tensor:
-    """Compact padded rows into the exact 8-aligned ragged blob (uint8
-    [total]).
+def _rows_parts(rp_parts) -> list:
+    return list(rp_parts) if isinstance(rp_parts, (tuple, list)) else [rp_parts]
 
-    ``rp_parts``: int32 [N, *] u32 lane parts concatenated logically
-    (rows are byte sequences in little-endian lanes, bytes >= size_r
-    zero); ``sizes`` [N] the 8-aligned row sizes, ``offsets`` [N+1] their
-    cumsum, ``min_row_size`` a lower bound on them (>= 8).
+
+def assemble_tiles(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: int,
+                   min_row_size: int):
+    """The reference's tiling of ``assemble_rows``: the epilogue's
+    arguments ``(a0, a1, c0, pmod, delta, alen, g_tile)``.
 
     Destination-centric at tile granularity G = pow2 <= min_row_size, at
     most 256, so a destination tile straddles at most two rows: tile t
@@ -542,8 +548,8 @@ def assemble_rows(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: i
     source tiles a0, a1) and the bytes past row r's end from row r+1's
     head (source tile c0). Owners come from one scatter-max and one
     cummax over tiles. The three tile gathers are row gathers of a free
-    reshape of the padded rows; B10 combines them."""
-    parts = list(rp_parts) if isinstance(rp_parts, (tuple, list)) else [rp_parts]
+    reshape of the padded rows."""
+    parts = _rows_parts(rp_parts)
     n = parts[0].shape[0]
     dev = parts[0].device
     s4 = sum(p.shape[1] for p in parts)
@@ -581,9 +587,81 @@ def assemble_rows(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: i
     pmod = p % g_tile
     delta = torch.clamp(d_next - t0, 0, g_tile)
     alen = torch.clamp(d_next - d_r - p, 0, g_tile)
-    out = asm_epilogue(tiles.index_select(0, src_a), tiles.index_select(0, src_a + 1),
-                       tiles.index_select(0, src_c), pmod, delta, alen, g_tile)
-    return u32_rows_to_u8_flat(out)[:total]
+    return (tiles.index_select(0, src_a), tiles.index_select(0, src_a + 1),
+            tiles.index_select(0, src_c), pmod, delta, alen, g_tile)
+
+
+def assemble_rows_plain(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: int,
+                        min_row_size: int) -> torch.Tensor:
+    """Plain version of ``assemble_rows``, the reference's composition:
+    ``assemble_tiles``, ``asm_epilogue_plain``, then the int32 tiles'
+    bytes."""
+    out = asm_epilogue_plain(*assemble_tiles(rp_parts, sizes, offsets, total, min_row_size))
+    return out.view(torch.uint8).reshape(-1)[:total]
+
+
+# assemble_rows' kernel takes up to _ASM_PARTS parts of the padded rows
+# (kAsmParts in csrc/strings.cu)
+_ASM_PARTS = 4
+
+
+def _asm_layout(part: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """A part as the kernel reads it: ``(tensor, ld, transposed)``, row
+    r's word c at ``ld * r + c``, or at ``ld * c + r`` for a transposed
+    view of [W, N] planes; other layouts are copied row-major first."""
+    if part.shape[1] <= 1 or part.stride(1) == 1:
+        return part, part.stride(0), 0
+    if part.stride(0) == 1:
+        return part, part.stride(1), 1
+    part = part.contiguous()
+    return part, part.stride(0), 0
+
+
+def assemble_rows(rp_parts, sizes: torch.Tensor, offsets: torch.Tensor, total: int,
+                  min_row_size: int) -> torch.Tensor:
+    """Compact padded rows into the exact 8-aligned ragged blob (uint8
+    [total]): out[offsets[r] + j] = byte j of padded row r, j < sizes[r].
+
+    ``rp_parts``: int32 [N, *] u32 lane parts concatenated logically
+    (rows are byte sequences in little-endian lanes), each row-major or a
+    transposed view of [*, N] planes; ``sizes`` [N] the 8-aligned row sizes
+    (at least 8), ``offsets`` [N+1] their cumsum, ``min_row_size`` a lower
+    bound on them (>= 8). Kernel on CUDA tensors (it reads ``offsets``
+    only, and each part where it lies: one launch, no copy of the rows),
+    ``assemble_rows_plain`` on CPU tensors."""
+    parts = _rows_parts(rp_parts)
+    n = parts[0].shape[0]
+    dev = parts[0].device
+    if min_row_size < 8 or total % 8:
+        raise ValueError(f"rows must be 8-aligned and at least 8 bytes: min_row_size "
+                         f"{min_row_size}, total {total}")
+    for p in parts:
+        if p.dim() != 2 or p.dtype != torch.int32 or p.shape[0] != n or p.device != dev:
+            raise ValueError("assemble_rows expects int32 [N, *] parts on one device")
+    if offsets.shape != (n + 1,) or offsets.device != dev:
+        raise ValueError("assemble_rows needs offsets [N+1] on the parts' device")
+    if dev.type == "cpu":
+        return assemble_rows_plain(parts, sizes, offsets, total, min_row_size)
+    if len(parts) > _ASM_PARTS:
+        parts = [torch.cat(parts, dim=1)]
+    out = torch.empty((total,), dtype=torch.uint8, device=dev)
+    if n and total:
+        keep, entries = [], []  # copies stay alive until the launch is queued
+        for p in parts:
+            p, ld, transposed = _asm_layout(p)
+            keep.append(p)
+            entries += (p.data_ptr(), p.shape[1], ld, transposed)
+        offsets = offsets.to(torch.int64).contiguous()
+        host = (ctypes.c_int64 * len(entries))(*entries)
+        rc = _build.library("strings").assemble_rows_launch(
+            ctypes.addressof(host), len(parts), offsets.data_ptr(), n, out.data_ptr(), total,
+            _build.raw_stream(dev))
+        _build.check(rc, "assemble_rows")
+        assemble_rows.launches += 1
+    return out
+
+
+assemble_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,11 +23,13 @@ With STRING columns, encode builds the fixed sections as u32 lanes, pulls
 each string column into a padded [N, L] matrix (overlapping-tile gather +
 B8 ``rotl_take``), ORs the matrices into the rows' variable sections with
 B9 (``var_accumulate``), and compacts the padded rows into the ragged
-blob with ``assemble_rows`` (B10 ``asm_epilogue``, then B6). Decode
-gathers each row's fixed section (``padded_extract``, B8), decodes it
-through B7, and compacts each string column's characters out of the blob
-with B5 (``hopper_kernels.ragged_compact``). Tables too large for the
-padded form take the reference's scatter path instead (a size gate).
+blob with ``assemble_rows`` (B10: one kernel reading the fixed sections'
+word planes and the variable sections where they lie). Decode gathers
+each row's fixed section (``padded_extract``, B8), decodes it through
+B7, and compacts every string column's characters out of the blob with
+one B5 launch (``hopper_kernels.ragged_compact_many``). Tables too large
+for the padded form take the reference's scatter path instead (a size
+gate).
 
 On CUDA tensors the kernels are the hand-written ones, on CPU tensors
 their plain versions. Tables of fewer than 8 rows take the plain plane
@@ -49,7 +51,6 @@ from ..columnar.dtype import DType, TypeId
 from . import hopper_kernels, uword
 from .ragged_bytes import (
     assemble_rows,
-    build_pool32,
     expand_u32_planes,
     expand_u32_planes_plain,
     pack_u8_planes,
@@ -349,8 +350,10 @@ def _var_section(chars, starts, lens, shifts, tail_lane: Optional[torch.Tensor],
 def _encode_strings_padded(layout: RowLayout, cols: Sequence[Column], row_offsets: torch.Tensor,
                            total: int, maxlens: Sequence[int], maxvar: int) -> torch.Tensor:
     """Fixed + string table -> uint8 [total] blob through padded rows:
-    fixed sections as u32 lanes, the variable region from B8/B9, and
-    ``assemble_rows`` (B10) to drop each row's padding."""
+    fixed sections as u32 word planes, the variable region from B8/B9,
+    and ``assemble_rows`` (B10) to drop each row's padding; B10 reads the
+    planes through their transposed view, so the padded rows are never
+    concatenated."""
     n = len(cols[0])
     starts, lens = _slots(layout, cols)
     slot_vals = {ci: (starts[k], lens[k]) for k, ci in enumerate(layout.variable_cols)}
@@ -624,20 +627,15 @@ def _string_offsets(lens32: torch.Tensor) -> torch.Tensor:
     return torch.cat([zero, torch.cumsum(lens32, 0, dtype=torch.int32)])
 
 
-def _string_chars(blob, starts, in_off32, offs, total: int, pool32=None) -> torch.Tensor:
-    """One string column's characters out of the row blob (B5): row r's
-    bytes start at starts[r] + its slot offset."""
-    base = starts + uword.u32_to_i64(in_off32)
-    return hopper_kernels.ragged_compact(blob, base, offs.to(torch.int64), total, pool32=pool32)
-
-
 def _finish_column(d: DType, data, vmask, blob, starts) -> Column:
     """Wrap one decoded column as a Column; a STRING column compacts its
-    characters out of the row blob here."""
+    characters out of the row blob here (B5): row r's bytes start at
+    starts[r] plus its slot offset."""
     if d.id == TypeId.STRING:
         in_off, ln32 = data
         offs = _string_offsets(ln32)
-        chars = _string_chars(blob, starts, in_off, offs, int(offs[-1]))
+        chars = hopper_kernels.ragged_compact_many(blob, [(in_off, offs, int(offs[-1]))],
+                                                   row_starts=starts)[0]
         return Column(d, validity=vmask, offsets=offs, chars=chars)
     return Column(d, data=data, validity=vmask)
 
@@ -645,18 +643,18 @@ def _finish_column(d: DType, data, vmask, blob, starts) -> Column:
 def _assemble_from_rows(dtypes: Sequence[DType], datas, valids, blob, starts) -> Table:
     """Decoded (data, validity) per column -> Table. The string columns'
     offsets come from one cumsum each and their totals from one host
-    read for all of them; the characters come out through B5, over one
-    word view of the blob built for the plain version (the kernel reads
-    the bytes themselves)."""
+    read for all of them; the characters of all of them come out of one
+    B5 launch, which adds each row's start to its slot offsets itself."""
     str_idx = [i for i, d in enumerate(dtypes) if d.id == TypeId.STRING]
     built = {}
     if str_idx:
         offs = [_string_offsets(datas[i][1]) for i in str_idx]
         totals = torch.stack([o[-1] for o in offs]).tolist()
-        pool32 = build_pool32(blob) if blob.device.type == "cpu" and any(totals) else None
+        chars = hopper_kernels.ragged_compact_many(
+            blob, [(datas[i][0], offs[k], totals[k]) for k, i in enumerate(str_idx)],
+            row_starts=starts)
         for k, i in enumerate(str_idx):
-            chars = _string_chars(blob, starts, datas[i][0], offs[k], totals[k], pool32)
-            built[i] = Column(dtypes[i], validity=valids[i], offsets=offs[k], chars=chars)
+            built[i] = Column(dtypes[i], validity=valids[i], offsets=offs[k], chars=chars[k])
     return Table([built[i] if i in built else Column(d, data=datas[i], validity=valids[i])
                   for i, d in enumerate(dtypes)])
 

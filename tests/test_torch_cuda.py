@@ -137,7 +137,7 @@ def test_slice_on_the_card_matches_the_cpu(rng):
 
 
 # ---------------------------------------------------------------------------
-# string kernels: B8, B9, B10, B5
+# string kernels: B8, B9, B10 (asm_epilogue, assemble_rows), B5
 # ---------------------------------------------------------------------------
 
 
@@ -294,6 +294,166 @@ def test_ragged_compact_kernel_matches_plain(rng, n, max_len, gap, null_frac, ta
     assert torch.equal(got, want)
 
 
+def _decode_like(rng, n, lens, tail=0, fixed=24, mis=0):
+    """A row blob laid out as the decode sees it: row r holds ``fixed``
+    bytes, then its strings column after column ([n, K] ``lens``), then 0-7
+    pad bytes. Returns (pool, row_starts int64, [K] u32 slot offsets
+    int32, [K] int32 offsets, [K] totals); the pool ends ``tail`` bytes
+    past the last row's strings and starts ``mis`` bytes past a word."""
+    k = lens.shape[1]
+    slot = fixed + np.concatenate([np.zeros((n, 1), np.int64), np.cumsum(lens, 1)[:, :-1]], 1)
+    sizes = fixed + lens.sum(1) + rng.integers(0, 8, n)
+    sizes[-1] = fixed + lens[-1].sum()
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    buf = torch.from_numpy(rng.integers(0, 256, mis + int(sizes.sum()) + tail, dtype=np.uint8)).cuda()
+    offs = [np.concatenate([[0], np.cumsum(lens[:, c])]).astype(np.int32) for c in range(k)]
+    return (buf[mis:], torch.from_numpy(starts).cuda(),
+            [torch.from_numpy(slot[:, c].astype(np.int32)).cuda() for c in range(k)],
+            [torch.from_numpy(o).cuda() for o in offs], [int(o[-1]) for o in offs])
+
+
+def _compact_many_check(pool, starts, slots, offs, totals):
+    before = (hk.ragged_compact_many.launches, hk.ragged_compact.launches)
+    got = hk.ragged_compact_many(pool, list(zip(slots, offs, totals)), row_starts=starts)
+    torch.cuda.synchronize()
+    assert hk.ragged_compact_many.launches == before[0] + (1 if any(totals) else 0)
+    assert hk.ragged_compact.launches == before[1]
+    assert len(got) == len(slots)
+    for g, s, o, t in zip(got, slots, offs, totals):
+        want = hk.ragged_compact_plain(pool, starts + s.to(torch.int64), o, t)
+        assert g.dtype == torch.uint8 and g.shape == (t,)
+        assert torch.equal(g, want)
+    # the same columns with int64 bases, and int64 offsets
+    got64 = hk.ragged_compact_many(pool, [(starts + s.to(torch.int64), o.to(torch.int64), t)
+                                          for s, o, t in zip(slots, offs, totals)])
+    assert all(torch.equal(a, b) for a, b in zip(got64, got))
+
+
+# 1 column, the string path's 16, and more than the 32 the kernel takes
+# in its arguments (a device table); with empty, all-null and sparse
+# columns among them
+@pytest.mark.parametrize("ncols", [1, 16, 40])
+def test_ragged_compact_many_kernel_matches_plain(rng, ncols):
+    n = 20_001
+    lens = rng.integers(1, 33, (n, ncols))
+    for c in range(ncols):
+        if c % 5 == 1:
+            lens[:, c] = 0  # all null
+        elif c % 5 == 2:
+            lens[rng.random(n) < 0.97, c] = 0  # long runs of nulls
+        elif c % 5 == 3:
+            lens[rng.random(n) < 0.1, c] = 0
+    _compact_many_check(*_decode_like(rng, n, lens))
+
+
+def test_ragged_compact_many_kernel_device_table(rng, monkeypatch):
+    # every column through the device table, at 16 columns
+    monkeypatch.setattr(hk, "_COMPACT_BY_VALUE", 4)
+    _compact_many_check(*_decode_like(rng, 5003, rng.integers(0, 40, (5003, 16))))
+
+
+# (rows, longest string, null share, pool bytes past the last string,
+# misalignment): runs of zero-length rows longer than a block stages
+# (300,000 rows, 99.9% null), 1-3 byte strings (more rows a block than it
+# stages), one string longer than a block's 8 KB, strings ending at the
+# pool's last byte, pools that start 1-3 bytes past a word
+@pytest.mark.parametrize("n,max_len,null_frac,tail,mis", [
+    (300_000, 32, 0.999, 0, 0), (100_003, 3, 0.0, 0, 1), (50_000, 1, 0.5, 5, 2),
+    (2001, 32, 0.0, 0, 3), (7, 32, 0.0, 0, 0), (1, 1, 0.0, 0, 1)])
+def test_ragged_compact_many_kernel_classes(rng, n, max_len, null_frac, tail, mis):
+    lens = rng.integers(1, max_len + 1, (n, 3))
+    lens[rng.random((n, 3)) < null_frac] = 0
+    lens[-1, 2] = max(lens[-1, 2], 1)  # the last string ends at the pool's end (tail 0)
+    _compact_many_check(*_decode_like(rng, n, lens, tail=tail, mis=mis))
+
+
+def test_ragged_compact_many_kernel_long_rows(rng):
+    # one string of 100 KB (a dozen blocks), between short ones
+    n = 300
+    lens = rng.integers(0, 33, (n, 2))
+    lens[n // 2, 0] = 100_000
+    lens[n // 3, 1] = 8192 * 3 + 5
+    _compact_many_check(*_decode_like(rng, n, lens, mis=1))
+
+
+def test_ragged_compact_many_empty_columns_launch_nothing(rng):
+    pool, starts, slots, offs, _ = _decode_like(rng, 100, np.zeros((100, 3), np.int64))
+    before = hk.ragged_compact_many.launches
+    got = hk.ragged_compact_many(pool, [(s, o, 0) for s, o in zip(slots, offs)], row_starts=starts)
+    assert hk.ragged_compact_many.launches == before
+    assert [g.shape for g in got] == [(0,)] * 3
+
+
+def _padded_rows(rng, n, min_row, spread, long_row=0):
+    """int32 [N, W] padded rows (bytes past a row's size zero), its sizes
+    and offsets on the card."""
+    sizes = (min_row + rng.integers(0, spread // 8 + 1, n) * 8).astype(np.int64)
+    if long_row:
+        sizes[n // 2] = long_row
+    width = (int(sizes.max()) + 3) // 4 * 4 + 12
+    rp = np.zeros((n, width), np.uint8)
+    for r in range(n):
+        rp[r, : sizes[r]] = rng.integers(0, 256, sizes[r])
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    return (torch.from_numpy(rp).cuda().view(torch.int32), torch.from_numpy(sizes).cuda(),
+            torch.from_numpy(offsets).cuda(), int(offsets[-1]))
+
+
+def _asm_parts(rp32, layout, split):
+    """The padded rows as the kernel may get them: one row-major part, two
+    row-major parts, or the encode's layout (a transposed view of word
+    planes, then a row-major part), or a part that starts a word past a
+    16-byte boundary."""
+    if layout == "rows":
+        return [rp32]
+    if layout == "two":
+        return [rp32[:, :split].contiguous(), rp32[:, split:].contiguous()]
+    if layout == "path":
+        return [rp32[:, :split].t().contiguous().t(), rp32[:, split:].contiguous()]
+    flat = torch.empty(rp32.numel() + 1, dtype=torch.int32, device=rp32.device)
+    view = flat[1:].view(rp32.shape)
+    view.copy_(rp32)
+    return [view]
+
+
+def _asm_check(parts, sizes, offsets, total, min_row):
+    before = (rb.assemble_rows.launches, rb.asm_epilogue.launches)
+    got = rb.assemble_rows(parts, sizes, offsets, total, min_row)
+    torch.cuda.synchronize()
+    assert (rb.assemble_rows.launches, rb.asm_epilogue.launches) == (before[0] + 1, before[1])
+    want = rb.assemble_rows_plain(parts, sizes, offsets, total, min_row)
+    assert got.dtype == torch.uint8 and got.shape == (total,)
+    assert torch.equal(got, want)
+
+
+# min_row 8, 16, 136 and 1016: the plain version's tiles of 8 to 256
+# bytes; every layout the kernel reads
+@pytest.mark.parametrize("min_row,spread", [(8, 24), (16, 300), (136, 128), (1016, 512)])
+@pytest.mark.parametrize("layout", ["rows", "two", "path", "unaligned"])
+def test_assemble_rows_kernel_matches_plain(rng, min_row, spread, layout):
+    rp32, sizes, offsets, total = _padded_rows(rng, 3001, min_row, spread)
+    split = min(rp32.shape[1] - 1, max(1, min_row // 4 - 1 + (min_row // 4) % 2))  # odd where it can
+    _asm_check(_asm_parts(rp32, layout, split), sizes, offsets, total, min_row)
+
+
+@pytest.mark.parametrize("n,min_row,long_row", [(1, 8, 0), (1, 1016, 0), (1, 8, 50_000),
+                                                 (257, 16, 100_000), (40, 1016, 40_008)])
+@pytest.mark.parametrize("layout", ["rows", "path"])
+def test_assemble_rows_kernel_one_row_and_long_rows(rng, n, min_row, long_row, layout):
+    rp32, sizes, offsets, total = _padded_rows(rng, n, min_row, 64, long_row)
+    _asm_check(_asm_parts(rp32, layout, 253 if rp32.shape[1] > 253 else 1), sizes, offsets, total,
+               min_row)
+
+
+def test_assemble_rows_rejects_unaligned_rows():
+    z = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 8, 16], device="cuda")
+    with pytest.raises(ValueError, match="8-aligned"):
+        rb.assemble_rows(z, offs[1:] - offs[:-1], offs, 12, 8)
+    with pytest.raises(ValueError, match="int32"):
+        rb.assemble_rows(z.to(torch.int64), offs[1:] - offs[:-1], offs, 16, 8)
+
+
 def test_string_slice_on_the_card_matches_the_cpu(rng):
     names = ["STRING" if i % 10 == 0 else [pdt.INT32, pdt.FLOAT64, pdt.INT64, pdt.INT16][i % 4]
              for i in range(35)]
@@ -319,21 +479,23 @@ def test_string_slice_on_the_card_matches_the_cpu(rng):
         valids.append(v)
     from spark_rapids_jni_tpu_torch.interop import carry_table
 
-    counts = {k: 0 for k in ("rotl", "vacc", "asm", "compact")}
+    counts = {k: 0 for k in ("rotl", "vacc", "assemble", "compact")}
     out = {}
     for dev in ("cpu", "cuda"):
-        before = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.asm_epilogue.launches,
-                  hk.ragged_compact.launches)
+        before = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.assemble_rows.launches,
+                  hk.ragged_compact_many.launches)
         t = carry_table(arrays, dtypes, valids, device=dev)
         rows = rc.convert_to_rows(t)
         dec = rc.convert_from_rows(rows[0], dtypes)
         s, c = aggregate.groupby_sum_bounded(dec.columns[2].data, dec.columns[1].data, 512)
-        after = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.asm_epilogue.launches,
-                 hk.ragged_compact.launches)
+        after = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.assemble_rows.launches,
+                 hk.ragged_compact_many.launches)
         for k, b, a in zip(counts, before, after):
             counts[k] = a - b
         out[dev] = (rows[0], dec, s.cpu(), c.cpu())
     assert all(v > 0 for v in counts.values()), counts  # the card run launched each kernel
+    # one compaction for the blob and one for all four string columns
+    assert counts["assemble"] == 1 and counts["compact"] == 1, counts
     (r0, d0, s0, c0), (r1, d1, s1, c1) = out["cpu"], out["cuda"]
     assert torch.equal(r0.child.data, r1.child.data.cpu())
     assert torch.equal(r0.offsets, r1.offsets.cpu())
@@ -473,6 +635,27 @@ def test_a_failing_launch_raises_and_nothing_degrades(rng, monkeypatch):
         hk.partition_map(keys, 7)
     with pytest.raises(RuntimeError, match="probe_paged"):
         pjoin.inner_join(left, left, ["k"])
+
+
+def test_a_refused_string_launch_raises(rng, monkeypatch):
+    from spark_rapids_jni_tpu_torch import _build
+
+    class _Refused:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    pool, starts, slots, offs, totals = _decode_like(rng, 1000, rng.integers(1, 9, (1000, 2)))
+    rp32, sizes, offsets, total = _padded_rows(rng, 100, 16, 64)
+    before = (hk.ragged_compact_many.launches, hk.ragged_compact.launches, rb.assemble_rows.launches)
+    monkeypatch.setattr(_build, "library", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="ragged_compact"):
+        hk.ragged_compact_many(pool, list(zip(slots, offs, totals)), row_starts=starts)
+    with pytest.raises(RuntimeError, match="ragged_compact"):
+        hk.ragged_compact(pool, starts + slots[0].to(torch.int64), offs[0], totals[0])
+    with pytest.raises(RuntimeError, match="assemble_rows"):
+        rb.assemble_rows([rp32], sizes, offsets, total, 16)
+    assert (hk.ragged_compact_many.launches, hk.ragged_compact.launches,
+            rb.assemble_rows.launches) == before
 
 
 # -- B2, the exact FLOAT64 accumulator and TPC-H q1/q6 ---------------------------------
