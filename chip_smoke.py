@@ -6,10 +6,13 @@ checkout (one nvcc per source, all at once), then on one card:
 
 1. prints the card (``torch.cuda.get_device_name`` and nvidia-smi's name
    and power limit);
-2. the FIXED path: holds B6, B7 and B3 against their plain PyTorch
-   versions at the shapes the path gives them, times the kernel, the
-   plain version and one library call computing the same function (CUDA
-   events, warm-up, then the median of 10 launches), and drives the path
+2. the FIXED path: holds B6, ``rows_to_planes`` (the decode's word
+   planes straight from the row blob, B7's place on the path) and B3
+   against their plain PyTorch versions at the shapes the path gives
+   them, and B7 (``pack_u8_planes``) at function level on the byte planes
+   of the same blob; times the kernel, the plain version and one library
+   call computing the same function (CUDA events, warm-up, then the
+   median of 10 launches, or of 30 turns with the library call), and drives the path
    once at full size -- 1,000,000 rows x 212 fixed-width columns (an
    INT64 key in [0, 4096), a FLOAT32 value and 210 columns cycling the
    nine integer types of the reference's ``row_conversion_fixed``
@@ -22,16 +25,21 @@ checkout (one nvcc per source, all at once), then on one card:
    FLOAT64, INT64, INT16 cycling, every tenth column STRING of 1-32
    bytes; column 1 the FLOAT32 value, column 2 the INT64 key; validity on
    every third column, string columns among them, so null strings occur),
-   about 1.3 KB a row. One run records the arguments the path hands B8,
-   B9, B10 (``assemble_rows``, the blob's compaction from the padded rows)
-   and B5 (``ragged_compact_many``, every string column's characters in
-   one launch), and each is held against its plain version and timed on
-   exactly those, the profiler's device time beside the events; B10's
-   function-level ``asm_epilogue`` kernel is held against its plain
-   version on the tiles the plain composition builds from the same
-   arguments. The counted run then must launch the six kernels of the
-   path (B10 and B5 once each), and its rows, columns, offsets and chars
-   are checked byte for byte;
+   about 1.3 KB a row. One run records the arguments the path hands
+   ``extract_strings_many`` (every string column padded in one launch,
+   B8's place on the encode's path), B9, B10 (``assemble_rows``, the
+   blob's compaction from the padded rows), ``rows_to_planes`` (the
+   decode's fixed sections by the row starts) and B5
+   (``ragged_compact_many``, every string column's characters in one
+   launch), and each is held against its plain version and timed on
+   exactly those, the profiler's device time beside the events. The
+   function-level kernels the path no longer launches -- B8
+   (``rotl_take``), B7 and B10's ``asm_epilogue`` -- are held against
+   their plain versions on the arguments the reference's composition
+   builds from the same inputs, and each composition against what the
+   path's kernel returned. The counted run then must launch the six
+   kernels of the path (all but B3 once each) and neither B7 nor B8, and
+   its rows, columns, offsets and chars are checked byte for byte;
 4. the JOIN path, TPC-DS q3's shape (a fact batch against a dimension):
    a store_sales-like batch of 1,048,576 rows x 10 columns (INT32
    surrogate keys, INT32 quantity, FLOAT32 prices and profit, an INT64,
@@ -103,11 +111,16 @@ FACT_ROWS = 1_048_576
 DIM_ROWS = 65_536
 ITEM_DOMAIN = 131_072  # item_sk range: about half the valid probes match
 PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
-STRING_PATH_KERNELS = ("pack_u8_planes", "groupby_sum_outer", "rotl_take", "var_accumulate",
-                       "assemble_rows", "ragged_compact_many")
-# launched exactly once by the string path: the blob's compaction and the
-# decode's compaction of all string columns
-STRING_PATH_ONCE = ("assemble_rows", "ragged_compact_many")
+FIXED_PATH_KERNELS = ("expand_u32_planes", "rows_to_planes", "groupby_sum_outer")
+STRING_PATH_KERNELS = ("extract_strings_many", "var_accumulate", "assemble_rows", "rows_to_planes",
+                       "ragged_compact_many", "groupby_sum_outer")
+# launched exactly once by the string path: the extraction of all string
+# columns, the blob's compaction, the decode's read of the fixed sections
+# and its compaction of all string columns
+STRING_PATH_ONCE = ("extract_strings_many", "assemble_rows", "rows_to_planes",
+                    "ragged_compact_many")
+# the function-level kernels of B7 and B8, which neither path launches
+PATH_NEVER = ("pack_u8_planes", "rotl_take")
 JOIN_PATH_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
 # the onehot path: B2's entry point at the shape its reference measures
 ONEHOT_ROWS = 1_000_000
@@ -407,26 +420,56 @@ def _kernel_phase(table, layout, rate: float):
         plain_ms=_time_ms(lambda: rb.expand_u32_planes_plain(planes)),
         library_ms=_time_ms(
             lambda: planes.view(torch.uint8).view(p, n, 4).permute(0, 2, 1).contiguous()),
+        device_ms=_device_ms(lambda: rb.expand_u32_planes(planes), "expand_kernel"),
+        host_us=_host_us(lambda: rb.expand_u32_planes(planes)),
         bound_ms=nbytes / rate * 1e3, bound_by="bytes", shape=f"int32 [{p}, {n}] -> uint8 [{4 * p}, {n}]",
     )
     del got
 
-    # B7: the decode's byte planes [4P, N] (the transposed row blob) -> words
+    # rows_to_planes: the decode's word planes straight from the row blob
+    # the encode makes of these planes (the uniform stride, W = the row)
     bplanes = want
-    got = rb.pack_u8_planes(bplanes)
-    want = rb.pack_u8_planes_plain(bplanes)
+    blob = bplanes.t().contiguous().reshape(-1)
+    rs = 4 * p
+    got = rb.rows_to_planes(blob, rs, rs, n)
     torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, planes)):
-        raise AssertionError("pack_u8_planes disagrees with its plain version")
-    results["pack_u8_planes"] = dict(
-        max_abs_err=0.0,
+    if not (torch.equal(got, rb.rows_to_planes_plain(blob, rs, rs, n)) and torch.equal(got, planes)):
+        raise AssertionError("rows_to_planes disagrees with its plain version")
+
+    def library():
+        return blob.view(torch.int32).view(n, p).t().contiguous()
+
+    if not torch.equal(library(), got):
+        raise AssertionError("the library call computes another function than rows_to_planes")
+    ms, library_ms = _time_turns([lambda: rb.rows_to_planes(blob, rs, rs, n), library])
+    part = dict(
+        launches=1, ms=ms, library_ms=library_ms,
+        library="blob.view(int32).view(N, W/4).t().contiguous(), in turns with the kernel",
+        device_ms=_device_ms(lambda: rb.rows_to_planes(blob, rs, rs, n), "rows_to_planes_kernel"),
+        host_us=_host_us(lambda: rb.rows_to_planes(blob, rs, rs, n)),
+        plain_ms=_time_ms(lambda: rb.rows_to_planes_plain(blob, rs, rs, n), reps=PLAIN_REPS, warm=1),
+        # the blob read once, the planes written once
+        bound_ms=nbytes / rate * 1e3)
+    # B7, the function-level kernel, on the byte planes the reference's
+    # composition builds from the same blob (its transpose)
+    got7 = rb.pack_u8_planes(bplanes)
+    want7 = rb.pack_u8_planes_plain(bplanes)
+    torch.cuda.synchronize()
+    if not (torch.equal(got7, want7) and torch.equal(got7, got)):
+        raise AssertionError("pack_u8_planes disagrees with its plain version or rows_to_planes")
+    b7 = dict(
+        name="pack_u8_planes", shape=f"uint8 [{4 * p}, {n}] -> int32 [{p}, {n}]", max_abs_err=0.0,
         ms=_time_ms(lambda: rb.pack_u8_planes(bplanes)),
+        device_ms=_device_ms(lambda: rb.pack_u8_planes(bplanes), "pack_kernel"),
+        host_us=_host_us(lambda: rb.pack_u8_planes(bplanes)),
         plain_ms=_time_ms(lambda: rb.pack_u8_planes_plain(bplanes)),
         library_ms=_time_ms(
             lambda: bplanes.view(p, 4, n).permute(0, 2, 1).contiguous().view(torch.int32)),
-        bound_ms=nbytes / rate * 1e3, bound_by="bytes", shape=f"uint8 [{4 * p}, {n}] -> int32 [{p}, {n}]",
-    )
-    del got, want, bplanes, planes
+        bound_ms=nbytes / rate * 1e3, bound_by="bytes")
+    results["rows_to_planes"] = _combine(
+        {f"fixed: uint8 blob [{n * rs}], stride {rs} -> int32 [{p}, {n}]": part},
+        function_level=b7)
+    del got, want, got7, want7, bplanes, planes, blob
 
     # B3: group-by over the key and value columns
     keys, vals = table.columns[0].data, table.columns[1].data
@@ -574,27 +617,27 @@ def _check_main_path(layout, arrays, valids, rows, dec, sums, counts):
 
 
 def _capture_string_kernels(run):
-    """Run ``run`` once with the wrappers of B8, B9, B10 (``assemble_rows``)
-    and B5 (``ragged_compact_many``) recording the arguments the string
-    path hands them, and restore the wrappers. Returns {kernel: [(wrapper,
-    args, kwargs), ...]}."""
+    """Run ``run`` once with the wrappers of the string path's kernels --
+    ``extract_strings_many`` (B8 on the encode's path), B9, B10
+    (``assemble_rows``), ``rows_to_planes`` (B7 with B8's gather on the
+    decode's path) and B5 (``ragged_compact_many``) -- recording the
+    arguments the path hands them, and restore the wrappers. Returns
+    {kernel: [(wrapper, args, kwargs), ...]}."""
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
-    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
     from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
 
-    seen = {"rotl_take": [], "var_accumulate": [], "assemble_rows": [], "ragged_compact_many": []}
-    sites = [(rb, "rotl_take", "rotl_take"), (rb, "rotl_take32", "rotl_take"),
-             (rc, "var_accumulate", "var_accumulate"), (rc, "assemble_rows", "assemble_rows"),
-             (hk, "ragged_compact_many", "ragged_compact_many")]
+    names = ("extract_strings_many", "var_accumulate", "assemble_rows", "rows_to_planes")
+    seen = {k: [] for k in names + ("ragged_compact_many",)}
+    sites = [(rc, k, k) for k in names] + [(hk, "ragged_compact_many", "ragged_compact_many")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
 
     def recorder(fn, key):
         def call(*args, **kwargs):  # kwargs: only B5's row_starts
             seen[key].append((fn, args, kwargs))
             return fn(*args, **kwargs)
-        # a wrapper counts through its module-level name, which is this
-        # recorder while it is installed: the capture run's launches land
-        # here and leave the real counts alone
+        # the capture run's launches land on the wrappers' counts, or on this
+        # one where a wrapper counts through its module-level name (B5); the
+        # counted runs set every count to 0 first
         call.launches = 0
         return call
 
@@ -608,15 +651,35 @@ def _capture_string_kernels(run):
     return seen
 
 
+def _combine(parts, **extra):
+    """One kernel's entry from its parts (one a shape or a path): times,
+    bounds and launches summed; the library time where every part has
+    one; the host time a call the parts' mean."""
+    out = {k: sum(p[k] for p in parts.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    libs = [p.get("library_ms") for p in parts.values()]
+    out["library_ms"] = None if None in libs else sum(libs)
+    for k in ("launches", "device_ms"):
+        if all(k in p for p in parts.values()):
+            out[k] = sum(p[k] for p in parts.values())
+    if all("host_us" in p for p in parts.values()):
+        out["host_us"] = float(np.mean([p["host_us"] for p in parts.values()]))
+    return dict(out, max_abs_err=0.0, bound_by="bytes", parts=parts, **extra)
+
+
 def _string_kernel_phase(seen, rate: float):
     """Each string kernel against its plain version on the arguments the
     string path gave it, and its times summed over the path's launches
     (CUDA events around all of a shape's launches; ``parts`` splits them
     by shape; "device" the profiler's kernel time, per launch times the
-    launches). B10's row also holds the function-level ``asm_epilogue``
-    kernel against its plain version on the tiles the plain composition
-    builds from the path's arguments, and times the blob's compaction
-    from the padded rows concatenated first (the other way to read them)."""
+    launches). The function-level kernels the path no longer launches are
+    held against their plain versions on the arguments the reference's
+    composition builds from the path's own: B8 (``rotl_take``) on the
+    overlapping tiles of every string column and of the decode's fixed
+    sections, B7 (``pack_u8_planes``) on the byte planes of those sections,
+    B10's ``asm_epilogue`` on the reference's tiles; each composition must
+    equal what the path's kernel returned. B10's row also times the blob's
+    compaction from the padded rows concatenated first (the other way to
+    read them)."""
     import torch
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
     from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
@@ -643,33 +706,134 @@ def _string_kernel_phase(seen, rate: float):
             bound_ms=sum(nbytes(*a) for a in calls) / rate * 1e3,
         )
 
-    def combine(parts, **extra):
-        out = {k: sum(p[k] for p in parts.values()) for k in ("ms", "plain_ms", "bound_ms")}
-        libs = [p["library_ms"] for p in parts.values()]
-        out["library_ms"] = None if None in libs else sum(libs)
-        return dict(out, max_abs_err=0.0, bound_by="bytes", parts=parts, **extra)
-
     results = {}
+    b8_calls = []  # B8's calls in the reference's composition: (wrapper, tiles, shifts, out_w)
 
-    # B8: 16 string extractions (encode) and one fixed-section gather (decode)
+    # rows_to_planes: the decode's fixed sections, from the blob by the row
+    # starts, once
+    (fn, (blob, starts, width), _), = seen["rows_to_planes"]
+    n, p = starts.shape[0], (width + 3) // 4
+    got, want = fn(blob, starts, width), rb.rows_to_planes_plain(blob, starts, width)
+    # the reference's composition: the tile gather and B8, then B7 on the
+    # byte planes of the first W bytes
+    tiles, sh, stride = rb.extract_tiles(blob, starts, width)
+    b8_calls.append((rb.rotl_take32 if tiles.dtype == torch.int32 else rb.rotl_take, tiles, sh,
+                     stride))
+    fixed = torch.nn.functional.pad(b8_calls[0][0](tiles, sh, stride)[:, :width], (0, (-width) % 4))
+    bplanes = fixed.t().contiguous()
+    del fixed
+    comp, comp_plain = rb.pack_u8_planes(bplanes), rb.pack_u8_planes_plain(bplanes)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("rows_to_planes disagrees with its plain version")
+    if not (torch.equal(comp, comp_plain) and torch.equal(comp, got)):
+        raise AssertionError("rows_to_planes differs from the reference's composition "
+                             "(tile gather, B8, transpose, B7), or B7 from its plain version")
+    del bplanes, comp, comp_plain, want
+    # no one call computes it; the index gather of every row's bytes and
+    # one transpose, with the index (bytes past W or the blob on an
+    # appended zero) built outside the timed region, stand beside it
+    blen = blob.shape[0]
+    blob0 = torch.cat([blob, blob.new_zeros(1)])
+    span = torch.arange(4 * p, device=blob.device)
+    idx = starts[:, None] + span
+    idx = torch.where((span < width) & (idx < blen), idx, blen)
+
+    def gather_transpose():
+        return blob0[idx].view(torch.int32).t().contiguous()
+
+    if not torch.equal(gather_transpose(), got):
+        raise AssertionError("the index gather and transpose compute another function")
+    part = dict(
+        launches=1, ms=_time_ms(lambda: fn(blob, starts, width)),
+        device_ms=_device_ms(lambda: fn(blob, starts, width), "rows_to_planes_kernel"),
+        host_us=_host_us(lambda: fn(blob, starts, width), reps=10),
+        plain_ms=_time_ms(lambda: rb.rows_to_planes_plain(blob, starts, width), reps=PLAIN_REPS,
+                          warm=1),
+        library_ms=None, library="none: no one PyTorch call gathers rows at ragged starts into "
+                                 "word planes",
+        gather_transpose_ms=_time_ms(gather_transpose, reps=PLAIN_REPS, warm=1),
+        # the rows' first W bytes read, the planes written, the starts
+        bound_ms=(n * width + 4 * p * n + 8 * n) / rate * 1e3)
+    results["rows_to_planes"] = _combine({
+        f"strings: uint8 blob [{blen}], {n} int64 row starts, W {width} -> int32 [{p}, {n}]": part})
+    del got, blob0, idx, tiles, sh
+
+    # extract_strings_many: every string column of the encode, once
+    (fn, (pools, starts, lens, widths), _), = seen["extract_strings_many"]
+    n = starts[0].shape[0]
+    got, want = fn(pools, starts, lens, widths), rb.extract_strings_many_plain(pools, starts, lens,
+                                                                               widths)
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("extract_strings_many disagrees with its plain version")
+    del want
+    # the reference's composition: per column the tile gather and B8 at the
+    # column's width, masked by the lengths
+    for pool, st, ln, lc, g in zip(pools, starts, lens, widths, got):
+        tiles, sh, stride = rb.extract_tiles(pool, st, lc)
+        b8 = rb.rotl_take32 if tiles.dtype == torch.int32 else rb.rotl_take
+        b8_calls.append((b8, tiles, sh, stride))
+        keep = torch.arange(lc, device=pool.device)[None, :] < ln[:, None]
+        if not torch.equal(torch.where(keep, b8(tiles, sh, stride)[:, :lc], 0), g):
+            raise AssertionError("extract_strings_many differs from the reference's composition "
+                                 "(tile gather, B8, length mask)")
+    # the library yardstick: one gather a column over the pool with a zero
+    # byte appended, masked bytes indexing that zero; the index and the
+    # pool's copy made outside the timed region
+    ext, idxs = [], []
+    for pool, st, ln, lc in zip(pools, starts, lens, widths):
+        plen = pool.shape[0]
+        span = torch.arange(lc, device=pool.device)
+        i = st.to(torch.int64)[:, None] + span
+        idxs.append(torch.where((span < ln.to(torch.int64)[:, None]) & (i < plen), i, plen))
+        ext.append(torch.cat([pool, pool.new_zeros(1)]))
+
+    def library():
+        return [e[i] for e, i in zip(ext, idxs)]
+
+    if not all(torch.equal(a, b) for a, b in zip(library(), got)):
+        raise AssertionError("the per-column gathers compute another function")
+    ms, library_ms = _time_turns([lambda: fn(pools, starts, lens, widths), library])
+    str_bytes = sum(int(torch.clamp(ln.to(torch.int64), 0, lc).sum())
+                    for ln, lc in zip(lens, widths))
+    results["extract_strings_many"] = dict(
+        launches=1, max_abs_err=0.0, bound_by="bytes",
+        shape=f"{len(pools)} columns, uint8 [{n}, {'/'.join(str(w) for w in sorted(set(widths)))}]",
+        ms=ms, library_ms=library_ms,
+        library="per column ext[idx] (the pool with a zero byte appended), index and copy built "
+                "outside the timed region, summed over the columns, in turns with the kernel",
+        device_ms=_device_ms(lambda: fn(pools, starts, lens, widths), "extract_strings_kernel"),
+        host_us=_host_us(lambda: fn(pools, starts, lens, widths), reps=10),
+        plain_ms=_time_ms(lambda: rb.extract_strings_many_plain(pools, starts, lens, widths),
+                          reps=PLAIN_REPS, warm=1),
+        # the strings' bytes up to each width read, int32 starts and
+        # lengths, every column's [N, width] written
+        bound_ms=(str_bytes + sum(8 * n + n * lc for lc in widths)) / rate * 1e3)
+    del got, ext, idxs
+
+    # B8 at function level: on the reference's tiles of the decode's fixed
+    # sections and of every string column
     groups = {}
-    for fn, (x, sh, out_w), _ in seen["rotl_take"]:
-        groups.setdefault((tuple(u8(x).shape), out_w), []).append((fn, x, sh, out_w))
+    for b8, x, sh, out_w in b8_calls:
+        groups.setdefault((tuple(u8(x).shape), out_w), []).append((b8, x, sh, out_w))
     parts = {}
     for (shape, out_w), calls in groups.items():
-        fn = calls[0][0]
         parts[f"uint8 [{shape[0]}, {shape[1]}] -> [{shape[0]}, {out_w}]"] = measure(
-            [c[1:] for c in calls], fn,
+            [c[1:] for c in calls], calls[0][0],
             lambda x, sh, w: rb.rotl_take_plain(u32(x), sh, w),
             lambda x, sh, w: torch.gather(
                 u8(x), 1, (torch.arange(w, device=x.device)[None, :] + sh[:, None]) % u8(x).shape[1]),
             # the window's bytes, the shift, the output
             lambda x, sh, w: x.shape[0] * (2 * w + 4),
         )
-    b8 = seen["rotl_take"]
-    results["rotl_take"] = combine(
-        parts, library="torch.gather with its index built in the timed region",
-        device_ms=_device_ms(lambda: [fn(*a) for fn, a, _ in b8], "rotl_take_kernel") * len(b8))
+    results["extract_strings_many"]["function_level"] = dict(
+        _combine(parts, library="torch.gather with its index built in the timed region"),
+        name="rotl_take", shape="; ".join(parts),
+        device_ms=_device_ms(lambda: [c[0](*c[1:]) for c in b8_calls], "rotl_take_kernel")
+        * len(b8_calls),
+        host_us=_host_us(lambda: b8_calls[-1][0](*b8_calls[-1][1:]), reps=10))
+    del b8_calls, groups
 
     # B9: the variable sections, once
     parts = {}
@@ -679,7 +843,7 @@ def _string_kernel_phase(seen, rate: float):
               f"[{n}, {maxvar}]"] = measure(
             [(mats, shifts, maxvar)], fn, rb.var_accumulate_plain, None,
             lambda m, s, w: sum(x.numel() for x in m) + 4 * n * len(m) + n * w)
-    results["var_accumulate"] = combine(
+    results["var_accumulate"] = _combine(
         parts, library="none: no one call ORs K byte-shifted matrices into one",
         device_ms=sum(_device_ms(lambda: fn(*args), "var_accumulate_tile_kernel")
                       for fn, args, _ in seen["var_accumulate"]),
@@ -729,7 +893,7 @@ def _string_kernel_phase(seen, rate: float):
             # next row's head), three scalars, G bytes out
             bound_ms=t * (2 * g + 12) / rate * 1e3, bound_by="bytes")
         del tiles, got, want
-    results["assemble_rows"] = combine(
+    results["assemble_rows"] = _combine(
         parts, library="rows_u8.view(-1)[repeat_interleave(r * S - offsets[:-1], sizes) + "
                        "arange(total)], index built in the timed region, the padded rows "
                        "concatenated outside it", **extra)
@@ -1421,12 +1585,14 @@ def main() -> int:
     name, smi_line = _device_phase()
     _build_phase()
     rate = _mem_rate(name)
-    wrappers = {"expand_u32_planes": rb.expand_u32_planes, "pack_u8_planes": rb.pack_u8_planes,
-                "groupby_sum_outer": hk.groupby_sum_outer, "rotl_take": rb.rotl_take,
+    wrappers = {"expand_u32_planes": rb.expand_u32_planes, "rows_to_planes": rb.rows_to_planes,
+                "groupby_sum_outer": hk.groupby_sum_outer,
+                "extract_strings_many": rb.extract_strings_many,
                 "var_accumulate": rb.var_accumulate, "assemble_rows": rb.assemble_rows,
                 "ragged_compact_many": hk.ragged_compact_many, "partition_map": hk.partition_map,
                 "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded,
-                # the function-level entries of B10 and B5, which no path launches now
+                # the function-level entries of B7, B8, B10 and B5, which no path launches now
+                "pack_u8_planes": rb.pack_u8_planes, "rotl_take": rb.rotl_take,
                 "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
     paths = {}
 
@@ -1445,9 +1611,15 @@ def main() -> int:
     (rows, dec, sums, counts, stage), launches = _run_counted(
         wrappers, lambda: _main_path(table, dtypes, key=0, value=1))
     print(f"fixed path launches: {launches}", flush=True)
-    for k in ("expand_u32_planes", "pack_u8_planes", "groupby_sum_outer"):
+    for k in FIXED_PATH_KERNELS:
         if launches[k] < 1:
             raise AssertionError(f"the fixed path never launched {k}")
+    if launches["rows_to_planes"] != 1:
+        raise AssertionError(f"the fixed path launched rows_to_planes {launches['rows_to_planes']} "
+                             "times, not once")
+    for k in PATH_NEVER:
+        if launches[k]:
+            raise AssertionError(f"the fixed path launched {k}, which it no longer runs")
     sum_err = _check_main_path(layout, arrays, valids, rows, dec, sums, counts)
     print(f"fixed path checked against the numpy oracle: rows bit-identical on the first "
           f"{ORACLE_ROWS} rows, {len(dtypes)} decoded columns bit-identical, counts exact, "
@@ -1464,7 +1636,9 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("fixed path (host clock, ms): first run " + _fmt_stages(stage) + "; warm median of 3 "
           + _fmt_stages(warm) + f"; peak device memory {peak:.2f} GiB", flush=True)
-    profile = _profile_phase(run_fixed)
+    profile = _profile_phase(run_fixed, top=10, watch=(
+        "rows_to_planes_kernel", "expand_kernel", "pack_kernel", "rotl_take_kernel",
+        "groupby_shared"))
     paths["fixed"] = {**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], "rows": ROWS,
                       "columns": len(dtypes), "row_bytes": layout.row_size_fixed,
                       "peak_gib": peak, "launches": launches, "profile": profile}
@@ -1504,6 +1678,9 @@ def main() -> int:
     for k in STRING_PATH_ONCE:
         if slaunches[k] != 1:
             raise AssertionError(f"the string path launched {k} {slaunches[k]} times, not once")
+    for k in PATH_NEVER:
+        if slaunches[k]:
+            raise AssertionError(f"the string path launched {k}, which it no longer runs")
     sum_err = _check_string_path(slayout, sdtypes, sarrays, svalids, rows, dec, sums, counts)
     total = int(rows[0].offsets[-1])
     print(f"string path checked against the numpy oracle: rows and offsets bit-identical on the "
@@ -1517,8 +1694,9 @@ def main() -> int:
     print("string path (host clock, ms): first run " + _fmt_stages(sstage) + "; warm median of 3 "
           + _fmt_stages(swarm) + f"; peak device memory {speak:.2f} GiB", flush=True)
     sprofile = _profile_phase(run_strings, top=14, watch=(
-        "ragged_compact_rows_kernel", "assemble_rows_kernel", "rotl_take_kernel",
-        "var_accumulate_tile_kernel", "pack_u8", "groupby_shared"))
+        "extract_strings_kernel", "var_accumulate_tile_kernel", "assemble_rows_kernel",
+        "rows_to_planes_kernel", "ragged_compact_rows_kernel", "groupby_shared",
+        "rotl_take_kernel", "pack_kernel"))
     paths["strings"] = {**sstage, "warm": swarm, "warm_end_to_end_ms": swarm["end_to_end_ms"],
                         "rows": ROWS,
                         "columns": len(sdtypes), "fixed_end": slayout.fixed_end,
@@ -1669,16 +1847,20 @@ def main() -> int:
     del li, q1_runs, q6_runs
     torch.cuda.empty_cache()
 
+    # rows_to_planes runs on both transcode paths: its entry sums the two
+    kernels["rows_to_planes"] = _combine(
+        {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
+        function_level=kernels["rows_to_planes"]["function_level"])
     csrc = "spark_rapids_jni_tpu_torch/csrc/"
-    sources = {"expand_u32_planes": csrc + "planes.cu", "pack_u8_planes": csrc + "planes.cu",
-               "groupby_sum_outer": csrc + "groupby.cu", "rotl_take": csrc + "strings.cu",
+    sources = {"expand_u32_planes": csrc + "planes.cu", "rows_to_planes": csrc + "planes.cu",
+               "groupby_sum_outer": csrc + "groupby.cu", "extract_strings_many": csrc + "strings.cu",
                "var_accumulate": csrc + "strings.cu", "assemble_rows": csrc + "strings.cu",
                "ragged_compact_many": csrc + "strings.cu", "partition_map": csrc + "partition.cu",
                "probe_paged": csrc + "join.cu", "groupby_sum_bounded": csrc + "groupby.cu"}
     replaces = {"expand_u32_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:185",
-                "pack_u8_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
+                "rows_to_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:208",
                 "groupby_sum_outer": "spark_rapids_jni_tpu/ops/pallas_kernels.py:416",
-                "rotl_take": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324",
+                "extract_strings_many": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324",
                 "var_accumulate": "spark_rapids_jni_tpu/ops/ragged_bytes.py:405",
                 "assemble_rows": "spark_rapids_jni_tpu/ops/ragged_bytes.py:465",
                 "ragged_compact_many": "spark_rapids_jni_tpu/ops/pallas_kernels.py:927",
@@ -1686,19 +1868,26 @@ def main() -> int:
                 "probe_paged": "spark_rapids_jni_tpu/ops/pallas_kernels.py:713",
                 "groupby_sum_bounded": "spark_rapids_jni_tpu/ops/pallas_kernels.py:287"}
     # launches: the count on the path whose shapes the times are from
-    # (B3/B6/B7 the fixed path, the string kernels the string path, B1/B4
-    # the join path, B2 the onehot path)
-    timed_on = {**{k: launches for k in kernels}, **{k: slaunches for k in skernels},
-                **{k: jlaunches for k in jkernels}, **{k: olaunches for k in okernels}}
+    # (B3/B6 the fixed path, the string kernels the string path, B1/B4 the
+    # join path, B2 the onehot path; rows_to_planes both transcode paths)
+    timed_on = {**{k: launches[k] for k in kernels}, **{k: slaunches[k] for k in skernels},
+                **{k: jlaunches[k] for k in jkernels}, **{k: olaunches[k] for k in okernels},
+                "rows_to_planes": launches["rows_to_planes"] + slaunches["rows_to_planes"]}
+    # what else of the TPU package a redesigned kernel took over
+    absorbs = {"rows_to_planes": "spark_rapids_jni_tpu/ops/ragged_bytes.py:324 (B8 as the decode "
+                                 "ran it: padded_extract's tile gather and rotate of the rows' "
+                                 "fixed sections)",
+               "assemble_rows": "the reference's tiling around _asm_epilogue (assemble_tiles)"}
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
-         "launches": timed_on[k][k],
+         **({"absorbs": absorbs[k]} if k in absorbs else {}),
+         "launches": timed_on[k],
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{x: r[x] for x in ("parts", "device_ms", "host_us", "library_host_us",
+         **{x: r[x] for x in ("library", "parts", "device_ms", "host_us", "library_host_us",
                               "max_abs_err_vs_b3", "layouts_ms", "function_level",
                               "bound_ms_int64_base") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()

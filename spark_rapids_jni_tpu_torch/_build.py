@@ -38,6 +38,7 @@ SOURCES: Dict[str, tuple] = {
         {
             "expand_u32_planes_launch": [_P, _P, _I, _I, _P],
             "pack_u8_planes_launch": [_P, _P, _I, _I, _P],
+            "rows_to_planes_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
         },
     ),
     "groupby": (
@@ -55,6 +56,7 @@ SOURCES: Dict[str, tuple] = {
             "asm_epilogue_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
             "ragged_compact_launch": [_P, _P, _I, _I, _P, _I, _I, _P],
             "assemble_rows_launch": [_P, _I, _P, _I, _P, _I, _P],
+            "extract_strings_launch": [_P, _P, _I, _I, _I, _I, _P],
         },
     ),
     "partition": (

@@ -1,11 +1,21 @@
 // String kernels of the JCUDF row transcode.
 //
-// rotl_take (B8): u32 [N, L] rows, each rotated left by sh[r] bytes
-//   (0 <= sh < 4L), first Lo words kept -> u32 [N, Lo].
+// rotl_take (B8, function level): u32 [N, L] rows, each rotated left by
+//   sh[r] bytes (0 <= sh < 4L), first Lo words kept -> u32 [N, Lo].
 //   Replaces spark_rapids_jni_tpu/ops/ragged_bytes.py rotl_take / rotl_take32
 //   (Pallas body _rotl_take_kernel: a log2(W) ladder of conditional lane
-//   rolls). Here output word j of row r is the funnel of input words
-//   (j + sh/4) % L and the next one, shifted by 8 * (sh % 4).
+//   rolls) as a function. Here output word j of row r is the funnel of
+//   input words (j + sh/4) % L and the next one, shifted by 8 * (sh % 4).
+//   The transcode no longer launches it: B8 only ever rotated the tiles of
+//   padded_extract (an overlapping-tile row gather), and each of its two
+//   callers now reads what it needs straight from the bytes --
+//   extract_strings_many below (the encode) and planes.cu rows_to_planes
+//   (the decode).
+// extract_strings_many (B8 on the encode's path): for each string column k
+//   of a launch, u8 [N, lc_k] where bytes j < min(lens[r], lc_k) of row r are
+//   pool_k[starts[r] + j] (0 past the pool's end) and the others 0: what
+//   the encode built from padded_extract (tile gather + B8) masked by the
+//   lengths with an arange and a where, one launch for every column.
 // var_accumulate (B9): u32 [N, Lo] = OR over k of the zero-filled byte
 //   shift-right of matrix k (u32 [N, L_k]) by s_k[r] bytes.
 //   Replaces ragged_bytes.py var_accumulate (Pallas body _vacc_kernel:
@@ -90,6 +100,29 @@
 // instructions a word, and a byte moved must cost few: the per-word work
 // is a compare and an add.
 //
+// extract_strings_kernel: a block owns whole rows of one column's output
+// (rows_per_block of them, about 2048 words: the wrapper's
+// extract_block_plan, which also splits the blocks across the columns as
+// B5's plan does, first_block a prefix of per-column block counts), a
+// thread a unit of up to 4 words (16 bytes) of a row, neighbouring threads
+// on neighbouring units, a unit's row and place stepped by the block's
+// size with no division. A thread reads its row's start and length, loads
+// the (at most 5) aligned pool words that hold the unit's string bytes,
+// all before it uses any, funnels them into the unit's words, masks them
+// to the length and stores the unit as one 16-byte store (where the row
+// is a whole number of units). Words past the row's length take no load,
+// so only the string's own bytes (and the rest of the aligned words
+// holding them) are read: no padded copy of the pool, no tile. A string at
+// any byte offset is funnelled from aligned 4-byte pool words
+// (bytes::Buffer), the loads of a warp falling on consecutive words of
+// consecutive strings, which lie side by side in the pool. A first design
+// with a thread a word reached 25% of the bound's rate (NVIDIA H100 80GB
+// HBM3): a 32-bit division and the 64-bit bounds and masks of every word
+// cost more than its bytes; the 16-byte units reach about 50%. The
+// bound: each string's bytes up to lc_k read, its start and length read,
+// N * lc_k bytes written. Up to kExtractByValue columns travel in the
+// kernel's arguments, more in a device table.
+//
 // B9 is a scatter, not a gather. A thread an output word that walks all
 // K matrices (the first design) runs about 1,800 loop iterations a row
 // at the string path's shape (K = 16, Lo = 112) for about 140 words that
@@ -120,6 +153,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "bytes.cuh"
 
 namespace {
 
@@ -418,32 +453,19 @@ __device__ __forceinline__ int64_t compact_row_base(const CompactCol& c, int64_t
   return b;
 }
 
-// word q of the pool's aligned words pal (pool byte p is byte mis + p of
-// them); bytes outside [mis, lim) read as 0. The word holding a pool byte
-// lies in the pool's allocation, so the load never leaves it.
-__device__ __forceinline__ uint32_t pool_word(const uint32_t* __restrict__ pal, int64_t mis,
-                                              int64_t lim, int64_t q) {
-  const int64_t b = 4 * q;
-  if (b + 4 <= mis || b >= lim) return 0u;
-  uint32_t v = __ldg(pal + q);
-  if (b < mis) v &= 0xFFFFFFFFu << (8 * (int)(mis - b));
-  if (b + 4 > lim) v &= 0xFFFFFFFFu >> (8 * (int)(b + 4 - lim));
-  return v;
-}
-
 // chunk bytes [lo, hi) (0 <= lo < hi <= 16) take the pool bytes a0 + lo,
 // ..., a0 + hi - 1 (a0 in aligned coordinates): word t of the chunk is the
 // funnel of aligned words q0 + t and q0 + t + 1, masked to the range
-__device__ __forceinline__ void funnel_into(uint32_t (&o)[4], const uint32_t* __restrict__ pal,
-                                            int64_t mis, int64_t lim, int64_t a0, int lo, int hi) {
+__device__ __forceinline__ void funnel_into(uint32_t (&o)[4], const bytes::Buffer& pool,
+                                            int64_t a0, int lo, int hi) {
   const int sh = (int)(a0 & 3) * 8;
   const int64_t q0 = a0 >> 2;  // floor division
   const int t0 = lo >> 2, t1 = (hi - 1) >> 2;
-  uint32_t cur = pool_word(pal, mis, lim, q0 + t0);
+  uint32_t cur = pool.word(q0 + t0);
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     if (t < t0 || t > t1) continue;
-    const uint32_t nxt = (sh != 0 || t < t1) ? pool_word(pal, mis, lim, q0 + t + 1) : 0u;
+    const uint32_t nxt = (sh != 0 || t < t1) ? pool.word(q0 + t + 1) : 0u;
     const uint32_t v = sh == 0 ? cur : (cur >> sh) | (nxt << (32 - sh));
     const int blo = lo > 4 * t ? lo - 4 * t : 0;
     const int bhi = hi < 4 * t + 4 ? hi - 4 * t : 4;
@@ -458,8 +480,7 @@ __device__ __forceinline__ void funnel_into(uint32_t (&o)[4], const uint32_t* __
 template <typename Off, typename Base>
 __device__ __forceinline__ void compact_range(Off off, Base base, int64_t rows, uint32_t* out,
                                               int64_t w0, int64_t w1, int64_t b_hi,
-                                              const uint32_t* __restrict__ pal, int64_t mis,
-                                              int64_t lim) {
+                                              const bytes::Buffer& pool) {
   for (int64_t q = w0 + 4 * (int64_t)threadIdx.x; q < w1; q += 4 * (int64_t)blockDim.x) {
     uint32_t o[4] = {0u, 0u, 0u, 0u};
     const int64_t c0 = 4 * q;
@@ -471,7 +492,7 @@ __device__ __forceinline__ void compact_range(Off off, Base base, int64_t rows, 
       // chunk's end or its own
       const int64_t oe = off(i + 1);
       const int64_t se = oe < cend ? oe : cend;
-      funnel_into(o, pal, mis, lim, mis + base(i) + (c0 - off(i)), (int)(b - c0), (int)(se - c0));
+      funnel_into(o, pool, pool.mis + base(i) + (c0 - off(i)), (int)(b - c0), (int)(se - c0));
       if (se >= cend) break;
       b = se;  // == off(i + 1): the next row with a byte here, past zero-length ones
       i = off(i + 2) > b ? i + 1 : last_at_or_below(off, i + 1, rows - 1, b);
@@ -511,20 +532,94 @@ __global__ void __launch_bounds__(kCompactThreads, kCompactMinBlocks)
   int64_t r0, r1;
   block_find_rows([&](int64_t r) { return (int64_t)offs[r]; }, c.n, b_lo, b_hi - 1, r0, r1);
   const int64_t rows = r1 - r0 + 1;
-  const uintptr_t paddr = reinterpret_cast<uintptr_t>(pool);
-  const int64_t mis = (int64_t)(paddr & 3);
-  const uint32_t* pal = reinterpret_cast<const uint32_t*>(paddr - (uintptr_t)mis);
-  const int64_t lim = mis + plen;
+  const bytes::Buffer buf(pool, plen);
   if (rows <= kCompactRowCap) {  // uniform over the block
     for (int64_t i = threadIdx.x; i <= rows; i += blockDim.x) s_offs[i] = (int64_t)offs[r0 + i];
     for (int64_t i = threadIdx.x; i < rows; i += blockDim.x) s_base[i] = compact_row_base(c, r0 + i);
     __syncthreads();
     compact_range([&](int64_t i) { return s_offs[i]; }, [&](int64_t i) { return s_base[i]; }, rows,
-                  c.out, w0, w1, b_hi, pal, mis, lim);
+                  c.out, w0, w1, b_hi, buf);
   } else {
     compact_range([&](int64_t i) { return (int64_t)offs[r0 + i]; },
                   [&](int64_t i) { return compact_row_base(c, r0 + i); }, rows, c.out, w0, w1,
-                  b_hi, pal, mis, lim);
+                  b_hi, buf);
+  }
+}
+
+// one string column of extract_strings_many: out [n, L4] words; row r's
+// bytes j < min(lens[r], 4 L4) are pool[starts[r] + j] (0 at or past plen),
+// the others 0; starts and lens [n] of the launch's IdxT
+struct ExtractCol {
+  const uint8_t* pool;
+  int64_t plen;
+  const void* starts;
+  const void* lens;
+  uint32_t* out;
+  int64_t L4;              // words a row, >= 1
+  int64_t rows_per_block;  // >= 1
+  int64_t first_block;     // the column's first block in the grid
+};
+constexpr int kExtractByValue = 32;  // columns passed in the kernel's arguments
+struct ExtractTable {
+  ExtractCol c[kExtractByValue];
+};
+constexpr int kExtractThreads = 256;
+
+template <typename IdxT>
+__global__ void __launch_bounds__(kExtractThreads)
+    extract_strings_kernel(const __grid_constant__ ExtractTable by_value,
+                           const ExtractCol* __restrict__ table, int64_t K, int64_t n) {
+  __shared__ int64_t s_col;
+  const ExtractCol* cols = table != nullptr ? table : by_value.c;
+  const int64_t blk = blockIdx.x;
+  if (threadIdx.x == 0)
+    s_col = last_at_or_below([&](int64_t k) { return cols[k].first_block; }, 0, K - 1, blk);
+  __syncthreads();
+  const ExtractCol c = cols[s_col];
+  const IdxT* __restrict__ starts = static_cast<const IdxT*>(c.starts);
+  const IdxT* __restrict__ lens = static_cast<const IdxT*>(c.lens);
+  const int64_t r0 = (blk - c.first_block) * c.rows_per_block;
+  const int64_t rows = n - r0 < c.rows_per_block ? n - r0 : c.rows_per_block;
+  const bytes::Buffer pool(c.pool, c.plen);
+  const int64_t L4 = c.L4;
+  const bool vec = (L4 & 3) == 0;  // every whole unit lies on 16 bytes of the output
+  // a thread a unit of up to 4 words of a row; its row and unit advance by
+  // the block's size each round, with no division in the loop
+  const int64_t units = (L4 + 3) >> 2;
+  const int64_t count = rows * units;
+  const int64_t drl = blockDim.x / units, dt = blockDim.x % units;
+  int64_t rl = threadIdx.x / units, t = threadIdx.x % units;
+  for (int64_t e = threadIdx.x; e < count; e += blockDim.x) {
+    const int64_t r = r0 + rl;
+    const int nw = L4 - 4 * t < 4 ? (int)(L4 - 4 * t) : 4;  // the unit's words
+    const int64_t need = (int64_t)lens[r] - 16 * t;        // the string's bytes from the unit on
+    const int64_t a = pool.mis + (int64_t)starts[r] + 16 * t;
+    const int64_t q = a >> 2;
+    const int sh = (int)(a & 3);
+    const int64_t used = need < 4 * nw ? need : 4 * nw;  // the unit's bytes taken from the pool
+    // aligned word k covers the unit's bytes [4k - sh, 4k - sh + 4): loaded
+    // when one of them is used, all loads before any use
+    uint32_t wd[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) wd[k] = 4 * k - sh < used ? pool.word(q + k) : 0u;
+    uint32_t o[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      o[m] = bytes::keep(bytes::funnel(wd[m], wd[m + 1], sh), need - 4 * m);
+    uint32_t* dst = c.out + r * L4 + 4 * t;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (m < nw) dst[m] = o[m];
+    }
+    rl += drl;
+    t += dt;
+    if (t >= units) {
+      t -= units;
+      rl += 1;
+    }
   }
 }
 
@@ -745,6 +840,38 @@ extern "C" int assemble_rows_launch(const void* host_parts, int64_t nparts, cons
     assemble_rows_kernel<<<(unsigned)blocks, kAsmThreads, 0, (cudaStream_t)stream>>>(
         parts, (int)nparts, static_cast<const int64_t*>(offsets), n, static_cast<uint8_t*>(out),
         total);
+  }
+  return (int)cudaGetLastError();
+}
+
+// extract_strings_many: host_table holds K ExtractCol entries (K >= 1,
+// first_block the prefix of ceil(n / rows_per_block) over the columns,
+// blocks their sum). With dev_table null they travel in the kernel's
+// arguments (K <= kExtractByValue); otherwise dev_table is the same table
+// on the device. idx_bytes is 4 (int32 starts and lengths) or 8 (int64).
+extern "C" int extract_strings_launch(const void* host_table, const void* dev_table, int64_t K,
+                                      int64_t idx_bytes, int64_t n, int64_t blocks,
+                                      void* stream) {
+  if (K > 0 && n > 0 && blocks > 0) {
+    if ((K > kExtractByValue && dev_table == nullptr) || (idx_bytes != 4 && idx_bytes != 8))
+      return (int)cudaErrorInvalidValue;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const ExtractCol* host = static_cast<const ExtractCol*>(host_table);
+    for (int64_t k = 0; k < K; ++k) {
+      // a block's words must fit its 32-bit loop
+      if (host[k].L4 < 1 || host[k].rows_per_block < 1 ||
+          host[k].L4 * host[k].rows_per_block > 0x7fffffff)
+        return (int)cudaErrorInvalidValue;
+    }
+    ExtractTable by_value = {};
+    if (dev_table == nullptr) std::copy(host, host + K, by_value.c);
+    const ExtractCol* table = static_cast<const ExtractCol*>(dev_table);
+    if (idx_bytes == 4)
+      extract_strings_kernel<int32_t><<<(unsigned)blocks, kExtractThreads, 0,
+                                        (cudaStream_t)stream>>>(by_value, table, K, n);
+    else
+      extract_strings_kernel<int64_t><<<(unsigned)blocks, kExtractThreads, 0,
+                                        (cudaStream_t)stream>>>(by_value, table, K, n);
   }
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,18 @@ and counts its launches in ``.launches``:
 
 - ``expand_u32_planes`` (B6) / ``pack_u8_planes`` (B7): byte-plane
   transposes of the fixed-width sections (``csrc/planes.cu``);
+- ``rows_to_planes`` (B7 on the decode's path, with B8's fixed-section
+  gather absorbed): the row blob straight to u32 word planes
+  (``csrc/planes.cu``), bit for bit the reference's ``padded_extract``
+  -> pad -> transpose -> ``pack_u8_planes`` composition;
 - ``rotl_take`` / ``rotl_take32`` (B8): per-row byte rotate-left, keep a
   prefix (``csrc/strings.cu``; both entry points launch one kernel and
-  count in ``rotl_take.launches``);
+  count in ``rotl_take.launches``). ``padded_extract`` runs it over
+  overlapping tiles, as the reference does; the transcode no longer
+  calls either;
+- ``extract_strings_many`` (B8 on the encode's path): every string
+  column's bytes, padded and masked to its length, in one launch
+  (``csrc/strings.cu``), what the encode built from ``padded_extract``;
 - ``var_accumulate`` (B9): OR of K byte-shifted string matrices into the
   rows' variable sections (``csrc/strings.cu``);
 - ``asm_epilogue`` (B10): the final row-blob tiles of the reference's
@@ -20,10 +29,12 @@ and counts its launches in ``.launches``:
   whose plain version ``assemble_rows_plain`` is the reference's
   composition around ``asm_epilogue_plain``.
 
-Every ragged access is decomposed as in the reference: a row gather of
+The reference decomposes every ragged access into a row gather of
 fixed-width OVERLAPPING tiles (stride s, width 2s, so any window of at
 most s + 1 bytes at an s-aligned tile lies in one tile) followed by a
-per-row byte rotate or shift. The plain versions keep the reference's
+per-row byte rotate or shift; ``padded_extract`` keeps that form, and
+the two kernels that took its place on the transcode's path read the
+bytes where they lie. The plain versions keep the reference's
 arithmetic on u32 lanes: log2(W) conditional lane rolls plus one
 sub-word funnel, with the shift by 32 guarded (a 32-bit shift by 32 is
 not 0 in torch or C++). ``ragged_compact`` is the plain version of B5,
@@ -36,7 +47,7 @@ whose kernel wrapper lives in ``hopper_kernels``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +59,8 @@ __all__ = [
     "expand_u32_planes_plain",
     "pack_u8_planes",
     "pack_u8_planes_plain",
+    "rows_to_planes",
+    "rows_to_planes_plain",
     "u32_rows_to_u8_flat",
     "flat_u8_to_u32",
     "overlap_tiles",
@@ -63,6 +76,10 @@ __all__ = [
     "asm_epilogue",
     "asm_epilogue_plain",
     "padded_extract",
+    "extract_tiles",
+    "extract_strings_many",
+    "extract_strings_many_plain",
+    "extract_block_plan",
     "assemble_rows",
     "assemble_rows_plain",
     "assemble_tiles",
@@ -102,7 +119,7 @@ def expand_u32_planes(x32: torch.Tensor) -> torch.Tensor:
     out = torch.empty((4 * p, n), dtype=torch.uint8, device=x32.device)
     lib = _build.library("planes")
     rc = lib.expand_u32_planes_launch(
-        x32.data_ptr(), out.data_ptr(), p, n, torch.cuda.current_stream(x32.device).cuda_stream
+        x32.data_ptr(), out.data_ptr(), p, n, _build.raw_stream(x32.device)
     )
     _build.check(rc, "expand_u32_planes")
     expand_u32_planes.launches += 1
@@ -126,7 +143,7 @@ def pack_u8_planes(x8: torch.Tensor) -> torch.Tensor:
     out = torch.empty((p4 // 4, n), dtype=torch.int32, device=x8.device)
     lib = _build.library("planes")
     rc = lib.pack_u8_planes_launch(
-        x8.data_ptr(), out.data_ptr(), p4 // 4, n, torch.cuda.current_stream(x8.device).cuda_stream
+        x8.data_ptr(), out.data_ptr(), p4 // 4, n, _build.raw_stream(x8.device)
     )
     _build.check(rc, "pack_u8_planes")
     pack_u8_planes.launches += 1
@@ -167,6 +184,78 @@ def flat_u8_to_u32(buf: torch.Tensor) -> torch.Tensor:
     return buf[: 4 * n4].contiguous().view(torch.int32)
 
 
+def _row_starts(blob: torch.Tensor, starts, width: int, n: Optional[int]):
+    """Checked ``rows_to_planes`` arguments: ``(starts as an int64 tensor
+    or None, stride, n)``."""
+    if blob.dim() != 1 or blob.dtype != torch.uint8:
+        raise ValueError(f"rows_to_planes expects a 1-D uint8 blob, got {tuple(blob.shape)} {blob.dtype}")
+    if width < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    if isinstance(starts, torch.Tensor):
+        if starts.dim() != 1 or starts.device != blob.device or (n is not None and n != starts.shape[0]):
+            raise ValueError("starts must be [N] on the blob's device")
+        return _contiguous(starts, torch.int64), 0, starts.shape[0]
+    if n is None or n < 0 or starts < 0:
+        raise ValueError("a uniform stride needs the row count n")
+    return None, int(starts), n
+
+
+def rows_to_planes_plain(blob: torch.Tensor, starts, width: int, n: Optional[int] = None
+                         ) -> torch.Tensor:
+    """Plain version of ``rows_to_planes``: an index gather of each row's
+    first ``width`` bytes, chunked to ~64 MB of indices, viewed as words
+    and transposed."""
+    starts_t, stride, n = _row_starts(blob, starts, width, n)
+    dev = blob.device
+    p = (width + 3) // 4
+    out = torch.zeros((p, n), dtype=torch.int32, device=dev)
+    blen = blob.shape[0]
+    if n == 0 or p == 0 or blen == 0:
+        return out
+    span = torch.arange(4 * p, dtype=torch.int64, device=dev)
+    chunk = max(1, (64 << 20) // 8 // (4 * p))
+    for r0 in range(0, n, chunk):
+        rows = min(chunk, n - r0)
+        if starts_t is None:
+            first = torch.arange(r0, r0 + rows, dtype=torch.int64, device=dev) * stride
+        else:
+            first = starts_t[r0 : r0 + rows]
+        idx = first[:, None] + span
+        ok = (idx >= 0) & (idx < blen) & (span < width)
+        by = torch.where(ok, blob[idx.clamp(0, blen - 1)], 0)  # [rows, 4p] uint8
+        out[:, r0 : r0 + rows] = by.view(torch.int32).t()
+    return out
+
+
+def rows_to_planes(blob: torch.Tensor, starts, width: int, n: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Each row's first ``width`` bytes of a uint8 row blob as int32
+    [ceil(width/4), N] word planes (u32 bits): plane j of row r is the
+    little-endian word at blob bytes ``starts[r] + 4j .. + 3``; bytes at or
+    past ``width`` within a row, and bytes outside the blob, are 0.
+    ``starts`` is [N] byte starts (any integer type, any alignment) or an
+    int uniform stride (row r at ``r * stride``, ``n`` rows). Bit for bit
+    ``pack_u8_planes(pad4(padded_extract(blob, starts, width)[:, :width]).t())``,
+    the reference decode's composition. Kernel on a CUDA blob, plain
+    version on a CPU blob."""
+    starts_t, stride, n = _row_starts(blob, starts, width, n)
+    if blob.device.type == "cpu":
+        return rows_to_planes_plain(blob, starts, width, n)
+    p = (width + 3) // 4
+    out = torch.empty((p, n), dtype=torch.int32, device=blob.device)
+    if n and p:
+        blob = blob.contiguous()
+        rc = _build.library("planes").rows_to_planes_launch(
+            blob.data_ptr(), blob.shape[0], None if starts_t is None else starts_t.data_ptr(),
+            stride, width, n, out.data_ptr(), _build.raw_stream(blob.device))
+        _build.check(rc, "rows_to_planes")
+        rows_to_planes.launches += 1
+    return out
+
+
+rows_to_planes.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # plain lane arithmetic (the reference's ragged_bytes.py:66-143, 256-269)
 # ---------------------------------------------------------------------------
@@ -177,10 +266,6 @@ def _pow2_ceil(v: int) -> int:
     while p < v:
         p *= 2
     return p
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -319,7 +404,7 @@ def _rotl_take(x32: torch.Tensor, shift_bytes: torch.Tensor, out_w: int) -> torc
     out = torch.empty((n, out_w // 4), dtype=torch.int32, device=x32.device)
     if n and out_w:
         rc = _build.library("strings").rotl_take_launch(
-            x32.data_ptr(), sh.data_ptr(), out.data_ptr(), n, lanes, out_w // 4, _stream(x32)
+            x32.data_ptr(), sh.data_ptr(), out.data_ptr(), n, lanes, out_w // 4, _build.raw_stream(x32.device)
         )
         _build.check(rc, "rotl_take")
         rotl_take.launches += 1
@@ -489,7 +574,7 @@ def asm_epilogue(a0, a1, c0, pmod, delta, alen, g_tile: int) -> torch.Tensor:
     if t:
         rc = _build.library("strings").asm_epilogue_launch(
             a0.data_ptr(), a1.data_ptr(), c0.data_ptr(), pm.data_ptr(), dl.data_ptr(),
-            al.data_ptr(), out.data_ptr(), t, g_tile // 4, _stream(out)
+            al.data_ptr(), out.data_ptr(), t, g_tile // 4, _build.raw_stream(out.device)
         )
         _build.check(rc, "asm_epilogue")
         asm_epilogue.launches += 1
@@ -504,21 +589,13 @@ asm_epilogue.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def padded_extract(pool: torch.Tensor, starts: torch.Tensor, max_len: int) -> torch.Tensor:
-    """N windows of up to ``max_len`` bytes at byte offsets ``starts`` [N]
-    in the uint8 ``pool`` -> uint8 [N, W] (W = pow2 >= max_len, at least
-    4), row r's first max_len bytes being pool[starts[r] : starts[r] +
-    max_len] (zero past the pool's end). Bytes past max_len are tile
-    bytes: callers mask by true length.
-
-    One overlapping-tile row gather (stride s = W, width 2s, so the
-    window [starts % s, starts % s + max_len) lies in the gathered row)
-    and one B8 rotate. From s = 512 up the tiles are u32 lanes
-    (``rotl_take32``), below that bytes (``rotl_take``), as in the
-    reference."""
-    n = starts.shape[0]
-    if max_len < 1:
-        return torch.zeros((n, 4), dtype=torch.uint8, device=pool.device)
+def extract_tiles(pool: torch.Tensor, starts: torch.Tensor, max_len: int):
+    """B8's arguments in ``padded_extract`` (``max_len`` >= 1): ``(tiles,
+    shifts, stride)``, the overlapping-tile row gather (stride s = pow2 >=
+    max_len, at least 4, width 2s, so the window [starts % s, starts % s +
+    max_len) lies in the gathered row) and each row's shift in it. From s
+    = 512 up the tiles are int32 u32 lanes (for ``rotl_take32``), below
+    that uint8 bytes (for ``rotl_take``), as in the reference."""
     stride = max(_pow2_ceil(max_len), 4)
     starts = starts.to(torch.int64)
     idx = torch.div(starts, stride, rounding_mode="floor")
@@ -527,10 +604,136 @@ def padded_extract(pool: torch.Tensor, starts: torch.Tensor, max_len: int) -> to
     # (an empty string there) reads zeros
     rows = pool.shape[0] // stride + 1
     if stride >= 512:
-        g32 = overlap_tiles_u32(pool, stride, 2 * stride, rows).index_select(0, idx)
-        return rotl_take32(g32, sh, stride)
-    g = overlap_tiles(pool, stride, 2 * stride, rows).index_select(0, idx)
-    return rotl_take(g, sh, stride)
+        return overlap_tiles_u32(pool, stride, 2 * stride, rows).index_select(0, idx), sh, stride
+    return overlap_tiles(pool, stride, 2 * stride, rows).index_select(0, idx), sh, stride
+
+
+def padded_extract(pool: torch.Tensor, starts: torch.Tensor, max_len: int) -> torch.Tensor:
+    """N windows of up to ``max_len`` bytes at byte offsets ``starts`` [N]
+    in the uint8 ``pool`` -> uint8 [N, W] (W = pow2 >= max_len, at least
+    4), row r's first max_len bytes being pool[starts[r] : starts[r] +
+    max_len] (zero past the pool's end). Bytes past max_len are tile
+    bytes: callers mask by true length.
+
+    The reference's form: one overlapping-tile row gather
+    (``extract_tiles``) and one B8 rotate. The transcode reads the same
+    bytes through ``extract_strings_many`` and ``rows_to_planes``."""
+    n = starts.shape[0]
+    if max_len < 1:
+        return torch.zeros((n, 4), dtype=torch.uint8, device=pool.device)
+    tiles, sh, stride = extract_tiles(pool, starts, max_len)
+    return (rotl_take32 if tiles.dtype == torch.int32 else rotl_take)(tiles, sh, stride)
+
+
+def _contiguous(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _check_extract(pools, starts, lens, widths) -> int:
+    if not len(pools) == len(starts) == len(lens) == len(widths):
+        raise ValueError("extract_strings_many needs a pool, starts, lengths and a width a column")
+    if not pools:
+        return 0
+    n, dev = starts[0].shape[0], pools[0].device
+    for pool, s, ln, lc in zip(pools, starts, lens, widths):
+        if pool.dim() != 1 or pool.dtype != torch.uint8:
+            raise ValueError(f"each pool must be 1-D uint8, got {tuple(pool.shape)} {pool.dtype}")
+        if s.shape != (n,) or ln.shape != (n,) or {pool.device, s.device, ln.device} != {dev}:
+            raise ValueError("starts and lengths must be [N] on one device with the pools")
+        if lc < 0 or lc % 4:
+            raise ValueError(f"each width must be a multiple of 4, got {lc}")
+    return n
+
+
+def extract_strings_many_plain(pools, starts, lens, widths) -> List[torch.Tensor]:
+    """Plain version of ``extract_strings_many``: an index gather a
+    column, masked by the lengths and the pool's end."""
+    n = _check_extract(pools, starts, lens, widths)
+    out = []
+    for pool, s, ln, lc in zip(pools, starts, lens, widths):
+        plen = pool.shape[0]
+        if n == 0 or lc == 0 or plen == 0:
+            out.append(torch.zeros((n, lc), dtype=torch.uint8, device=pool.device))
+            continue
+        span = torch.arange(lc, dtype=torch.int64, device=pool.device)
+        idx = s.to(torch.int64)[:, None] + span
+        ok = (span < ln.to(torch.int64)[:, None]) & (idx >= 0) & (idx < plen)
+        out.append(torch.where(ok, pool[idx.clamp(0, plen - 1)], 0))
+    return out
+
+
+# extract_strings_many's blocks own about _EXTRACT_WORDS output words of
+# whole rows; up to _EXTRACT_BY_VALUE columns travel in the kernel's
+# arguments (kExtractByValue in csrc/strings.cu), more in a device table
+_EXTRACT_WORDS = 2048
+_EXTRACT_BY_VALUE = 32
+
+
+def extract_block_plan(n: int, row_words: Sequence[int], words: int = _EXTRACT_WORDS):
+    """The grid of one ``extract_strings_many`` launch over columns of
+    ``row_words`` (>= 1) words a row: ``(rows_per_block, first_block,
+    blocks)``, a block whole rows of one column, ``max(1, words //
+    row_words)`` of them, and each column's first block in the grid."""
+    rpb = [max(1, words // w) for w in row_words]
+    first, blocks = [], 0
+    for r in rpb:
+        first.append(blocks)
+        blocks += (n + r - 1) // r
+    return rpb, first, blocks
+
+
+def extract_strings_many(pools: Sequence[torch.Tensor], starts: Sequence[torch.Tensor],
+                         lens: Sequence[torch.Tensor], widths: Sequence[int]
+                         ) -> List[torch.Tensor]:
+    """Every string column's bytes padded to a width, in one launch: for
+    column k (uint8 ``pools[k]``, [N] ``starts[k]`` and ``lens[k]``, a
+    width ``widths[k]``, a multiple of 4) the uint8 [N, widths[k]] whose
+    row r holds ``pools[k][starts[r] + j]`` for ``j < min(lens[r],
+    widths[k])`` (0 past the pool's end) and 0 elsewhere: the reference
+    encode's ``where(arange(lc) < lens, padded_extract(..)[:, :lc], 0)``.
+    The outputs are views of one buffer, each 16-byte aligned and
+    contiguous, as ``var_accumulate`` reads them. Kernel on CUDA tensors,
+    plain version on CPU tensors."""
+    n = _check_extract(pools, starts, lens, widths)
+    if not pools:
+        return []
+    dev = pools[0].device
+    if dev.type == "cpu":
+        return extract_strings_many_plain(pools, starts, lens, widths)
+    at, nbytes = [], 0
+    for lc in widths:
+        at.append(nbytes)
+        nbytes += (n * lc + 15) // 16 * 16
+    buf = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    outs = [buf.as_strided((n, lc), (lc, 1), a) for a, lc in zip(at, widths)]
+    live = [k for k, lc in enumerate(widths) if n and lc]
+    if not live:
+        return outs
+    itype = torch.int32 if all(starts[k].dtype == lens[k].dtype == torch.int32 for k in live) \
+        else torch.int64
+    rpb, first, blocks = extract_block_plan(n, [widths[k] // 4 for k in live])
+    keep, entries = [], []  # converted arguments stay alive until the launch is queued
+    for k, r, fb in zip(live, rpb, first):
+        # no dispatch for an argument that is already what the kernel reads
+        # (a launch over 16 columns would spend ~0.3 ms of host time on them)
+        pool, s, ln = _contiguous(pools[k], torch.uint8), _contiguous(starts[k], itype), \
+            _contiguous(lens[k], itype)
+        keep += (pool, s, ln)
+        entries += (pool.data_ptr(), pool.shape[0], s.data_ptr(), ln.data_ptr(),
+                    buf.data_ptr() + at[k], widths[k] // 4, r, fb)
+    host = (ctypes.c_int64 * len(entries))(*entries)
+    table = None
+    if len(live) > _EXTRACT_BY_VALUE:
+        table = torch.tensor(entries, dtype=torch.int64).to(dev)
+    rc = _build.library("strings").extract_strings_launch(
+        ctypes.addressof(host), None if table is None else table.data_ptr(), len(live),
+        itype.itemsize, n, blocks, _build.raw_stream(dev))
+    _build.check(rc, "extract_strings_many")
+    extract_strings_many.launches += 1
+    return outs
+
+
+extract_strings_many.launches = 0
 
 
 def _rows_parts(rp_parts) -> list:

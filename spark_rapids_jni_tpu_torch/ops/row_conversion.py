@@ -15,26 +15,28 @@ Row format (reference RowConversion.java:44-117, row_conversion.cu):
 The paths follow the reference's kernel branch. Fixed-width encode
 composes the row as u32 word planes ([P, N], one plane per 4 bytes of the
 row) and turns them into byte planes with B6 (``expand_u32_planes``), then
-transposes to rows. Decode transposes the [N, W] rows into byte planes and
-packs them into word planes with B7 (``pack_u8_planes``); every column is
-then a row take of the plane stack plus a constant shift.
+transposes to rows. Decode reads each row's fixed section straight from
+the blob into [P, N] word planes (``rows_to_planes``, B7 with B8's
+fixed-section gather absorbed: the reference transposes the [N, W] rows
+into byte planes and packs them with B7); every column is then a row take
+of the plane stack plus a constant shift.
 
 With STRING columns, encode builds the fixed sections as u32 lanes, pulls
-each string column into a padded [N, L] matrix (overlapping-tile gather +
-B8 ``rotl_take``), ORs the matrices into the rows' variable sections with
-B9 (``var_accumulate``), and compacts the padded rows into the ragged
-blob with ``assemble_rows`` (B10: one kernel reading the fixed sections'
-word planes and the variable sections where they lie). Decode gathers
-each row's fixed section (``padded_extract``, B8), decodes it through
-B7, and compacts every string column's characters out of the blob with
-one B5 launch (``hopper_kernels.ragged_compact_many``). Tables too large
-for the padded form take the reference's scatter path instead (a size
-gate).
+every string column into a padded [N, L] matrix in one launch
+(``extract_strings_many``, B8 on this path: the reference's
+overlapping-tile gather + ``rotl_take`` masked by the lengths), ORs the
+matrices into the rows' variable sections with B9 (``var_accumulate``),
+and compacts the padded rows into the ragged blob with ``assemble_rows``
+(B10: one kernel reading the fixed sections' word planes and the
+variable sections where they lie). Decode reads the fixed sections into
+word planes by the row offsets (``rows_to_planes``) and compacts every
+string column's characters out of the blob with one B5 launch
+(``hopper_kernels.ragged_compact_many``). Tables too large for the padded
+form take the reference's scatter path instead (a size gate).
 
 On CUDA tensors the kernels are the hand-written ones, on CPU tensors
 their plain versions. Tables of fewer than 8 rows take the plain plane
-relayouts and the plain fixed-section gather on every device, as the
-reference keeps them off its kernels.
+relayouts on every device, as the reference keeps them off its kernels.
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ from .ragged_bytes import (
     assemble_rows,
     expand_u32_planes,
     expand_u32_planes_plain,
-    pack_u8_planes,
-    pack_u8_planes_plain,
-    padded_extract,
+    extract_strings_many,
+    rows_to_planes,
+    rows_to_planes_plain,
     var_accumulate,
 )
 
@@ -324,8 +326,9 @@ def _slots(layout: RowLayout, cols: Sequence[Column]):
 def _var_section(chars, starts, lens, shifts, tail_lane: Optional[torch.Tensor], tail_bytes: int,
                  maxlens: Sequence[int], maxvar: int) -> torch.Tensor:
     """All string columns -> the rows' variable region, int32 [N,
-    maxvar/4]: each column's padded extraction (tile gather + B8), masked
-    to its lengths, then one B9 pass over all of them.
+    maxvar/4]: every column's bytes padded and masked to its lengths in
+    one ``extract_strings_many`` launch, then one B9 pass over all of
+    them.
 
     The region starts at byte 4 * (fixed_end // 4): when fixed_end is not
     a multiple of 4, the trailing validity bytes (``tail_lane``, the
@@ -338,19 +341,17 @@ def _var_section(chars, starts, lens, shifts, tail_lane: Optional[torch.Tensor],
         keep = torch.arange(4, device=tail.device)[None, :] < tail_bytes
         p_mats.append(torch.where(keep, tail, 0))
         all_shifts.append(torch.zeros((n,), dtype=torch.int32, device=tail.device))
-    for k in range(len(chars)):
-        lc = min(_round_up(maxlens[k], 4), maxvar)
-        p = padded_extract(chars[k], starts[k], maxlens[k])[:, :lc]
-        keep = torch.arange(lc, device=p.device)[None, :] < lens[k][:, None]
-        p_mats.append(torch.where(keep, p, 0))
-        all_shifts.append(shifts[k])
+    widths = [min(_round_up(ml, 4), maxvar) for ml in maxlens]
+    p_mats += extract_strings_many(chars, starts, lens, widths)
+    all_shifts += shifts
     return var_accumulate(p_mats, all_shifts, maxvar)
 
 
 def _encode_strings_padded(layout: RowLayout, cols: Sequence[Column], row_offsets: torch.Tensor,
                            total: int, maxlens: Sequence[int], maxvar: int) -> torch.Tensor:
     """Fixed + string table -> uint8 [total] blob through padded rows:
-    fixed sections as u32 word planes, the variable region from B8/B9,
+    fixed sections as u32 word planes, the variable region from
+    ``extract_strings_many`` and B9,
     and ``assemble_rows`` (B10) to drop each row's padding; B10 reads the
     planes through their transposed view, so the padded rows are never
     concatenated."""
@@ -509,47 +510,28 @@ def _offsets_uniform(rows: Column, blob_len: int, stride: int, n: int) -> bool:
     return bool((offs[0] == 0) & torch.all(offs[1:] - offs[:-1] == stride))
 
 
-def _gather_fixed(layout: RowLayout, blob: torch.Tensor, starts: torch.Tensor, n: int):
-    """Each row's fixed section out of a blob with arbitrary row starts:
-    [N, fixed_end] uint8. Layouts with strings from 8 rows up take one
-    overlapping-tile gather + B8 (``padded_extract``), as the reference
-    does on its kernel branch; the others an index-matrix gather chunked
-    to ~64 MB."""
-    fe = layout.fixed_end
-    if layout.variable_cols and n >= _KERNEL_MIN_ROWS:
-        return padded_extract(blob, starts, fe)[:, :fe]
-    chunk = max(1, (64 << 20) // 8 // max(fe, 1))
-    span = torch.arange(fe, dtype=torch.int64, device=blob.device)[None, :]
-    parts = [blob[starts[r0 : r0 + chunk, None] + span] for r0 in range(0, n, chunk)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-
-
-def _fixed_rows(layout: RowLayout, rows: Column):
-    """(blob, starts, [N, W] uint8 row view): a free reshape when the rows
-    have the uniform stride, else a gather of each row's fixed section."""
+def _row_planes(layout: RowLayout, rows: Column):
+    """(blob, starts, [P, N] int32 word planes of each row's first W
+    bytes) in one ``rows_to_planes`` call: W = ``row_size_fixed`` at the
+    uniform stride (the whole row), else ``fixed_end`` at the rows'
+    offsets."""
     blob, starts = _rows_blob(rows)
     n = len(rows)
-    if _offsets_uniform(rows, blob.shape[0], layout.row_size_fixed, n):
-        return blob, starts, blob.reshape(n, layout.row_size_fixed)
-    return blob, starts, _gather_fixed(layout, blob, starts, n)
+    to_planes = rows_to_planes if n >= _KERNEL_MIN_ROWS else rows_to_planes_plain
+    rs = layout.row_size_fixed
+    if _offsets_uniform(rows, blob.shape[0], rs, n):
+        return blob, starts, to_planes(blob, rs, rs, n)
+    return blob, starts, to_planes(blob, starts, layout.fixed_end)
 
 
 def _decode_groups_from_planes(
-    layout: RowLayout, dtypes: Sequence[DType], fixed: torch.Tensor
+    layout: RowLayout, dtypes: Sequence[DType], planes: torch.Tensor
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """[N, W] uint8 rows -> ({group key: [k, N] typed lanes}, [C, N] bool
-    validity).
+    """[P, N] int32 word planes of the rows' fixed sections -> ({group
+    key: [k, N] typed lanes}, [C, N] bool validity).
 
-    fixed.T is the byte-plane stack (row j = byte j of every row), so B7
-    turns it into [W/4, N] word planes; every group is then a row take of
-    the planes plus a constant shift (slot alignment puts each 4- and
-    8-byte entry on a word boundary)."""
-    n, w = fixed.shape
-    pad = (-w) % 4
-    if pad:
-        fixed = torch.nn.functional.pad(fixed, (0, pad))
-    pack = pack_u8_planes if n >= _KERNEL_MIN_ROWS else pack_u8_planes_plain
-    planes = pack(fixed.t().contiguous())  # [W/4, N] int32 (u32 bits)
+    Every group is a row take of the planes plus a constant shift (slot
+    alignment puts each 4- and 8-byte entry on a word boundary)."""
     dev = planes.device
 
     groups, entries = _entry_plan(layout, dtypes)
@@ -601,9 +583,9 @@ def _extract_column(group_arrays, valid_t, entries, i: int, d: DType):
     return data, valid_t[i]
 
 
-def _decode_fixed_groups(layout: RowLayout, dtypes: Sequence[DType], fixed: torch.Tensor):
-    """[N, W] uint8 rows -> (per-column data, per-column [N] validity)."""
-    group_arrays, valid_t = _decode_groups_from_planes(layout, dtypes, fixed)
+def _decode_fixed_groups(layout: RowLayout, dtypes: Sequence[DType], planes: torch.Tensor):
+    """[P, N] word planes -> (per-column data, per-column [N] validity)."""
+    group_arrays, valid_t = _decode_groups_from_planes(layout, dtypes, planes)
     _, entries = _entry_plan(layout, dtypes)
     datas, valids = [], []
     for i, d in enumerate(dtypes):
@@ -661,16 +643,16 @@ def _assemble_from_rows(dtypes: Sequence[DType], datas, valids, blob, starts) ->
 
 def convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     """LIST<INT8> column of JCUDF rows + schema -> Table
-    (RowConversion.convertFromRows). Uniform-stride rows (every fixed-width
-    batch ``convert_to_rows`` makes) decode from a free reshape of the
-    blob; other row offsets gather each row's fixed section first."""
+    (RowConversion.convertFromRows). The fixed sections go to word planes
+    in one ``rows_to_planes`` call, by the uniform stride (every
+    fixed-width batch ``convert_to_rows`` makes) or by the row offsets."""
     dtypes = list(dtypes)
     layout = compute_row_layout(dtypes)
     if len(rows) == 0:
         _rows_blob(rows)
         return Table([_empty_column(d, rows.device) for d in dtypes])
-    blob, starts, fixed = _fixed_rows(layout, rows)
-    datas, valids = _decode_fixed_groups(layout, dtypes, fixed)
+    blob, starts, planes = _row_planes(layout, rows)
+    datas, valids = _decode_fixed_groups(layout, dtypes, planes)
     return _assemble_from_rows(dtypes, datas, valids, blob, starts)
 
 
@@ -717,8 +699,8 @@ def convert_from_rows_grouped(rows: Column, dtypes: Sequence[DType]) -> GroupedR
         blob, starts = _rows_blob(rows)
         valid_t = torch.zeros((len(dtypes), 0), dtype=torch.bool, device=blob.device)
         return GroupedRows(dtypes, layout, {}, valid_t, blob, starts)
-    blob, starts, fixed = _fixed_rows(layout, rows)
-    groups, valid_t = _decode_groups_from_planes(layout, dtypes, fixed)
+    blob, starts, planes = _row_planes(layout, rows)
+    groups, valid_t = _decode_groups_from_planes(layout, dtypes, planes)
     return GroupedRows(dtypes, layout, groups, valid_t, blob, starts)
 
 

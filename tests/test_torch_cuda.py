@@ -6,7 +6,9 @@ run without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-B1, B4, B5-B10, the row transcode and the join maps are exact; B3
+B1, B4, B5-B10 (with ``rows_to_planes`` and ``extract_strings_many``,
+the kernels that took B7's and B8's places on the transcode's path), the
+row transcode and the join maps are exact; B3
 counts are exact and its float32 sums are held to rtol 2e-6 / atol 1e-3,
 the reference's bound, because the kernel's atomics add in an order that
 changes from run to run; B2's sums to 1e-4, its reference's bound."""
@@ -120,9 +122,13 @@ def test_slice_on_the_card_matches_the_cpu(rng):
     valids = [rng.random(n) < 0.8 if i % 3 == 2 else None for i in range(len(dtypes))]
     out = {}
     for dev in ("cpu", "cuda"):
+        before = (rb.rows_to_planes.launches, rb.pack_u8_planes.launches)
         t = Table.from_numpy(arrays, dtypes, valids, device=dev)
         rows = rc.convert_to_rows(t)
         dec = rc.convert_from_rows(rows[0], dtypes)
+        # the card's decode reads the blob into word planes in one launch, not B7
+        assert (rb.rows_to_planes.launches - before[0], rb.pack_u8_planes.launches - before[1]) \
+            == ((1 if dev == "cuda" else 0), 0)
         s, c = aggregate.groupby_sum_bounded(dec.columns[0].data, dec.columns[1].data, 512)
         out[dev] = (rows[0].child.data.cpu(), [x.to_numpy() for x in dec.columns],
                     [x.valid_mask().cpu() for x in dec.columns], s.cpu(), c.cpu())
@@ -479,23 +485,23 @@ def test_string_slice_on_the_card_matches_the_cpu(rng):
         valids.append(v)
     from spark_rapids_jni_tpu_torch.interop import carry_table
 
-    counts = {k: 0 for k in ("rotl", "vacc", "assemble", "compact")}
+    wrappers = {"extract": rb.extract_strings_many, "vacc": rb.var_accumulate,
+                "assemble": rb.assemble_rows, "planes": rb.rows_to_planes,
+                "compact": hk.ragged_compact_many, "rotl": rb.rotl_take, "pack": rb.pack_u8_planes}
     out = {}
     for dev in ("cpu", "cuda"):
-        before = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.assemble_rows.launches,
-                  hk.ragged_compact_many.launches)
+        before = {k: w.launches for k, w in wrappers.items()}
         t = carry_table(arrays, dtypes, valids, device=dev)
         rows = rc.convert_to_rows(t)
         dec = rc.convert_from_rows(rows[0], dtypes)
         s, c = aggregate.groupby_sum_bounded(dec.columns[2].data, dec.columns[1].data, 512)
-        after = (rb.rotl_take.launches, rb.var_accumulate.launches, rb.assemble_rows.launches,
-                 hk.ragged_compact_many.launches)
-        for k, b, a in zip(counts, before, after):
-            counts[k] = a - b
+        counts = {k: w.launches - before[k] for k, w in wrappers.items()}
         out[dev] = (rows[0], dec, s.cpu(), c.cpu())
-    assert all(v > 0 for v in counts.values()), counts  # the card run launched each kernel
-    # one compaction for the blob and one for all four string columns
-    assert counts["assemble"] == 1 and counts["compact"] == 1, counts
+    # the card run: one extraction of all four string columns, one B9, one
+    # compaction for the blob, one read of the fixed sections into word
+    # planes and one compaction of all four string columns; no B8, no B7
+    assert counts == {"extract": 1, "vacc": 1, "assemble": 1, "planes": 1, "compact": 1,
+                      "rotl": 0, "pack": 0}, counts
     (r0, d0, s0, c0), (r1, d1, s1, c1) = out["cpu"], out["cuda"]
     assert torch.equal(r0.child.data, r1.child.data.cpu())
     assert torch.equal(r0.offsets, r1.offsets.cpu())
@@ -507,6 +513,177 @@ def test_string_slice_on_the_card_matches_the_cpu(rng):
             np.testing.assert_array_equal(a.to_numpy().view(np.uint8), b.to_numpy().view(np.uint8))
     assert torch.equal(c0, c1)
     torch.testing.assert_close(s0, s1, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# rows_to_planes and extract_strings_many: B7 and B8 on the transcode's path
+# ---------------------------------------------------------------------------
+
+
+def _rows_blob(rng, n, width, align, mis=0):
+    """A row blob of n rows of ``width`` bytes or more on the card, row
+    starts a multiple of ``align`` (1: any) with gaps, the last row ending
+    at the blob's end; the blob a view ``mis`` bytes into its buffer."""
+    gaps = rng.integers(0, 9, n)
+    starts, at = np.zeros(n, np.int64), int(rng.integers(0, 4))
+    for r in range(n):
+        at = -(-at // align) * align
+        starts[r] = at
+        at += width + int(gaps[r])
+    size = int(starts[-1]) + width if n else 0
+    buf = torch.from_numpy(rng.integers(0, 256, size + mis, dtype=np.uint8)).cuda()
+    return buf[mis:], torch.from_numpy(starts).cuda()
+
+
+def _r2p_check(blob, starts, width, n=None):
+    before = (rb.rows_to_planes.launches, rb.pack_u8_planes.launches, rb.rotl_take.launches)
+    got = rb.rows_to_planes(blob, starts, width, n)
+    torch.cuda.synchronize()
+    rows = starts.shape[0] if isinstance(starts, torch.Tensor) else n
+    launched = 1 if rows and width else 0
+    assert (rb.rows_to_planes.launches, rb.pack_u8_planes.launches,
+            rb.rotl_take.launches) == (before[0] + launched, before[1], before[2])
+    assert got.dtype == torch.int32 and got.shape == ((width + 3) // 4, rows)
+    assert torch.equal(got, rb.rows_to_planes_plain(blob, starts, width, n))
+    return got
+
+
+def _composition(blob, starts, width):
+    """The reference decode's composition on the card: padded_extract (the
+    tile gather + B8) cut to W bytes, padded to whole words, transposed to
+    byte planes, packed by B7."""
+    fixed = rb.padded_extract(blob, starts, width)[:, :width]
+    fixed = torch.nn.functional.pad(fixed, (0, (-width) % 4))
+    return rb.pack_u8_planes(fixed.t().contiguous())
+
+
+# (rows, W, row start alignment, the blob's storage offset): the string
+# path's W = 1012 over several bands, the tail word (W = 1011, 13),
+# 4-aligned and odd starts, blobs 1-3 bytes past a word, N = 1
+@pytest.mark.parametrize("n,width,align,mis", [
+    (100_003, 1012, 8, 0), (5001, 1011, 8, 0), (3000, 13, 4, 0), (3001, 278, 1, 3),
+    (777, 1012, 1, 1), (64, 5, 2, 2), (1, 24, 8, 0), (65, 4, 1, 0)])
+def test_rows_to_planes_kernel_matches_plain(rng, n, width, align, mis):
+    blob, starts = _rows_blob(rng, n, width, align, mis)
+    got = _r2p_check(blob, starts, width)
+    # bit for bit the composition it replaces, the tail word's bytes past W included
+    assert torch.equal(got, _composition(blob, starts, width))
+
+
+@pytest.mark.parametrize("n,width,mis", [(1_000_003, 792, 0), (4097, 24, 0), (130, 792, 1),
+                                         (1, 8, 3)])
+def test_rows_to_planes_kernel_uniform_stride(rng, n, width, mis):
+    buf = torch.from_numpy(rng.integers(0, 256, n * width + mis, dtype=np.uint8)).cuda()
+    blob = buf[mis:]
+    got = _r2p_check(blob, width, width, n)
+    if mis == 0:  # the library yardstick: a view and one transpose
+        assert torch.equal(got, blob.view(torch.int32).view(n, width // 4).t().contiguous())
+
+
+def test_rows_to_planes_kernel_past_the_blob_end(rng):
+    # rows that start 5, 1 and 0 bytes before the end read zeros past it;
+    # the blob starts 3 bytes past a word and ends 2 bytes into one
+    buf = torch.from_numpy(rng.integers(1, 256, 4096, dtype=np.uint8)).cuda()
+    blob = buf[3:102]
+    starts = torch.tensor([0, 40, 94, 98, 99, 7], dtype=torch.int64, device="cuda")
+    got = _r2p_check(blob, starts, 13)
+    assert not got[:, 4].any() and got[2:, 2].eq(0).all()
+
+
+def test_rows_to_planes_kernel_empty_cases(rng):
+    z = torch.zeros((0,), dtype=torch.uint8, device="cuda")
+    _r2p_check(z, torch.zeros((0,), dtype=torch.int64, device="cuda"), 13)  # N = 0
+    got = _r2p_check(z, torch.zeros((70,), dtype=torch.int64, device="cuda"), 13)  # empty blob
+    assert not got.any()
+    _r2p_check(torch.ones(64, dtype=torch.uint8, device="cuda"), 8, 0, 8)  # W = 0
+    # int32 starts are taken as they are given
+    blob, starts = _rows_blob(rng, 300, 40, 8)
+    _r2p_check(blob, starts.to(torch.int32), 40)
+
+
+def _string_cols(rng, n, specs):
+    """String columns on the card: for each (longest, null share, pool
+    tail bytes, storage offset) a pool, int32 starts and lengths; the last
+    string of each ends at its strings' end."""
+    pools, starts, lens = [], [], []
+    for max_len, null_frac, tail, mis in specs:
+        ln = rng.integers(0, max_len + 1, n)
+        ln[rng.random(n) < null_frac] = 0
+        if n:
+            ln[-1] = max_len
+        offs = np.concatenate([[0], np.cumsum(ln)]).astype(np.int32)
+        buf = torch.from_numpy(rng.integers(0, 256, int(offs[-1]) + tail + mis,
+                                            dtype=np.uint8)).cuda()
+        pools.append(buf[mis:])
+        starts.append(torch.from_numpy(offs[:-1]).cuda())
+        lens.append(torch.from_numpy(ln.astype(np.int32)).cuda())
+    return pools, starts, lens
+
+
+def _extract_check(pools, starts, lens, widths):
+    before = (rb.extract_strings_many.launches, rb.rotl_take.launches)
+    got = rb.extract_strings_many(pools, starts, lens, widths)
+    torch.cuda.synchronize()
+    n = starts[0].shape[0] if starts else 0
+    launched = 1 if n and any(widths) else 0
+    assert (rb.extract_strings_many.launches, rb.rotl_take.launches) == (before[0] + launched,
+                                                                          before[1])
+    want = rb.extract_strings_many_plain(pools, starts, lens, widths)
+    assert len(got) == len(want)
+    for g, w, lc in zip(got, want, widths):
+        assert g.dtype == torch.uint8 and g.shape == (n, lc) and g.is_contiguous()
+        assert g.data_ptr() % 16 == 0  # var_accumulate takes it without a copy
+        assert torch.equal(g, w)
+    return got
+
+
+# the string path's 16 columns of 1-32 bytes (widths 32), odd-length and
+# empty columns, pools 1-3 bytes past a word, lengths past the width, one
+# row, more columns than travel by value (a device table)
+@pytest.mark.parametrize("n,specs,widths", [
+    (100_003, [(32, 0.1, 0, 0)] * 16, [32] * 16),
+    (3001, [(7, 0.5, 1, 1), (0, 0.0, 0, 0), (40, 0.0, 3, 2), (3, 0.9, 0, 3)], [8, 4, 16, 4]),
+    (1, [(32, 0.0, 0, 1), (5, 0.0, 0, 0)], [32, 8]),
+    (2049, [(13, 0.2, 2, k % 4) for k in range(40)], [16] * 40),
+    (500, [(3000, 0.1, 0, 1)], [3000])])
+def test_extract_strings_many_kernel_matches_plain(rng, n, specs, widths):
+    _extract_check(*_string_cols(rng, n, specs), widths)
+
+
+def test_extract_strings_many_kernel_device_table(rng, monkeypatch):
+    # every column through the device table, at the string path's 16
+    monkeypatch.setattr(rb, "_EXTRACT_BY_VALUE", 0)
+    _extract_check(*_string_cols(rng, 5003, [(32, 0.1, 0, 1)] * 16), [32] * 16)
+
+
+def test_extract_strings_many_kernel_empty_cases(rng):
+    z8 = torch.zeros((0,), dtype=torch.uint8, device="cuda")
+    z32 = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    _extract_check([z8, z8], [z32, z32], [z32, z32], [8, 4])  # N = 0
+    zn = torch.zeros((300,), dtype=torch.int32, device="cuda")
+    got = _extract_check([z8, z8], [zn, zn], [zn, zn], [8, 0])  # empty pools; a width of 0
+    assert not got[0].any()
+    pools, starts, lens = _string_cols(rng, 300, [(9, 0.1, 0, 0)])
+    _extract_check(pools, [s.to(torch.int64) for s in starts], lens, [12])  # int64 starts
+    assert rb.extract_strings_many([], [], [], []) == []
+
+
+def test_a_refused_transcode_launch_raises(rng, monkeypatch):
+    from spark_rapids_jni_tpu_torch import _build
+
+    class _Refused:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    blob, starts = _rows_blob(rng, 100, 40, 8)
+    pools, sts, lens = _string_cols(rng, 100, [(9, 0.1, 0, 0)])
+    before = (rb.rows_to_planes.launches, rb.extract_strings_many.launches)
+    monkeypatch.setattr(_build, "library", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="rows_to_planes"):
+        rb.rows_to_planes(blob, starts, 40)
+    with pytest.raises(RuntimeError, match="extract_strings_many"):
+        rb.extract_strings_many(pools, sts, lens, [12])
+    assert (rb.rows_to_planes.launches, rb.extract_strings_many.launches) == before
 
 
 # ---------------------------------------------------------------------------
