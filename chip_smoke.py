@@ -49,10 +49,13 @@ checkout (one nvcc per source, all at once), then on one card:
    columns of 1-50 bytes) through ``hash_partition(fact, 200,
    ["item_sk"])`` (B1) -> ``inner_join(.., dim, ["item_sk"])`` (the paged
    table and B4, then the gathers) -> ``groupby_sum_bounded(i_brand_id,
-   ss_ext_sales_price, 4096)`` (B3). B1 and B4 are held against their
+   ss_ext_sales_price, 4096)`` (B3). B1, B4 and B3 are held against their
    plain versions at the path's shapes (B4 also on INT64 copies of the
-   keys; B4, like B3 on the fixed path, timed in turns with its library
-   call), the counted run must launch B1, B4 and B3, and the partition
+   keys, B3 on the joined INT32 brand keys; B4 and B3, as B3 on the
+   fixed path's INT64 keys, timed in turns with their library calls; the
+   host's enqueue time of each), one call of B3 must put exactly one
+   kernel on the card on either path's keys (INT64 and INT32), the
+   counted run must launch B1, B4 and B3, and the partition
    ids, both gather maps (inner and left), every joined column, the
    counts and the sums are checked against numpy oracles;
 5. the ONEHOT path, B2's own entry point
@@ -84,6 +87,12 @@ or run from a directory without the port package, it exits non-zero
 before printing any result.
 
 Usage: ``python3 chip_smoke.py`` from the root of the checkout.
+``python3 chip_smoke.py --kernels-only`` times B3, B1 and B4 alone on
+the fixed and join paths' inputs (copy the script into another
+checkout's root to time that checkout's wrappers the same way, as for a
+checkout whose own script does not time their host work). It drives no
+path, so it is a partial run: it prints its numbers, never the ``ok``
+line, and exits 4.
 """
 
 from __future__ import annotations
@@ -176,12 +185,15 @@ def _time_turns(fns, reps: int = 3 * REPS, warm: int = 2):
     return [float(np.median(ts)) for ts in times]
 
 
-def _device_activities(fn, reps: int = 1, warm: bool = True):
+def _device_activities(fn, reps: int = 1, warm: bool = True, retake: bool = True):
     """The device activities (kernels, copies, fills) that ``reps`` calls
     of ``fn`` enqueue, as (name, us) from torch.profiler's CUDA activity,
     after one warm call unless ``warm`` is False. The tracer runs a
     warm-up step with one sleep kernel first, so the calls' first launch
-    is not lost to its start; that marker is left out of the result."""
+    is not lost to its start; that marker is left out of the result.
+    With ``retake``, a trace that records nothing is taken again (up to
+    three traces), so every call of ``fn`` in the result is from one
+    trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -195,15 +207,20 @@ def _device_activities(fn, reps: int = 1, warm: bool = True):
         got.extend((e.name, e.time_range.elapsed_us()) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
 
-    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
+    # a trace has on rare occasions come back with no device activity at
+    # all: such a trace is taken again, twice at most
+    for _ in range(3 if retake else 1):
+        with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        if got:
+            break
     return got
 
 
@@ -472,7 +489,37 @@ def _kernel_phase(table, layout, rate: float):
     del got, want, got7, want7, bplanes, planes, blob
 
     # B3: group-by over the key and value columns
-    keys, vals = table.columns[0].data, table.columns[1].data
+    results["groupby_sum_outer"] = _b3_phase(table.columns[0].data, table.columns[1].data, rate)
+    return results
+
+
+def _one_activity(fn, kernel: str, wrapper) -> list:
+    """The device activities of one call of ``fn`` under the profiler:
+    ``kernel`` and nothing else, from one launch that ``wrapper`` counted.
+    The tracer has missed a launch on rare occasions, so up to three calls
+    are traced: none may show other device work or count other than one
+    launch, and one must show the kernel alone."""
+    for _ in range(3):
+        wrapper.launches = 0
+        acts = _device_activities(fn, warm=False, retake=False)
+        if wrapper.launches != 1 or any(kernel not in name for name, _ in acts):
+            raise AssertionError(f"one call enqueued other device work than {kernel}: "
+                                 f"{[name[:80] for name, _ in acts]}, {wrapper.launches} launches")
+        if len(acts) == 1:
+            return acts
+    raise AssertionError(f"the profiler never showed {kernel} alone")
+
+
+def _b3_phase(keys, vals, rate: float, check_one: bool = True):
+    """B3 against its plain version on one path's keys and values, timed
+    in turns with its library call (30 rounds: a few microseconds of
+    device work behind the host's), with the profiler's device time (the
+    kernel, by whatever name the checkout's wrapper launches, and all the
+    device work of a call) and the host's enqueue time. With
+    ``check_one``, one call must put exactly one kernel on the card."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
     gs, gc = hk.groupby_sum_outer(keys, vals, NUM_KEYS)
     ws, wc = hk.groupby_sum_outer_plain(keys, vals, NUM_KEYS)
     torch.cuda.synchronize()
@@ -480,70 +527,110 @@ def _kernel_phase(table, layout, rate: float):
         raise AssertionError("groupby_sum_outer counts disagree with its plain version")
     if not torch.allclose(gs, ws, rtol=RTOL, atol=ATOL):
         raise AssertionError("groupby_sum_outer sums disagree with its plain version")
+    k64 = keys.to(torch.int64)  # the library call's index: built outside the timed region
+
+    def call():
+        return hk.groupby_sum_outer(keys, vals, NUM_KEYS)
 
     def library():
-        s = torch.zeros(NUM_KEYS, dtype=torch.float32, device=keys.device).index_add_(0, keys, vals)
-        return s, torch.bincount(keys, minlength=NUM_KEYS)
+        s = torch.zeros(NUM_KEYS, dtype=torch.float32, device=keys.device).index_add_(0, k64, vals)
+        return s, torch.bincount(k64, minlength=NUM_KEYS)
 
     n = keys.shape[0]
-    # a few microseconds of device work behind the host's: timed in turns
-    # with the library call, 30 rounds
-    ms, library_ms = _time_turns([lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS), library])
-    results["groupby_sum_outer"] = dict(
+    acts = _device_activities(call, reps=20)
+    ms, library_ms = _time_turns([call, library])
+    out = dict(
         max_abs_err=float((gs - ws).abs().max()),
         ms=ms,
-        device_ms=_device_ms(lambda: hk.groupby_sum_outer(keys, vals, NUM_KEYS),
-                             "groupby_shared_kernel"),
+        device_ms=_device_ms(call, "groupby_"),
+        device_call_ms=sum(t for _, t in acts) / 20 / 1e3,
+        activities_per_call=len(acts) / 20,
+        host_us=_host_us(call),
         plain_ms=_time_ms(lambda: hk.groupby_sum_outer_plain(keys, vals, NUM_KEYS)),
         library_ms=library_ms, library="index_add_ + bincount, in turns with the kernel",
-        # reads 12 B a row (int64 key, f32 value), writes 12 B a key
-        # (f32 sum, int64 count); one add a row is far below the f32 rate
-        bound_ms=(12 * n + 12 * NUM_KEYS) / rate * 1e3, bound_by="bytes",
-        shape=f"int64 [{n}] keys, float32 [{n}] values, K={NUM_KEYS}",
+        # reads the key (4 or 8 B) and the f32 value a row, writes 12 B a
+        # key (f32 sum, int64 count); one add a row is far below the f32 rate
+        bound_ms=((keys.element_size() + 4) * n + 12 * NUM_KEYS) / rate * 1e3, bound_by="bytes",
+        shape=f"{str(keys.dtype).replace('torch.', '')} [{n}] keys, float32 [{n}] values, "
+              f"K={NUM_KEYS}",
     )
-    return results
+    if check_one:
+        out["one_call_activities"] = [(name[:80], us) for name, us in
+                                      _one_activity(call, "groupby_outer_kernel", hk.groupby_sum_outer)]
+    return out
 
 
-def _profile_phase(run_path, top: int = 8, watch=()):
+def _profile_phase(run_path, top: int = 8, watch=None):
     """One warm main-path run under torch.profiler: device busy time by
     kernel and by aten op, and the device's idle share of the host window.
-    Kernels whose names contain a ``watch`` string are printed whatever
-    their rank, and their device ms land in the result's ``watched``."""
+    ``watch`` maps a kernel's name to the wrapper that launches it: those
+    kernels are printed whatever their rank, their device ms land in the
+    result's ``watched``, and the trace must hold each as many times as
+    its wrapper counted in the traced run. As in ``_device_activities``,
+    a warm-up step with one sleep kernel comes first. The tracer has
+    dropped part of a run on rare occasions (a join-path trace once held
+    221 of its 281 launches, B1's among the lost), so a trace that holds
+    no device work or is short of a watched kernel is taken again, twice
+    at most; a third short one is recorded as such (``short_of``)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    watch = watch or {}
     run_path()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_path()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_kernel = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        us, cnt = by_kernel.get(e.name, (0.0, 0))
-        by_kernel[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
-    if not spans:
+    for attempt in range(1, 4):
+        for w in watch.values():
+            w.launches = 0
+        got = {}
+
+        def keep(prof):
+            # the step's own span shows on the device too: left out, as the
+            # warm-up's sleep kernel is
+            got["events"] = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+                             and not e.name.startswith("ProfilerStep")]
+            got["ops"] = sorted(
+                ((a.key, a.device_time_total, a.count) for a in prof.key_averages()
+                 if a.device_type == DeviceType.CPU and a.key.startswith("aten::")
+                 and a.device_time_total > 0), key=lambda x: -x[1])
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], on_trace_ready=keep,
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            run_path()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        events = got.get("events", [])
+        short = {k: (sum(k in name for name, _, _ in events), w.launches) for k, w in watch.items()}
+        short = {k: v for k, v in short.items() if v[0] != v[1]}
+        if events and not short:
+            break
+        print(f"profile (trace {attempt}): {len(events)} device activities; watched kernels "
+              f"traced / launched where they differ: {short}", flush=True)
+    if not events:
         print("profile: the profiler recorded no device time (not measured)", flush=True)
         return None
+    spans, by_kernel = [], {}
+    for name, start, end in events:
+        spans.append((start, end))
+        us, cnt = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (us + end - start, cnt + 1)
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    ops = sorted(
-        ((a.key, a.device_time_total, a.count) for a in prof.key_averages()
-         if a.device_type == DeviceType.CPU and a.key.startswith("aten::") and a.device_time_total > 0),
-        key=lambda x: -x[1])
     print(f"profile: device busy {busy_us / 1e3:.2f} ms of a {wall_ms:.2f} ms host window "
-          f"(idle share {1 - busy_us / 1e3 / wall_ms:.3f}), {len(spans)} kernel launches", flush=True)
+          f"(idle share {1 - busy_us / 1e3 / wall_ms:.3f}), {len(spans)} kernel launches, "
+          f"trace {attempt}" + (f", short of watched kernels {short}" if short else ""), flush=True)
     for name, (us, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"profile kernel: {us / 1e3:9.3f} ms x{cnt:<4d} {name[:110]}", flush=True)
-    for name, us, cnt in ops[:top]:
+    for name, us, cnt in got["ops"][:top]:
         print(f"profile op (incl. children): {us / 1e3:9.3f} ms x{cnt:<4d} {name}", flush=True)
     watched = {}
     for w in watch:
@@ -553,7 +640,7 @@ def _profile_phase(run_path, top: int = 8, watch=()):
             print(f"profile kernel (watched): {us / 1e3:9.4f} ms x{cnt:<4d} {name[:110]}", flush=True)
     return {"device_busy_ms": busy_us / 1e3, "host_window_ms": wall_ms,
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(spans),
-            "watched": watched}
+            "watched": watched, "traces": attempt, "short_of": short}
 
 
 def _main_path(table, dtypes, key: int, value: int):
@@ -1132,13 +1219,14 @@ def _join_path(fact, dim):
     return part, offsets, joined, sums, counts, stage
 
 
-def _join_kernel_phase(fact, part, dim, rate: float):
-    """B1 and B4 against their plain versions at the join path's shapes:
-    B1 on the fact batch's key column, B4 on the partitioned key column
-    against the dimension's table; B4 once more on INT64 copies of both
-    (the 64-bit route)."""
+def _join_kernel_phase(fact, part, dim, rate: float, check_one: bool = True):
+    """B1, B4 and B3 against their plain versions at the join path's
+    shapes: B1 on the fact batch's key column, B4 on the partitioned key
+    column against the dimension's table (once more on INT64 copies of
+    both, the 64-bit route), B3 on the joined brand keys and prices."""
     import torch
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import join
     from spark_rapids_jni_tpu_torch.ops import paged_join as pj
 
     results = {}
@@ -1154,6 +1242,7 @@ def _join_kernel_phase(fact, part, dim, rate: float):
         ms=_time_ms(lambda: hk.partition_map(key.data, PARTITIONS, key.validity)),
         device_ms=_device_ms(lambda: hk.partition_map(key.data, PARTITIONS, key.validity),
                              "partition_map_kernel"),
+        host_us=_host_us(lambda: hk.partition_map(key.data, PARTITIONS, key.validity)),
         plain_ms=_time_ms(lambda: hk.partition_map_plain(key.data, PARTITIONS, key.validity)),
         library_ms=None, library="none: no one PyTorch call computes murmur3",
         # 4 B key + 1 B validity in, 4 B id out a row
@@ -1198,8 +1287,8 @@ def _join_kernel_phase(fact, part, dim, rate: float):
     results["probe_paged"] = dict(
         max_abs_err=0.0,
         ms=ms,
-        device_ms=_device_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab),
-                             "probe_paged_kernel"),
+        device_ms=_device_ms(lambda: hk.probe_paged(pkey.data, pkey.validity, tab), "probe_"),
+        host_us=_host_us(lambda: hk.probe_paged(pkey.data, pkey.validity, tab)),
         plain_ms=_time_ms(lambda: hk.probe_paged_plain(pkey.data, pkey.validity, tab)),
         library_ms=library_ms,
         library="two torch.searchsorted over the sorted int64 (bucket << 32 | order word) "
@@ -1209,8 +1298,13 @@ def _join_kernel_phase(fact, part, dim, rate: float):
         bound_ms=(13 * n + table_bytes) / rate * 1e3, bound_by="bytes",
         shape=f"int32 [{n}] keys + validity vs {tab.nm} build rows, {tab.n_pages} pages",
         table={"num_buckets": tab.num_buckets, "n_pages": tab.n_pages, "c_max": tab.c_max,
-               "nm": tab.nm},
+               "nm": tab.nm, "fence_stride": getattr(tab, "fence_stride", None)},
     )
+    # B3 on the path's own group-by input: the joined INT32 brand keys
+    joined = join.inner_join(part, dim, ["item_sk"])
+    results["groupby_sum_outer"] = _b3_phase(joined.column("i_brand_id").data,
+                                             joined.column("ss_ext_sales_price").data, rate,
+                                             check_one=check_one)
     return results
 
 
@@ -1548,6 +1642,9 @@ def _print_kernels(kernels):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         dev = "" if r.get("device_ms") is None else f", device {r['device_ms']:.4f} ms"
         dev += "" if r.get("host_us") is None else f", host {r['host_us']:.1f} us a call"
+        if "activities_per_call" in r:
+            dev += (f", {r['activities_per_call']:g} device activities a call "
+                    f"({r['device_call_ms']:.4f} ms)")
         print(f"kernel {k} [{r.get('shape', '; '.join(r.get('parts', {})))}]: {r['ms']:.4f} ms{dev} "
               f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}), max abs err {r['max_abs_err']}", flush=True)
@@ -1559,6 +1656,33 @@ def _print_kernels(kernels):
                   f"device {f['device_ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
                   f"{f['bound_ms']:.4f} by {f['bound_by']}), max abs err {f['max_abs_err']}",
                   flush=True)
+
+
+def _kernels_only(rate: float) -> dict:
+    """B3 on the fixed path's keys and B1, B4 and B3 on the join path's
+    (``--kernels-only``): the same phases and inputs as a whole run,
+    without the paths, so that another checkout's wrappers can be timed
+    by copying this script into its root. Its B3 may enqueue more than
+    one device activity a call, so that is recorded, not checked."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    rng = np.random.default_rng(SEED)  # the fixed path's key and value, drawn as _host_table does
+    keys = torch.from_numpy(rng.integers(0, NUM_KEYS, ROWS, dtype=np.int64)).cuda()
+    vals = torch.from_numpy(rng.standard_normal(ROWS, dtype=np.float32)).cuda()
+    b3 = _b3_phase(keys, vals, rate, check_one=False)
+    (fa, fv), (da, dv) = _join_inputs(SEED + 2)
+    fact = Table(carry_table(fa, [_pdtype(pdt, t) for _, t in FACT_COLS], fv, device="cuda").columns,
+                 [n for n, _ in FACT_COLS])
+    dim = Table(carry_table(da, [_pdtype(pdt, t) for _, t in DIM_COLS], dv, device="cuda").columns,
+                [n for n, _ in DIM_COLS])
+    part, _ = shuffle.hash_partition(fact, PARTITIONS, ["item_sk"])
+    out = _join_kernel_phase(fact, part, dim, rate, check_one=False)
+    b3["join_keys"] = out.pop("groupby_sum_outer")
+    return {"groupby_sum_outer": b3, **out}
 
 
 def main() -> int:
@@ -1585,6 +1709,12 @@ def main() -> int:
     name, smi_line = _device_phase()
     _build_phase()
     rate = _mem_rate(name)
+    device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+    if "--kernels-only" in sys.argv[1:]:
+        small = _kernels_only(rate)
+        _print_kernels({**small, "groupby_sum_outer (join keys)": small["groupby_sum_outer"]["join_keys"]})
+        print(json.dumps({"kernels_only": small, "card": smi_line}), flush=True)
+        return 4  # a partial run: no path was driven
     wrappers = {"expand_u32_planes": rb.expand_u32_planes, "rows_to_planes": rb.rows_to_planes,
                 "groupby_sum_outer": hk.groupby_sum_outer,
                 "extract_strings_many": rb.extract_strings_many,
@@ -1636,9 +1766,10 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("fixed path (host clock, ms): first run " + _fmt_stages(stage) + "; warm median of 3 "
           + _fmt_stages(warm) + f"; peak device memory {peak:.2f} GiB", flush=True)
-    profile = _profile_phase(run_fixed, top=10, watch=(
-        "rows_to_planes_kernel", "expand_kernel", "pack_kernel", "rotl_take_kernel",
-        "groupby_shared"))
+    profile = _profile_phase(run_fixed, top=10, watch={
+        "rows_to_planes_kernel": rb.rows_to_planes, "expand_kernel": rb.expand_u32_planes,
+        "pack_kernel": rb.pack_u8_planes, "rotl_take_kernel": rb.rotl_take,
+        "groupby_outer_kernel": hk.groupby_sum_outer})
     paths["fixed"] = {**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], "rows": ROWS,
                       "columns": len(dtypes), "row_bytes": layout.row_size_fixed,
                       "peak_gib": peak, "launches": launches, "profile": profile}
@@ -1693,10 +1824,13 @@ def main() -> int:
     speak = torch.cuda.max_memory_allocated() / 2**30
     print("string path (host clock, ms): first run " + _fmt_stages(sstage) + "; warm median of 3 "
           + _fmt_stages(swarm) + f"; peak device memory {speak:.2f} GiB", flush=True)
-    sprofile = _profile_phase(run_strings, top=14, watch=(
-        "extract_strings_kernel", "var_accumulate_tile_kernel", "assemble_rows_kernel",
-        "rows_to_planes_kernel", "ragged_compact_rows_kernel", "groupby_shared",
-        "rotl_take_kernel", "pack_kernel"))
+    sprofile = _profile_phase(run_strings, top=14, watch={
+        "extract_strings_kernel": rb.extract_strings_many,
+        "var_accumulate_tile_kernel": rb.var_accumulate, "assemble_rows_kernel": rb.assemble_rows,
+        "rows_to_planes_kernel": rb.rows_to_planes,
+        "ragged_compact_rows_kernel": hk.ragged_compact_many,
+        "groupby_outer_kernel": hk.groupby_sum_outer, "rotl_take_kernel": rb.rotl_take,
+        "pack_kernel": rb.pack_u8_planes})
     paths["strings"] = {**sstage, "warm": swarm, "warm_end_to_end_ms": swarm["end_to_end_ms"],
                         "rows": ROWS,
                         "columns": len(sdtypes), "fixed_end": slayout.fixed_end,
@@ -1723,6 +1857,7 @@ def main() -> int:
     jkernels = _join_kernel_phase(fact, part, dim, rate)
     del part
     _print_kernels(jkernels)
+    kernels["groupby_sum_outer"]["join_keys"] = jkernels.pop("groupby_sum_outer")
 
     (part, offsets, joined, sums, counts, jstage), jlaunches = _run_counted(
         wrappers, lambda: _join_path(fact, dim))
@@ -1745,8 +1880,9 @@ def main() -> int:
     jpeak = torch.cuda.max_memory_allocated() / 2**30
     print("join path (host clock, ms): first run " + _fmt_stages(jstage) + "; warm median of 3 "
           + _fmt_stages(jwarm) + f"; peak device memory {jpeak:.2f} GiB", flush=True)
-    jprofile = _profile_phase(run_join, top=14, watch=("partition_map_kernel",
-                                                        "probe_paged_kernel", "groupby_"))
+    jprofile = _profile_phase(run_join, top=14, watch={
+        "partition_map_kernel": hk.partition_map, "probe_fenced_kernel": hk.probe_paged,
+        "groupby_outer_kernel": hk.groupby_sum_outer})
     paths["join"] = {**jstage, "warm": jwarm, "warm_end_to_end_ms": jwarm["end_to_end_ms"],
                      "fact_rows": FACT_ROWS, "dim_rows": DIM_ROWS, "partitions": PARTITIONS,
                      **jcheck, "table": jkernels["probe_paged"]["table"], "peak_gib": jpeak,
@@ -1776,30 +1912,17 @@ def main() -> int:
     if olaunches["groupby_sum_bounded"] != 1:
         raise AssertionError("the onehot path did not launch groupby_sum_bounded once")
     # the path once more under the profiler: B2's kernel is all it puts on
-    # the card, no fill and no copy. The tracer has missed a launch on rare
-    # occasions, so up to three counted runs are traced: none may show any
-    # other device work, and one must show B2's kernel alone.
-    for attempt in range(1, 4):
-        oacts, oprof_launches = _run_counted(wrappers, lambda: _device_activities(
-            lambda: hk.groupby_sum_bounded(okeys, ovals, NUM_KEYS), warm=False))
-        print(f"onehot path under the profiler (run {attempt}): {len(oacts)} device activities "
-              f"{[(name[:80], us) for name, us in oacts]}, launches {oprof_launches}", flush=True)
-        if oprof_launches["groupby_sum_bounded"] != 1 or any(
-                "groupby_bounded_kernel" not in name for name, _ in oacts):
-            raise AssertionError("one groupby_sum_bounded call enqueued other device work than "
-                                 "its one kernel")
-        if len(oacts) == 1:
-            break
-    else:
-        raise AssertionError("the profiler never showed groupby_sum_bounded's one kernel")
+    # the card, no fill and no copy
+    oacts = _one_activity(lambda: hk.groupby_sum_bounded(okeys, ovals, NUM_KEYS),
+                          "groupby_bounded_kernel", hk.groupby_sum_bounded)
+    print(f"onehot path under the profiler: {[(name[:80], us) for name, us in oacts]}", flush=True)
     oerr = _check_onehot(okeys_h, ovals_h, osums)
     owarm = _warm_stages(run_onehot)
     print(f"onehot path checked against np.bincount in float64: max abs err {oerr:.3g}; host ms: "
           f"first run {_fmt_stages(ostage)}; warm median of 3 {_fmt_stages(owarm)}", flush=True)
     paths["onehot"] = {**ostage, "warm": owarm, "warm_end_to_end_ms": owarm["end_to_end_ms"],
                        "rows": ONEHOT_ROWS, "num_keys": NUM_KEYS, "max_abs_err": oerr,
-                       "launches": olaunches, "device_activities": oacts,
-                       "profiled_runs": attempt}
+                       "launches": olaunches, "device_activities": oacts}
     del okeys, ovals, osums
 
     # -- the tpch path: q1 and q6 at TPC-H SF1's lineitem cardinality --------
@@ -1889,12 +2012,12 @@ def main() -> int:
          "library_ms": r["library_ms"],
          **{x: r[x] for x in ("library", "parts", "device_ms", "host_us", "library_host_us",
                               "max_abs_err_vs_b3", "layouts_ms", "function_level",
-                              "bound_ms_int64_base") if x in r}}
+                              "bound_ms_int64_base", "device_call_ms", "activities_per_call",
+                              "one_call_activities", "join_keys") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                            "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
 

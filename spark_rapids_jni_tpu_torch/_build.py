@@ -44,7 +44,7 @@ SOURCES: Dict[str, tuple] = {
     "groupby": (
         "groupby.cu",
         {
-            "groupby_sum_outer_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+            "groupby_sum_outer_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
             "groupby_sum_bounded_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
         },
     ),
@@ -65,7 +65,8 @@ SOURCES: Dict[str, tuple] = {
     ),
     "join": (
         "join.cu",
-        {"probe_paged_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P]},
+        {"probe_paged_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                                _P]},
     ),
 }
 

@@ -8,9 +8,10 @@
 - ``probe_paged`` (B4), the paged hash-join probe, the counterpart of
   ``pallas_probe_paged``: per probe row, ``(lo, eq)`` over the table that
   ``paged_join.build_paged_table`` builds. The kernel in ``csrc/join.cu``
-  binary-searches the row's bucket on a CUDA tensor; ``probe_paged_plain``
-  compares the bucket's pages slot by slot, as the reference does, on a
-  CPU tensor.
+  searches the row's bucket's fences in shared memory and counts one
+  segment of its slots on a CUDA tensor; ``probe_paged_plain`` compares
+  the bucket's pages slot by slot, as the reference does, on a CPU
+  tensor.
 - ``groupby_sum_bounded`` (B2), the one-hot bounded GROUP BY SUM over
   at most 4096 keys, the counterpart of ``pallas_groupby_sum_bounded``
   (the ``pallas_`` prefix dropped, as for the others): the kernel in
@@ -23,7 +24,8 @@
   ``csrc/groupby.cu`` on a CUDA tensor, ``groupby_sum_outer_plain`` on a
   CPU tensor. The reference's one-hot bf16-limb matrix product existed
   only because the TPU has no scatter; the kernel computes the same
-  function with shared-memory atomics instead.
+  function with shared-memory atomics instead, in one cooperative launch
+  (``outer_plan`` sizes its grid and scratch).
 - ``ragged_compact`` (B5), the dense ragged gather of the string decode,
   the counterpart of ``pallas_ragged_compact``: the kernel in
   ``csrc/strings.cu`` on a CUDA tensor, ``ragged_compact_plain`` (the
@@ -61,20 +63,21 @@ __all__ = [
     "probe_paged_plain",
     "groupby_sum_outer",
     "groupby_sum_outer_plain",
+    "outer_plan",
     "compact_block_plan",
     "ragged_compact",
     "ragged_compact_many",
     "ragged_compact_plain",
 ]
 
-# threads a block and blocks per SM for the one-thread-per-row kernels
-# (B1, B4): a grid-stride loop over rows
+# threads a block and blocks per SM for B1's one-thread-per-row kernel:
+# a grid-stride loop over rows
 _ROW_THREADS = 256
 _ROW_BLOCKS_PER_SM = 16
 
 
 def _row_grid(n: int, dev: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev.index)
     return max(1, min((n + _ROW_THREADS - 1) // _ROW_THREADS, sms * _ROW_BLOCKS_PER_SM))
 
 
@@ -83,7 +86,7 @@ def _check_valid(valid: Optional[torch.Tensor], keys: torch.Tensor) -> Optional[
         return None
     if valid.shape != keys.shape or valid.device != keys.device:
         raise ValueError("validity must be a [N] mask on the keys' device")
-    return valid.to(torch.bool)
+    return valid if valid.dtype == torch.bool else valid.to(torch.bool)
 
 
 def _check_partition(keys: torch.Tensor, num_partitions: int) -> None:
@@ -127,7 +130,7 @@ def partition_map(keys: torch.Tensor, num_partitions: int,
         vptr = None if valid is None else valid.contiguous().data_ptr()
         rc = _build.library("partition").partition_map_launch(
             keys.data_ptr(), keys.element_size(), vptr, out.data_ptr(), n, num_partitions,
-            _row_grid(n, keys.device), torch.cuda.current_stream(keys.device).cuda_stream,
+            _row_grid(n, keys.device), _build.raw_stream(keys.device),
         )
         _build.check(rc, "partition_map")
         partition_map.launches += 1
@@ -186,23 +189,33 @@ def probe_paged(keys: torch.Tensor, valid: Optional[torch.Tensor],
     """B4: stream probe keys through the page table. Returns ``(lo, eq)``
     int32 [N]: probe row i matches build rows
     ``r_order[lo[i] : lo[i] + eq[i]]`` (equal keys in build-row order).
-    Kernel on CUDA tensors, plain version on CPU tensors."""
+    Kernel on CUDA tensors, plain version on CPU tensors. The kernel
+    searches the table's fences, so a table on the card must carry them
+    (``build_paged_table`` adds them, contiguous and aligned as the
+    kernel reads them); one without raises ValueError, and one the launch
+    refuses (a misaligned or oversized table) raises RuntimeError."""
     _check_probe(keys, table)
     valid = _check_valid(valid, keys)
     if keys.device.type == "cpu":
         return probe_paged_plain(keys, valid, table)
+    if table.fences is None:
+        raise ValueError("the table carries no fences for the probe kernel: build it with "
+                         "paged_join.build_paged_table")
     n = keys.shape[0]
     dev = keys.device
     lo = torch.empty((n,), dtype=torch.int32, device=dev)
     eq = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         words, flip = key_words(keys)
-        words = words.contiguous()
+        if not words.is_contiguous():
+            words = words.contiguous()
         vptr = None if valid is None else valid.contiguous().data_ptr()
+        t = table
         rc = _build.library("join").probe_paged_launch(
-            words.data_ptr(), words.element_size(), int(flip), vptr, table.slots.data_ptr(),
-            table.counts.data_ptr(), table.meta.data_ptr(), table.num_buckets, n,
-            lo.data_ptr(), eq.data_ptr(), _row_grid(n, dev), torch.cuda.current_stream(dev).cuda_stream,
+            words.data_ptr(), words.element_size(), int(flip), vptr, t.slots.data_ptr(),
+            t.fences.data_ptr(), t.fences.numel(), t.fence_stride, t.fence_first.data_ptr(),
+            t.counts.data_ptr(), t.meta.data_ptr(), t.num_buckets, t.n_pages, n,
+            lo.data_ptr(), eq.data_ptr(), _build.raw_stream(dev),
         )
         _build.check(rc, "probe_paged")
         probe_paged.launches += 1
@@ -213,10 +226,31 @@ probe_paged.launches = 0
 
 MAX_KEYS = 65536
 
-# blocks per SM for B3's grid-stride row loop: enough to hide atomic
-# latency, few enough that the per-block histogram flush stays small
-# beside the row pass (B2's launcher sizes its own cooperative grid)
-_BLOCKS_PER_SM = 2
+# B3's launch (csrc/groupby.cu): threads a block (kOuterThreads), most blocks a
+# SM (kOuterBlocksPerSM), the largest domain that takes the per-block
+# shared histograms (kSharedKeys) and the cap on their [blocks, K]
+# partials (kPartialBytes)
+_OUTER_THREADS = 1024
+_OUTER_BLOCKS_PER_SM = 1
+_OUTER_SHARED_KEYS = 8192
+_OUTER_PARTIAL_BYTES = 16 << 20
+
+
+def outer_plan(n: int, num_keys: int, sms: int) -> Tuple[int, int]:
+    """B3's launch for ``n`` >= 1 rows over ``num_keys`` keys on a card of
+    ``sms`` SMs: (the most blocks, scratch bytes). Up to
+    ``_OUTER_SHARED_KEYS`` keys the scratch is the blocks' [blocks, K]
+    float64 and u32 partials, so the blocks are capped by
+    ``_OUTER_PARTIAL_BYTES`` and by a block for each ``_OUTER_THREADS``
+    rows; above it, a [K] float64 and a [K] u64 scratch. The kernel takes
+    at most the co-resident grid of these."""
+    blocks = sms * _OUTER_BLOCKS_PER_SM
+    if num_keys > _OUTER_SHARED_KEYS:
+        rows = max(n, num_keys)
+        return max(1, min(blocks, -(-rows // _OUTER_THREADS))), 16 * num_keys
+    blocks = min(blocks, _OUTER_PARTIAL_BYTES // (12 * num_keys), -(-n // _OUTER_THREADS))
+    blocks = max(1, blocks)
+    return blocks, 12 * blocks * num_keys
 
 
 def _check(keys: torch.Tensor, vals: torch.Tensor, num_keys: int) -> None:
@@ -252,26 +286,36 @@ def groupby_sum_outer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: GROUP BY SUM + COUNT over [0, num_keys), num_keys <= 65536.
     Returns (sums float32, counts int64); out-of-domain keys are dropped.
-    Kernel on CUDA tensors, plain version on CPU tensors."""
+    Kernel on CUDA tensors, plain version on CPU tensors. With INT32/INT64
+    keys and float32 values a call enqueues one kernel and nothing else:
+    its outputs and its scratch come from ``torch.empty``."""
     _check(keys, vals, num_keys)
-    if keys.device.type == "cpu":
-        return groupby_sum_outer_plain(keys, vals, num_keys)
     dev = keys.device
-    keys = keys.to(torch.int64).contiguous()
-    vals = vals.to(torch.float32).contiguous()
-    sums = torch.zeros(num_keys, dtype=torch.float64, device=dev)
-    counts = torch.zeros(num_keys, dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        return groupby_sum_outer_plain(keys, vals, num_keys)
     n = keys.shape[0]
-    if n:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        lib = _build.library("groupby")
-        rc = lib.groupby_sum_outer_launch(
-            keys.data_ptr(), vals.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            n, num_keys, sms * _BLOCKS_PER_SM, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(rc, "groupby_sum_outer")
-        groupby_sum_outer.launches += 1
-    return sums.to(torch.float32), counts
+    if not n:
+        return (torch.zeros(num_keys, dtype=torch.float32, device=dev),
+                torch.zeros(num_keys, dtype=torch.int64, device=dev))
+    if keys.dtype != torch.int32 and keys.dtype != torch.int64:
+        keys = keys.to(torch.int64)
+    if vals.dtype != torch.float32:
+        vals = vals.to(torch.float32)
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    blocks, scratch_bytes = outer_plan(n, num_keys, _build.sm_count(dev.index))
+    sums = torch.empty(num_keys, dtype=torch.float32, device=dev)
+    counts = torch.empty(num_keys, dtype=torch.int64, device=dev)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    rc = _build.library("groupby").groupby_sum_outer_launch(
+        keys.data_ptr(), keys.element_size(), vals.data_ptr(), scratch.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), n, num_keys, blocks, _build.raw_stream(dev),
+    )
+    _build.check(rc, "groupby_sum_outer")
+    groupby_sum_outer.launches += 1
+    return sums, counts
 
 
 groupby_sum_outer.launches = 0

@@ -24,7 +24,16 @@ the same route in both packages. The 2,048-page cap is the TPU's VMEM
 limit for the limb planes; the card keeps the whole table (at most
 2,048 x 128 x 8 B = 2 MiB) in L2, and a later change may lift it.
 
-The probe (B4) is ``hopper_kernels.probe_paged``.
+The table also carries its fences for the probe kernel (B4,
+``hopper_kernels.probe_paged``): every S-th slot, ``slots[::S]`` (one
+strided copy), with each bucket's first fence, ``fence_first[b] =
+page_first[b] * 128 / S``. Each block of the kernel keeps every bucket's
+metadata and the fences in shared memory, finds a probe's segment of S
+slots there and loads only that segment. S (``fence_stride``) is the
+smallest of 4, 8 and 16 whose segment is at least one 32-byte sector and
+whose fences fit ``MAX_FENCE_BYTES``: 8 for int32 words (64 KB at the
+join path's 1,024 pages); for int64 words 4 up to 512 pages, 8 up to
+1,024 and 16 past them. The plain probe ignores the fences.
 """
 
 from __future__ import annotations
@@ -41,12 +50,14 @@ __all__ = [
     "PAGE",
     "MAX_BUILD",
     "MAX_PAGES",
+    "MAX_FENCE_BYTES",
     "PagedHashTable",
     "key_words",
     "order_words",
     "unpack_meta",
     "compare_form",
     "bucket_of",
+    "fence_stride",
     "build_paged_table",
 ]
 
@@ -55,6 +66,9 @@ MAX_BUILD = 1 << 16  # build rows the page table will hold
 MAX_PAGES = 2048  # the reference's VMEM cap
 _BUCKET_TARGET = 64  # average build rows per bucket
 _MAX_BUCKETS = 2048
+MAX_FENCE_BYTES = 128 * 1024  # the fences' share of a probe block's shared memory
+_FENCE_STRIDES = (4, 8, 16)  # the strides the probe kernel takes (csrc/join.cu)
+_SEGMENT_BYTES = 32  # the least segment: a sector (a smaller one costs shared memory, no loads)
 
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
 
@@ -71,6 +85,11 @@ class PagedHashTable(NamedTuple):
     nlimb: int  # the reference's limb count: 4 for 32-bit order words, 8 for 64-bit
     c_max: int  # longest overflow chain, rounded up to a power of two
     nm: int  # matchable (non-null) build rows
+    # the probe kernel's fences: bucket b's slot j * fence_stride is
+    # fences[fence_first[b] + j]
+    fences: Optional[torch.Tensor] = None  # [n_pages * 128 / fence_stride]: slots[::fence_stride]
+    fence_first: Optional[torch.Tensor] = None  # [B] int32: page_first * 128 / fence_stride
+    fence_stride: int = 0
 
 
 def _pow2_ceil(v: int) -> int:
@@ -90,6 +109,8 @@ def key_words(keys: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     if keys.dtype.is_floating_point or keys.dtype == torch.bool:
         raise ValueError(f"paged join keys must be integers, got {keys.dtype}")
     signed = keys.dtype not in _UNSIGNED
+    if keys.dtype == torch.int32 or keys.dtype == torch.int64:
+        return keys, signed
     if keys.element_size() == 8:
         return keys.view(torch.int64), signed
     if keys.element_size() == 4:
@@ -126,6 +147,20 @@ def bucket_of(u: torch.Tensor, num_buckets: int) -> torch.Tensor:
     else:
         h = fmix(u32_to_i64(u))
     return h & (num_buckets - 1)
+
+
+def fence_stride(n_pages: int, word_bytes: int) -> int:
+    """The probe's fence stride for a table of ``n_pages`` pages of
+    ``word_bytes``-byte order words: the smallest of ``_FENCE_STRIDES``
+    whose segment (S words) is at least ``_SEGMENT_BYTES`` and whose
+    fences (``n_pages * 128 / S`` words) fit ``MAX_FENCE_BYTES``. At the
+    last stride every table within the page cap fits (2,048 pages of
+    int64 words: 128 KB); past it, ValueError."""
+    for s in _FENCE_STRIDES:
+        if s * word_bytes >= _SEGMENT_BYTES and n_pages * PAGE // s * word_bytes <= MAX_FENCE_BYTES:
+            return s
+    raise ValueError(f"the fences of {n_pages} pages of {word_bytes}-byte words do not fit "
+                     f"{MAX_FENCE_BYTES} B")
 
 
 def build_paged_table(
@@ -174,8 +209,14 @@ def build_paged_table(
     slots = torch.zeros(n_pages * PAGE, dtype=u.dtype, device=dev)
     slots[page_first[bs] * PAGE + rank] = u[r_order]
     meta = (page_first[:num_buckets] << 44) | (pages_b << 24) | starts
+    # the fences as the probe kernel reads them: a fresh contiguous copy
+    # (16-byte aligned, as every allocation), n_pages * 128 / S words of
+    # whole 16-byte vectors
+    stride = fence_stride(n_pages, slots.element_size())
+    fence_first = (page_first[:num_buckets] * (PAGE // stride)).to(torch.int32)
     return PagedHashTable(slots, cnt.to(torch.int32), meta, r_order.to(torch.int32), num_buckets,
-                          n_pages, nlimb, _pow2_ceil(max(c_max, 1)), nm)
+                          n_pages, nlimb, _pow2_ceil(max(c_max, 1)), nm,
+                          slots[::stride].contiguous(), fence_first, stride)
 
 
 def unpack_meta(meta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -11,7 +11,9 @@ the kernels that took B7's and B8's places on the transcode's path), the
 row transcode and the join maps are exact; B3
 counts are exact and its float32 sums are held to rtol 2e-6 / atol 1e-3,
 the reference's bound, because the kernel's atomics add in an order that
-changes from run to run; B2's sums to 1e-4, its reference's bound."""
+changes from run to run; B2's sums to 1e-4, its reference's bound. The
+probe cases shared with the CPU tests come from ``torch_paged_cases``
+(beside this file, no jax)."""
 
 import numpy as np
 import pytest
@@ -23,6 +25,8 @@ from spark_rapids_jni_tpu_torch.ops import aggregate
 from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
 from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
 from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+
+import torch_paged_cases as cases
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 
@@ -106,6 +110,63 @@ def test_groupby_empty_input_launches_nothing():
                                 torch.zeros(0, device="cuda"), 16)
     assert hk.groupby_sum_outer.launches == before
     assert int(c.sum()) == 0 and float(s.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("n,num_keys", [((1 << 24) - 1, 4096), (1000, 1), (300_000, 8192),
+                                        (300_000, 8193), (300_000, 65536)])
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+def test_groupby_sum_outer_kernel_key_widths(rng, n, num_keys, np_dt):
+    # n = 2^24 - 1: the aggregate tier's gate (ops/aggregate.py) for B3
+    keys = torch.from_numpy(rng.integers(-5, num_keys + 5, n).astype(np_dt)).cuda()
+    vals = torch.from_numpy((rng.standard_normal(n) * 100).astype(np.float32)).cuda()
+    gs, gc = hk.groupby_sum_outer(keys, vals, num_keys)
+    ws, wc = hk.groupby_sum_outer_plain(keys, vals, num_keys)
+    assert gs.dtype == torch.float32 and gc.dtype == torch.int64
+    assert torch.equal(gc, wc)
+    torch.testing.assert_close(gs, ws, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("num_keys", [7, 8192, 65536])
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+def test_groupby_sum_outer_kernel_all_keys_out_of_domain(rng, num_keys, np_dt):
+    keys = torch.from_numpy(np.where(rng.random(100_000) < 0.5, -1, num_keys).astype(np_dt)).cuda()
+    vals = torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)).cuda()
+    gs, gc = hk.groupby_sum_outer(keys, vals, num_keys)
+    assert not gc.any() and not gs.any()
+
+
+@pytest.mark.parametrize("num_keys", [4096, 65536])
+def test_groupby_sum_outer_kernel_leaves_nothing_behind(rng, num_keys):
+    # 50 calls in a row: a scratch carried over from a call would add in
+    keys = torch.from_numpy(rng.integers(-5, num_keys + 5, 200_000)).cuda()
+    vals = torch.from_numpy((rng.standard_normal(200_000) * 100).astype(np.float32)).cuda()
+    ws, wc = hk.groupby_sum_outer_plain(keys, vals, num_keys)
+    outs = [hk.groupby_sum_outer(keys, vals, num_keys) for _ in range(50)]
+    torch.cuda.synchronize()
+    for gs, gc in outs:
+        assert torch.equal(gc, wc)
+        torch.testing.assert_close(gs, ws, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("num_keys", [1, 4096, 8192, 8193, 65536])
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+def test_groupby_sum_outer_enqueues_one_kernel(rng, num_keys, np_dt):
+    # one kernel and nothing else: no fill, no cast of int32 keys, no
+    # rounding after
+    keys = torch.from_numpy(rng.integers(-5, num_keys + 5, 1_000_000).astype(np_dt)).cuda()
+    vals = torch.from_numpy((rng.standard_normal(1_000_000) * 100).astype(np.float32)).cuda()
+    hk.groupby_sum_outer(keys, vals, num_keys)
+    torch.cuda.synchronize()
+    # the tracer has missed a launch on rare occasions: no traced call may
+    # show other device work, and one of three must show the kernel alone
+    seen = []
+    for _ in range(3):
+        names = _traced_device_work(lambda: hk.groupby_sum_outer(keys, vals, num_keys))
+        assert all("groupby_outer_kernel" in name for name in names), names
+        seen.append(len(names))
+        if len(names) == 1:
+            break
+    assert seen[-1] == 1, seen
 
 
 def test_slice_on_the_card_matches_the_cpu(rng):
@@ -712,21 +773,10 @@ def test_partition_map_kernel_matches_plain(rng, n, p, np_dt, nulls):
 def _probe_case(rng, case, np_dt):
     from spark_rapids_jni_tpu_torch.ops import paged_join as pj
 
-    info = np.iinfo(np_dt)
-    if case == "skew":
-        rk = np.full(2000, 7, np_dt)
-        lk = np.asarray([7] * 600 + [3] * 50, np_dt)
-    else:
-        pool = rng.integers(info.min, info.max, 3000, dtype=np_dt, endpoint=True)
-        rk = pool[rng.integers(0, 3000, 40_000 if case == "random" else 5000)]
-        lk = np.concatenate([pool[rng.integers(0, 3000, 200_000)],
-                             rng.integers(info.min, info.max, 50_000, dtype=np_dt)])
-    heavy = case == "null_heavy"
-    rv = torch.from_numpy(rng.random(rk.shape[0]) < (0.3 if heavy else 0.95)).cuda()
-    lv = torch.from_numpy(rng.random(lk.shape[0]) < (0.3 if heavy else 0.9)).cuda()
-    tab = pj.build_paged_table(torch.from_numpy(rk).cuda(), rv)
+    lk, lv, rk, rv = cases.probe_case(rng, case, np_dt)
+    tab = pj.build_paged_table(torch.from_numpy(rk).cuda(), torch.from_numpy(rv).cuda())
     assert tab is not None
-    return torch.from_numpy(lk).cuda(), lv, tab
+    return torch.from_numpy(lk).cuda(), torch.from_numpy(lv).cuda(), tab
 
 
 @pytest.mark.parametrize("case", ["random", "null_heavy", "skew"])
@@ -744,6 +794,75 @@ def test_probe_paged_kernel_matches_plain(rng, case, np_dt):
     lo2, eq2 = hk.probe_paged(lk, None, tab)
     wlo2, weq2 = hk.probe_paged_plain(lk, None, tab)
     assert torch.equal(lo2, wlo2) and torch.equal(eq2, weq2)
+
+
+def _probe_check(lk, lv, tab):
+    before = hk.probe_paged.launches
+    lo, eq = hk.probe_paged(lk, lv, tab)
+    torch.cuda.synchronize()
+    assert hk.probe_paged.launches == before + 1
+    wlo, weq = hk.probe_paged_plain(lk, lv, tab)
+    assert torch.equal(lo, wlo) and torch.equal(eq, weq)
+    return eq
+
+
+@pytest.mark.parametrize("np_dt", [np.int8, np.int16, np.int32, np.int64])
+def test_probe_paged_kernel_at_segment_and_page_boundaries(rng, np_dt):
+    # runs of equal keys ending before, at and past a segment and a page,
+    # probes equal to every fence and next to it, a bucket holding a whole
+    # number of segments
+    from spark_rapids_jni_tpu_torch.ops import paged_join as pj
+
+    keys, full = cases.boundary_build(rng, np_dt)
+    tab = pj.build_paged_table(torch.from_numpy(keys).cuda())
+    assert int(tab.counts[full]) % tab.fence_stride == 0 and tab.c_max >= 2
+    lk, lv = cases.boundary_probes(rng, np_dt, keys, _table_on(tab, "cpu"))
+    eq = _probe_check(torch.from_numpy(lk).cuda(), torch.from_numpy(lv).cuda(), tab)
+    assert int(eq.sum()) > 0
+    _probe_check(torch.from_numpy(lk).cuda(), None, tab)
+
+
+def _table_on(tab, dev):
+    return type(tab)(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in tab))
+
+
+def test_probe_paged_kernel_on_the_largest_shared_table(rng):
+    # 2,048 buckets and pages of int64 words: 152 KB of shared memory a block
+    tab, keys = cases.largest_table(rng)
+    assert tab.fence_stride == 16 and 12 * tab.num_buckets + tab.fences.numel() * 8 == 12 * 2048 + 131_072
+    lk = np.concatenate([keys, keys[::7] + 1, rng.integers(-2**62, 2**62, 200_000)])
+    lv = torch.from_numpy(rng.random(lk.shape[0]) < 0.9).cuda()
+    eq = _probe_check(torch.from_numpy(lk).cuda(), lv, _table_on(tab, "cuda"))
+    assert int(eq.sum()) > 0
+
+
+def test_a_refused_probe_raises(rng, monkeypatch):
+    from spark_rapids_jni_tpu_torch import _build
+    from spark_rapids_jni_tpu_torch.ops import paged_join as pj
+
+    lk, lv, tab = _probe_case(rng, "random", np.int32)
+    with pytest.raises(ValueError, match="fences"):
+        hk.probe_paged(lk, lv, tab._replace(fences=None))
+    # the launch refuses a stride the build never gives int32 words, and
+    # fences off a 16-byte boundary
+    with pytest.raises(RuntimeError, match="probe_paged"):
+        hk.probe_paged(lk, lv, tab._replace(fences=tab.slots[::4].contiguous(), fence_stride=4,
+                                            fence_first=tab.fence_first * 2))
+    shifted = torch.empty(tab.fences.numel() + 1, dtype=tab.fences.dtype, device="cuda")[1:]
+    shifted.copy_(tab.fences)
+    with pytest.raises(RuntimeError, match="probe_paged"):
+        hk.probe_paged(lk, lv, tab._replace(fences=shifted))
+
+    class _Refused:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue: a table the kernel does not take
+
+    before = hk.probe_paged.launches
+    monkeypatch.setattr(_build, "library", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="probe_paged"):
+        hk.probe_paged(lk, lv, tab)
+    assert hk.probe_paged.launches == before
+    assert isinstance(tab, pj.PagedHashTable)
 
 
 @pytest.mark.parametrize("how", ["inner", "left", "full"])
