@@ -79,7 +79,22 @@ checkout (one nvcc per source, all at once), then on one card:
    tier bit for bit; per-stage times (filter, project, aggregate, end to
    end), peak memory and a profile. It also times the exact accumulator's
    two per-segment reductions (masked sums, ``index_add_``) at q1's shape;
-7. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+7. the TPCDS path, BASELINE.json configs[2] and [3] and the rest of the
+   single-chip TPC-DS family: the port's generators at the TPC-DS
+   specification's fact-table cardinalities (store_sales 28,800,991 rows
+   and web_sales 7,197,566 at SF10 for q3 and q95; 2,880,404 and 719,384
+   at SF1 for q7, q19, q42, q52, q55, q94 and q98), dimensions at the
+   generators' sizes, made on the host and uploaded. Each query runs once
+   at its default parameters with every launch counter at 0 (the path runs
+   none of the ten kernels: its joins are the pipeline's dense and
+   sort-merge lookups and ``searchsorted`` semi/anti joins), and every
+   result is held against a numpy oracle built over the surviving rows:
+   group keys, order and counts exact, every sum, mean, ratio and total
+   bit-identical to the exact rational (q94/q95 round each order's sum,
+   then total the rounded sums exactly). Per query: first-run and warm
+   median-of-3 host ms, peak memory, and a profile (device busy, idle
+   share, launches, top device operations);
+8. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -1629,6 +1644,237 @@ def _f64acc_reductions(li, rounds: int = 6):
             "index_add_faster_turns": int(sum(b < a for a, b in zip(masked, index_add)))}
 
 
+# ---------------------------------------------------------------------------
+# the tpcds path
+# ---------------------------------------------------------------------------
+
+# fact-table rows: the TPC-DS specification's store_sales and web_sales
+# cardinalities at scale factors 10 and 1
+TPCDS_ROWS = {"store10": 28_800_991, "web10": 7_197_566, "store1": 2_880_404, "web1": 719_384}
+# (query, star): q3 and q95 at SF10 (BASELINE.json configs[2] and [3]), the rest at SF1
+TPCDS_QUERIES = (("q3", "store10"), ("q95", "web10"), ("q7", "wide1"), ("q19", "wide1"),
+                 ("q42", "store1"), ("q52", "store1"), ("q55", "store1"), ("q94", "web1"),
+                 ("q98", "store1"))
+
+
+def _tpcds_inputs(device=None):
+    """The stars, made on the host by the port's generators and uploaded;
+    dimensions at the generators' sizes."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    return {"store10": tpcds.gen_store(TPCDS_ROWS["store10"], seed=SEED + 5, device=device),
+            "web10": tpcds.gen_web(TPCDS_ROWS["web10"], seed=SEED + 8, device=device),
+            "store1": tpcds.gen_store(TPCDS_ROWS["store1"], seed=SEED + 6, device=device),
+            "wide1": tpcds.gen_store_wide(TPCDS_ROWS["store1"], seed=SEED + 7, device=device),
+            "web1": tpcds.gen_web(TPCDS_ROWS["web1"], seed=SEED + 9, device=device)}
+
+
+def _tpcds_query(q: str, stars):
+    import torch
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    star = dict(TPCDS_QUERIES)[q]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = getattr(tpcds, q)(stars[star])
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _tpcds_path(stars):
+    """Every query once with its default parameters; host ms of each,
+    each ending in a synchronize."""
+    out, stage = {}, {}
+    for q, _ in TPCDS_QUERIES:
+        out[q], stage[f"{q}_ms"] = _tpcds_query(q, stars)
+    stage["end_to_end_ms"] = sum(stage.values())
+    return out, stage
+
+
+def _host_star(star):
+    """Host arrays of a star's tables (FLOAT64 as float64, integers as
+    int64); every dimension's surrogate key must be 0..n-1, so a foreign
+    key indexes its dimension's arrays directly."""
+    h = {}
+    for tname, t in star.items():
+        h[tname] = {n: c.to_numpy().view(np.float64) if c.dtype.id.name == "FLOAT64"
+                    else c.to_numpy().astype(np.int64) for n, c in zip(t.names, t.columns)}
+    for tname, key in (("date_dim", "d_date_sk"), ("item", "i_item_sk"),
+                       ("customer_demographics", "cd_demo_sk"), ("promotion", "p_promo_sk"),
+                       ("customer", "c_customer_sk"), ("customer_address", "ca_address_sk"),
+                       ("store", "s_store_sk")):
+        if tname in h and not np.array_equal(h[tname][key], np.arange(h[tname][key].shape[0])):
+            raise AssertionError(f"{tname}.{key} is not 0..n-1")
+    return h
+
+
+def _exact_groups(x: np.ndarray, keys):
+    """Groups of the rows by ``keys`` (unique key rows in lexicographic
+    order), exact sums of ``x`` per group as (numerators, exponent) and
+    the row counts."""
+    if x.shape[0] == 0:
+        return [np.zeros(0, np.int64) for _ in keys], [], 0, np.zeros(0, np.int64)
+    uniq, inv = np.unique(np.stack(keys, axis=1), axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    nums, e0 = _exact_sums(x, inv, uniq.shape[0])
+    return ([uniq[:, i] for i in range(len(keys))], nums, e0,
+            np.bincount(inv, minlength=uniq.shape[0]))
+
+
+def _rounded(nums, e0, counts=None) -> np.ndarray:
+    """The nearest float64 of each exact sum (or mean, over ``counts``)."""
+    if counts is None:
+        return np.array([_frac_float(v, e0) for v in nums], dtype=np.float64)
+    return np.array([_frac_float(v, e0, int(c)) for v, c in zip(nums, counts)], dtype=np.float64)
+
+
+def _star_sales(h, keep_fn, key_fn):
+    """``_exact_groups`` of store_sales' ss_ext_sales_price over the rows
+    ``keep_fn`` keeps, grouped by the keys ``key_fn`` gives for them."""
+    ss = h["store_sales"]
+    keep = keep_fn(ss)
+    return _exact_groups(ss["ss_ext_sales_price"][keep], key_fn(ss, keep))
+
+
+def _tpcds_oracle(q: str, h) -> dict:
+    """The numpy oracle of query ``q`` at its default parameters over the
+    host arrays ``h`` of its star: result columns (or q94/q95's scalars),
+    every float the nearest float64 of the exact rational."""
+    if q in ("q94", "q95"):
+        ws, lo, hi = h["web_sales"], 400, 460
+        o, w, ship = ws["ws_order_number"], ws["ws_warehouse_sk"], ws["ws_ship_date_sk"]
+        n_orders = int(o.max()) + 1
+        wmin = np.full(n_orders, np.iinfo(np.int64).max)
+        wmax = np.full(n_orders, np.iinfo(np.int64).min)
+        np.minimum.at(wmin, o, w)
+        np.maximum.at(wmax, o, w)
+        returned = np.zeros(n_orders, bool)
+        returned[h["web_returns"]["wr_order_number"]] = True
+        keep = (ship >= lo) & (ship <= hi) & (wmin != wmax)[o]
+        keep &= returned[o] if q == "q95" else ~returned[o]
+        res = {"order_count": int(np.unique(o[keep]).shape[0])}
+        for out, src in (("total_shipping_cost", "ws_ext_ship_cost"),
+                         ("total_net_profit", "ws_net_profit")):
+            _, nums, e0, _ = _exact_groups(ws[src][keep], [o[keep]])
+            per_order = _rounded(nums, e0)  # each order's sum rounded first
+            tot, te0 = _exact_sums(per_order, np.zeros(per_order.shape[0], np.int64), 1)
+            res[out] = _frac_float(tot[0], te0)
+        return res
+
+    dd, it = h["date_dim"], h["item"]
+    if q == "q3":  # manufact 128, month 11
+        (y, b), nums, e0, _ = _star_sales(
+            h, lambda ss: ((dd["d_moy"][ss["ss_sold_date_sk"]] == 11)
+                           & (it["i_manufact_id"][ss["ss_item_sk"]] == 128)),
+            lambda ss, k: [dd["d_year"][ss["ss_sold_date_sk"][k]],
+                           it["i_brand_id"][ss["ss_item_sk"][k]]])
+        s = _rounded(nums, e0)
+        o = np.lexsort((b, -s, y))
+        return {"d_year": y[o], "i_brand_id": b[o], "ss_ext_sales_price_sum": s[o]}
+    if q in ("q42", "q52", "q55", "q98"):
+        mgr, month, year = {"q55": (28, 11, 1999)}.get(q, (1, 11, 2000))
+
+        def when(ss):
+            d = ss["ss_sold_date_sk"]
+            k = (dd["d_moy"][d] == month) & (dd["d_year"][d] == year)
+            return k if q == "q98" else k & (it["i_manager_id"][ss["ss_item_sk"]] == mgr)
+
+        key = {"q42": ["i_category_id"], "q98": ["i_category_id", "i_brand_id"]}.get(
+            q, ["i_brand_id"])
+        keys, nums, e0, _ = _star_sales(
+            h, when, lambda ss, k: [it[c][ss["ss_item_sk"][k]] for c in key])
+        s = _rounded(nums, e0)
+        if q == "q98":
+            cat, brand = keys
+            (cats,), tnums, te0, _ = _exact_groups(s, [cat])  # the window's exact sum
+            tot = _rounded(tnums, te0)[np.searchsorted(cats, cat)]
+            ratio = (s * 100.0) / tot
+            o = np.lexsort((brand, ratio, cat))
+            return {"i_category_id": cat[o], "i_brand_id": brand[o], "itemrevenue": s[o],
+                    "revenueratio": ratio[o]}
+        k = keys[0]
+        if q == "q55":
+            o = np.lexsort((k, -s))
+            return {"i_brand_id": k[o], "ext_price": s[o]}
+        o = np.lexsort((k, -s))  # q42: ext_price desc, (d_year), key; q52: (d_year), desc, key
+        return {"d_year": np.full(k.shape[0], year), key[0]: k[o], "ext_price": s[o]}
+    if q == "q7":  # gender 1, marital 2, education 3, year 2000
+        cd, pr = h["customer_demographics"], h["promotion"]
+        cd_ok = (cd["cd_gender"] == 1) & (cd["cd_marital_status"] == 2) & (
+            cd["cd_education_status"] == 3)
+        pr_ok = (pr["p_channel_email"] == 0) | (pr["p_channel_event"] == 0)
+        ss = h["store_sales"]
+        keep = ((dd["d_year"][ss["ss_sold_date_sk"]] == 2000) & cd_ok[ss["ss_cdemo_sk"]]
+                & pr_ok[ss["ss_promo_sk"]])
+        item_id = it["i_item_id"][ss["ss_item_sk"][keep]]
+        want = {}
+        for out, src in (("agg2", "ss_list_price"), ("agg3", "ss_coupon_amt"),
+                         ("agg4", "ss_sales_price")):
+            (ids,), nums, e0, cnt = _exact_groups(ss[src][keep], [item_id])
+            want[out] = _rounded(nums, e0, cnt)
+        from fractions import Fraction
+
+        inv = np.searchsorted(ids, item_id)
+        qty = np.zeros(ids.shape[0], np.int64)
+        np.add.at(qty, inv, ss["ss_quantity"][keep])
+        agg1 = np.array([float(Fraction(int(a), int(c))) for a, c in zip(qty, cnt)])
+        return {"i_item_id": ids, "agg1": agg1, **want}
+    if q == "q19":  # manager 8, month 11, year 1998
+        cu, ca, st = h["customer"], h["customer_address"], h["store"]
+
+        def when(ss):
+            d = ss["ss_sold_date_sk"]
+            zip_c = ca["ca_zip5"][cu["c_current_addr_sk"][ss["ss_customer_sk"]]]
+            return ((dd["d_moy"][d] == 11) & (dd["d_year"][d] == 1998)
+                    & (it["i_manager_id"][ss["ss_item_sk"]] == 8)
+                    & (zip_c != st["s_zip5"][ss["ss_store_sk"]]))
+
+        (b, m), nums, e0, _ = _star_sales(
+            h, when, lambda ss, k: [it["i_brand_id"][ss["ss_item_sk"][k]],
+                                    it["i_manufact_id"][ss["ss_item_sk"][k]]])
+        s = _rounded(nums, e0)
+        o = np.lexsort((m, b, -s))
+        return {"i_brand_id": b[o], "i_manufact_id": m[o], "ext_price": s[o]}
+    raise ValueError(q)
+
+
+def _check_tpcds(stars, out):
+    """Every query's result against its numpy oracle: group keys, order and
+    counts exact, every float bit for bit. Returns the result sizes."""
+    hosts = {}
+    sizes = {}
+    for q, star in TPCDS_QUERIES:
+        if star not in hosts:
+            hosts[star] = _host_star(stars[star])
+        want = _tpcds_oracle(q, hosts[star])
+        got = out[q]
+        if q in ("q94", "q95"):
+            for k, w in want.items():
+                if np.float64(got[k]).view(np.uint64) != np.float64(w).view(np.uint64):
+                    raise AssertionError(f"{q} {k}: {got[k]!r}, oracle {w!r}")
+            if not want["order_count"]:
+                raise AssertionError(f"{q} selected no order")
+            sizes[q] = want["order_count"]
+            continue
+        if got.names != list(want):
+            raise AssertionError(f"{q} columns {got.names}, oracle {list(want)}")
+        if got.num_rows == 0:
+            raise AssertionError(f"{q} selected no row")
+        for name, w in want.items():
+            c = got.column(name)
+            if c.validity is not None and not bool(c.validity.all()):
+                raise AssertionError(f"{q} {name} has nulls")
+            g = c.to_numpy()
+            if c.dtype.id.name == "FLOAT64":
+                ok = np.array_equal(g.view(np.uint64), np.asarray(w, np.float64).view(np.uint64))
+            else:
+                ok = np.array_equal(g.astype(np.int64), np.asarray(w, np.int64))
+            if not ok:
+                raise AssertionError(f"{q} {name} differs from the numpy oracle")
+        sizes[q] = got.num_rows
+    return sizes
+
+
 def _run_counted(wrappers, run):
     """Every launch counter to 0, ``run`` once, the counts back."""
     for w in wrappers.values():
@@ -1970,6 +2216,45 @@ def main() -> int:
     del li, q1_runs, q6_runs
     torch.cuda.empty_cache()
 
+    # -- the tpcds path: the single-chip TPC-DS queries ----------------------
+    t_phase = time.perf_counter()
+    stars = _tpcds_inputs()
+    torch.cuda.synchronize()
+    print(f"tpcds input: store_sales {TPCDS_ROWS['store10']} rows (SF10: q3) and "
+          f"{TPCDS_ROWS['store1']} rows twice (SF1: q42, q52, q55, q98; the wide star of q7 and "
+          f"q19), web_sales {TPCDS_ROWS['web10']} rows (SF10: q95) and {TPCDS_ROWS['web1']} rows "
+          f"(SF1: q94), made on the host and uploaded in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    (dout, dstage), dlaunches = _run_counted(wrappers, lambda: _tpcds_path(stars))
+    print(f"tpcds path launches: {dlaunches}", flush=True)
+    dsizes = _check_tpcds(stars, dout)
+    print(f"tpcds path checked against the numpy oracles (group keys, order and counts exact, "
+          f"every sum, mean, ratio and total bit-identical to the exact rational): result rows "
+          f"(q94/q95: orders) {dsizes}", flush=True)
+    del dout
+    dwarm, dpeak = {}, {}
+    for q, _ in TPCDS_QUERIES:
+        torch.cuda.reset_peak_memory_stats()
+        dwarm[f"{q}_ms"] = float(np.median([_tpcds_query(q, stars)[1] for _ in range(3)]))
+        dpeak[q] = torch.cuda.max_memory_allocated() / 2**30
+    dwarm["end_to_end_ms"] = sum(dwarm.values())
+    for q, _ in TPCDS_QUERIES:
+        print(f"tpcds {q} (host clock, ms): first run {dstage[q + '_ms']:.2f}; warm median of 3 "
+              f"{dwarm[q + '_ms']:.2f}; peak device memory {dpeak[q]:.2f} GiB", flush=True)
+    dprofiles = {}
+    for q, _ in TPCDS_QUERIES:
+        print(f"tpcds profile of {q}:", flush=True)
+        dprofiles[q] = _profile_phase(lambda: _tpcds_query(q, stars),
+                                      top=10 if q in ("q3", "q95") else 4)
+    dwall = time.perf_counter() - t_phase
+    print(f"tpcds phase: {dwall:.1f} s wall (input, counted run, checks, warm runs, profiles)",
+          flush=True)
+    paths["tpcds"] = {**dstage, "warm": dwarm, "warm_end_to_end_ms": dwarm["end_to_end_ms"],
+                      "rows": TPCDS_ROWS, "result_rows": dsizes, "peak_gib": dpeak,
+                      "phase_wall_s": dwall, "launches": dlaunches, "profile": dprofiles}
+    del stars
+    torch.cuda.empty_cache()
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -2006,7 +2291,8 @@ def main() -> int:
          **({"absorbs": absorbs[k]} if k in absorbs else {}),
          "launches": timed_on[k],
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
-                              "onehot": olaunches[k], "tpch": tlaunches[k]},
+                              "onehot": olaunches[k], "tpch": tlaunches[k],
+                              "tpcds": dlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
