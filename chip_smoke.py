@@ -94,7 +94,26 @@ checkout (one nvcc per source, all at once), then on one card:
    then total the rounded sums exactly). Per query: first-run and warm
    median-of-3 host ms, peak memory, and a profile (device busy, idle
    share, launches, top device operations);
-8. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+8. the SPARK_EXACT path, the reference's own Spark-exact operators at a
+   Spark batch's 1,000,000 rows, made from the seed and uploaded through
+   ``carry_table``: string -> INT64 / INT32 / UINT64 (integers uniform in
+   [-10^8, 10^8) as the reference-shaped microbench's, with whitespace,
+   '+' signs, non-ANSI truncation, every target's limit and limit + 1,
+   invalid strings and nulls), then an ANSI cast that must raise CastError
+   on its one bad row; string -> DECIMAL(38, 10) / (18, 4) / (9, 2) (1-38
+   digits, exponents, more fractional digits than the scale);
+   ``multiply128`` and ``divide128`` of DECIMAL(38, 10) operands to scale
+   -6; ``interleave_bits`` over three INT32 range-id columns (nulls in
+   one) and over four INT64 columns; and UINT32 / UINT64 expressions
+   (``(u + 7) % 1000 > 3``, a narrowing cast). Both casts get their padded
+   chars from ``extract_strings_many`` (B8's kernel), which the counted
+   run must launch at least twice, and no other kernel. Every result is
+   held against an independent oracle (Python ints transcribing
+   dec128_multiplier / dec128_divider, Spark's rounding in Python ints,
+   numpy's unsigned arithmetic, Delta's interleaveBits in numpy); per
+   operation first-run and warm median-of-3 host ms, peak memory and a
+   profile, and the phase's wall seconds;
+9. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -1875,6 +1894,435 @@ def _check_tpcds(stars, out):
     return sizes
 
 
+# ---------------------------------------------------------------------------
+# the spark_exact path: the reference's own Spark-exact operators
+# ---------------------------------------------------------------------------
+
+
+def _precision10(v: int) -> int:
+    """The reference's precision10 (decimal_utils.cu:505-521): the smallest
+    i with 10^i >= v, so an exact power of ten counts one less than its
+    digits."""
+    if v <= 1:
+        return 0
+    d = len(str(v))
+    return d - 1 if v == 10 ** (d - 1) else d
+
+
+def _div_round(n: int, d: int) -> int:
+    """n / d rounded half up (round_from_remainder: up when 2r >= d)."""
+    q, r = divmod(n, d)
+    return q + (2 * r >= d)
+
+
+def _fits128(mag: int, negative: bool) -> bool:
+    return mag <= (2**127 if negative else 2**127 - 1)
+
+
+def _dec_mul_oracle(a: int, b: int, sa: int, sb: int, ps: int):
+    """(overflow, unscaled product or None) of dec128_multiplier
+    (decimal_utils.cu:524-592) in Python ints: the exact product, the
+    SPARK-40129 first rounding to precision 38 by precision10, then the
+    rescale to ``ps`` (multiply up, overflowing past precision 38, or
+    divide and round half up); overflow past a signed 128-bit value."""
+    negative = (a < 0) != (b < 0)
+    p = abs(a) * abs(b)
+    scale = sa + sb
+    first = _precision10(p) - 38
+    if first > 0:
+        p = _div_round(p, 10**first)
+        scale += first
+    exponent = ps - scale
+    if exponent < 0:
+        if _precision10(p) - exponent > 38:
+            return True, None
+        p *= 10**-exponent
+    else:
+        p = _div_round(p, 10**min(exponent, 76))
+    if not _fits128(p, negative):
+        return True, None
+    return False, -p if negative else p
+
+
+def _dec_div_oracle(a: int, b: int, sa: int, sb: int, qs: int):
+    """(overflow, unscaled quotient or None) of dec128_divider
+    (decimal_utils.cu:595-684) in Python ints: a zero divisor gives
+    overflow and 0; by n_shift_exp = qs - (sa - sb), divide then divide
+    and round (> 0), base-10 long division through a 10^38 split with
+    256-bit wrapping products (< -38), or multiply then divide and round;
+    rounding half up from the remainder."""
+    if b == 0:
+        return True, 0
+    negative = (a < 0) != (b < 0)
+    n, d = abs(a), abs(b)
+    shift = qs - (sa - sb)
+    wrap = 2**256
+    if shift > 0:
+        q = _div_round(n // d, 10**min(shift, 76))
+    elif shift < -38:
+        mult = 10**min(-shift - 38, 76)
+        q1, r1 = divmod(n * 10**38, d)
+        q2, r2 = divmod(r1 * mult % wrap, d)
+        q = (q1 * mult + q2 + (2 * r2 >= d)) % wrap
+    else:
+        q = _div_round(n * 10**-shift, d)
+    if not _fits128(q, negative):
+        return True, None
+    return False, -q if negative else q
+
+
+def _zorder_oracle(limbs, nbits: int) -> np.ndarray:
+    """Delta's interleaveBits (ZOrderTest.java:31-67) in numpy: for each
+    value bit from the most significant down, one bit of every column in
+    turn, packed most significant bit first. ``limbs`` holds each
+    column's [N, L] uint32 little-endian limbs (nulls as 0); returns the
+    [N, C * nbits / 8] uint8 rows."""
+    j = np.arange(nbits - 1, -1, -1)
+    bits = np.stack([(c[:, j // 32] >> (j % 32).astype(np.uint32)) & 1 for c in limbs], axis=2)
+    return np.packbits(bits.astype(np.uint8).reshape(bits.shape[0], -1), axis=1, bitorder="big")
+
+
+SPARK_ROWS = ROWS  # a Spark batch, the other paths' rows
+# string -> integer: (string, value) of each target's limits and one past them
+INT_LIMITS = (("9223372036854775807", 2**63 - 1), ("9223372036854775808", 2**63),
+              ("-9223372036854775808", -(2**63)), ("-9223372036854775809", -(2**63) - 1),
+              ("2147483647", 2**31 - 1), ("2147483648", 2**31), ("-2147483648", -(2**31)),
+              ("-2147483649", -(2**31) - 1), ("18446744073709551615", 2**64 - 1),
+              ("18446744073709551616", 2**64), ("0", 0))
+INT_INVALID = ("", "abc", "12a", "-", "+", "1 2", "--5", "0x10", "1,000", "1e5", " ", "+-3")
+INT_TARGETS = (("INT64", -(2**63), 2**63 - 1), ("INT32", -(2**31), 2**31 - 1),
+               ("UINT64", 0, 2**64 - 1))
+# string -> decimal: (precision, cudf scale) for DECIMAL128, DECIMAL64, DECIMAL32
+DEC_TARGETS = ((38, -10), (18, -4), (9, -2))
+DEC_INVALID = ("abc", "12a", "1.2.3", "--1", "1 2", "", "1e2 ", "-1.5E3\t")
+SPARK_SCALE = -10  # DECIMAL(38, 10) operands
+PRODUCT_SCALE = -6  # Spark's DECIMAL(38, 6) result under allowPrecisionLoss
+ZORDER_RANGES = 1000  # Delta's default range ids per column (rangeId.max)
+ANSI_BAD_ROW = 765_432
+
+
+def _strings_parts(strs):
+    """(offsets int32, chars uint8) of a list of str."""
+    enc = [x.encode() for x in strs]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    return offs.astype(np.int32), np.frombuffer(b"".join(enc), np.uint8)
+
+
+def _int_strings(rng, n: int):
+    """The string -> integer input: integers uniform in [-10^8, 10^8) (the
+    reference-shaped microbench's), and at seeded rows leading and
+    trailing whitespace, a '+' sign, a non-ANSI truncation ('12.7' -> 12),
+    each target's limit and limit + 1, invalid strings, and nulls. Returns
+    (strings, valid, value: Python int or None where invalid, signed: the
+    string carries a sign)."""
+    vals = rng.integers(-(10**8), 10**8, n).tolist()
+    strs = [str(v) for v in vals]
+    value = list(vals)
+    signed = [v < 0 for v in vals]
+    cls = rng.integers(0, 100, n)
+    for i in np.flatnonzero(cls < 6).tolist():
+        c = int(cls[i])
+        if c == 0:  # leading and trailing whitespace
+            strs[i] = "".join(rng.choice([" ", "\t", "\r", "\n"], 2)) + strs[i] + "  "
+        elif c == 1:  # a '+' sign
+            value[i] = abs(value[i])
+            strs[i], signed[i] = "+" + str(value[i]), True
+        elif c == 2:  # non-ANSI truncation at the '.'
+            strs[i] += "." + str(int(rng.integers(0, 1000)))
+        elif c in (3, 4):  # the targets' limits and one past them
+            strs[i], value[i] = INT_LIMITS[int(rng.integers(0, len(INT_LIMITS)))]
+            signed[i] = strs[i].startswith("-")
+        else:
+            strs[i], value[i] = INT_INVALID[int(rng.integers(0, len(INT_INVALID)))], None
+    return strs, rng.random(n) >= 0.02, value, signed
+
+
+def _int_oracle(valid, value, signed, lo: int, hi: int):
+    """(expected values as Python ints with 0 for null, validity) of one
+    integer target: null where the input is null or invalid, out of the
+    target's range, or signed for an unsigned target."""
+    unsigned = lo == 0
+    ok = [bool(a) and v is not None and lo <= v <= hi and not (unsigned and s)
+          for a, v, s in zip(valid.tolist(), value, signed)]
+    return [v if k else 0 for v, k in zip(value, ok)], np.array(ok)
+
+
+def _dec_strings(rng, n: int):
+    """The string -> decimal input: values of a seeded 1-38 digit count
+    with the decimal point anywhere, some in exponent notation, a sign on
+    45%, leading or trailing whitespace on some, invalid strings and
+    nulls. Returns (strings, valid, (mantissa, exponent, location): the
+    value as int * 10^exponent and its decimal location -- the digits
+    before the point moved by the exponent -- or None where invalid)."""
+    k = rng.integers(1, 39, n)
+    digits = rng.integers(48, 58, (n, 38), dtype=np.uint8)
+    digits[:, 0] = rng.integers(49, 58, n, dtype=np.uint8)
+    point = (rng.random(n) * (k + 1)).astype(np.int64)
+    expo = np.where(rng.random(n) < 0.2, rng.integers(-20, 21, n), 0)
+    sign = rng.random(n)
+    ws = rng.random(n)
+    bad = rng.random(n) < 0.005
+    strs, parsed = [], []
+    for i in range(n):
+        if bad[i]:
+            strs.append(DEC_INVALID[i % len(DEC_INVALID)])
+            parsed.append(None)
+            continue
+        d = digits[i, :k[i]].tobytes().decode()
+        p, e = int(point[i]), int(expo[i])
+        body = (d[:p] or "0") + "." + d[p:] if p < k[i] else d
+        if e:
+            body += ("E" if i % 2 else "e") + str(e)
+        m = int(d)
+        if sign[i] < 0.4:
+            body, m = "-" + body, -m
+        elif sign[i] < 0.45:
+            body = "+" + body
+        if ws[i] < 0.05:
+            body = " \t" + body
+        elif ws[i] < 0.1 and not e:  # whitespace after exponent digits is invalid
+            body += " \n"
+        strs.append(body)
+        parsed.append((m, e - (int(k[i]) - p), (max(p, 1) if p < k[i] else int(k[i])) + e))
+    return strs, rng.random(n) >= 0.02, parsed
+
+
+def _dec_oracle(valid, parsed, precision: int, scale: int):
+    """(expected unscaled Python ints with 0 for null, validity, fault) of
+    one decimal target by Spark's cast: the value rounded half up away
+    from zero to 10^scale, null where null, invalid or past the
+    precision. ``fault`` marks the rows of the reference's known fault
+    (ROADMAP section 3), whose value the reference gets wrong: the
+    exponent puts the decimal location below 0 and the rounding carries
+    into a new digit (the kept digits all nines), where the reference
+    counts that digit before the decimal point and pads one zero too many
+    (ten times Spark's value)."""
+    out, ok, fault = [], [], []
+    bound = 10**precision
+    for a, pv in zip(valid.tolist(), parsed):
+        if not a or pv is None:
+            out.append(0)
+            ok.append(False)
+            fault.append(False)
+            continue
+        m, e, location = pv
+        shift = e - scale
+        carried = False
+        if shift >= 0:
+            mag = abs(m) * 10**shift
+        else:
+            q, r = divmod(abs(m), 10**-shift)
+            mag = q + (2 * r >= 10**-shift)
+            carried = mag > q and q and str(q).count("9") == len(str(q))
+        good = mag < bound
+        out.append((-mag if m < 0 else mag) if good else 0)
+        ok.append(good)
+        fault.append(bool(good and carried and location < 0))
+    return out, np.array(ok), np.array(fault)
+
+
+def _limbs_of(values) -> np.ndarray:
+    """Python ints (signed, 128-bit) -> [N, 4] uint32 two's complement limbs."""
+    blob = b"".join(int(v).to_bytes(16, "little", signed=True) for v in values)
+    return np.frombuffer(blob, np.uint32).reshape(-1, 4)
+
+
+def _dec_operands(rng, n: int):
+    """DECIMAL(38, 10) operands: a seeded 1-38 digit count and sign each,
+    about 1% zero divisors, and nulls on about 5% of the rows (2.5% in
+    each operand)."""
+    out = []
+    for _ in range(2):
+        k = rng.integers(1, 39, n)
+        digits = rng.integers(48, 58, (n, 38), dtype=np.uint8)
+        neg = rng.random(n) < 0.5
+        out.append([(-1 if neg[i] else 1) * int(digits[i, :k[i]].tobytes()) for i in range(n)])
+    a, b = out
+    for i in np.flatnonzero(rng.random(n) < 0.01).tolist():
+        b[i] = 0
+    return a, b, rng.random(n) >= 0.025, rng.random(n) >= 0.025
+
+
+def _spark_exact_inputs(seed: int, n: int = SPARK_ROWS, device=None):
+    """Host data made from ``seed`` with numpy and uploaded through
+    ``carry_table``: the string columns of both casts, the DECIMAL(38, 10)
+    operands, Z-order's INT32 range ids (nulls in one column) and INT64
+    columns, and UINT32 / UINT64 columns with nulls."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    rng = np.random.default_rng(seed)
+    h = {"n": n}
+    h["int"] = _int_strings(rng, n)
+    strs, valid, value, _ = h["int"]
+    ansi = [str(v) if v is not None and -(2**63) <= v < 2**63 else "0" for v in value]
+    ansi[ANSI_BAD_ROW % n] = "12x4"
+    ansi_valid = valid.copy()
+    ansi_valid[ANSI_BAD_ROW % n] = True  # an incoming null never raises
+    h["ansi"] = ansi
+    h["dec"] = _dec_strings(rng, n)
+    h["ops"] = _dec_operands(rng, n)
+    h["z32"] = [rng.integers(0, ZORDER_RANGES, n).astype(np.int32) for _ in range(3)]
+    h["z32_valid"] = rng.random(n) >= 0.05
+    h["z64"] = [rng.integers(-(2**63), 2**63 - 1, n, endpoint=True) for _ in range(4)]
+    h["u32"] = rng.integers(0, 2**32, n, dtype=np.uint32)
+    h["u64"] = rng.integers(0, 2**64, n, dtype=np.uint64, endpoint=False)
+    h["u_valid"] = rng.random(n) >= 0.03
+
+    a, b, va, vb = h["ops"]
+    cols = [(_strings_parts(strs), pdt.STRING, valid), (_strings_parts(ansi), pdt.STRING, ansi_valid),
+            (_strings_parts(h["dec"][0]), pdt.STRING, h["dec"][1]),
+            (_limbs_of(a), pdt.decimal128(SPARK_SCALE), va),
+            (_limbs_of(b), pdt.decimal128(SPARK_SCALE), vb),
+            *((z, pdt.INT32, h["z32_valid"] if i == 1 else None) for i, z in enumerate(h["z32"])),
+            *((z, pdt.INT64, None) for z in h["z64"]),
+            (h["u32"], pdt.UINT32, h["u_valid"]), (h["u64"], pdt.UINT64, h["u_valid"])]
+    names = ["ints", "ansi", "decs", "a", "b", "z0", "z1", "z2", "w0", "w1", "w2", "w3",
+             "u32", "u64"]
+    t = carry_table([c[0] for c in cols], [c[1] for c in cols], [c[2] for c in cols],
+                    device=device)
+    return h, Table(t.columns, names)
+
+
+def _spark_exact_ops(t):
+    """name -> a call of the port's entry point on the uploaded table."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.ops import cast_string, decimal_utils, zorder
+    from spark_rapids_jni_tpu_torch.ops import expressions as ex
+
+    ops = {}
+    for tn, _, _ in INT_TARGETS:
+        ops[f"to_{tn.lower()}"] = (lambda d: lambda: cast_string.string_to_integer(
+            t.column("ints"), False, d))(getattr(pdt, tn))
+    for p, sc in DEC_TARGETS:
+        ops[f"to_decimal_{p}_{-sc}"] = (lambda p, sc: lambda: cast_string.string_to_decimal(
+            t.column("decs"), False, p, sc))(p, sc)
+    ops["multiply128"] = lambda: decimal_utils.multiply128(t.column("a"), t.column("b"),
+                                                           PRODUCT_SCALE)
+    ops["divide128"] = lambda: decimal_utils.divide128(t.column("a"), t.column("b"), PRODUCT_SCALE)
+    ops["zorder_int32x3"] = lambda: zorder.interleave_bits(
+        t.num_rows, *(t.column(f"z{i}") for i in range(3)))
+    ops["zorder_int64x4"] = lambda: zorder.interleave_bits(
+        t.num_rows, *(t.column(f"w{i}") for i in range(4)))
+    ops["u32_filter"] = lambda: ((ex.col("u32") + 7) % 1000 > 3).evaluate(t)
+    ops["u64_filter"] = lambda: ((ex.col("u64") + 7) % 1000 > 3).evaluate(t)
+    ops["u64_cast_u32"] = lambda: ex.col("u64").cast(pdt.UINT32).evaluate(t)
+    return ops
+
+
+def _spark_exact_path(ops):
+    """Every operation once; host ms of each, each ending in a synchronize."""
+    import torch
+
+    out, stage = {}, {}
+    for name, op in ops.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = op()
+        torch.cuda.synchronize()
+        stage[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    stage["end_to_end_ms"] = sum(stage.values())
+    return out, stage
+
+
+def _expect(col, want, ok, what: str, where=None):
+    """A column's validity exactly ``ok``, and its values (one word or [N, 4]
+    limbs a row) exactly ``want`` on the rows of ``where`` (default ``ok``)."""
+    got_ok = col.valid_mask().cpu().numpy()
+    if not np.array_equal(got_ok, ok):
+        bad = np.flatnonzero(got_ok != ok)
+        raise AssertionError(f"{what}: validity differs on {bad.size} rows, first {bad[:5]}")
+    where = ok if where is None else where
+    got = col.to_numpy()
+    want = np.asarray(want, dtype=got.dtype) if got.ndim == 1 else want
+    if not np.array_equal(got[where], want[where]):
+        bad = np.flatnonzero(where & np.any((got != want).reshape(len(where), -1), axis=1))
+        raise AssertionError(f"{what}: values differ on {bad.size} rows, first {bad[:5]}")
+
+
+def _check_spark_exact(h, t, out) -> dict:
+    """Every result against its independent oracle; the ANSI run must raise
+    CastError with the bad row and its string. Returns counts."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.ops import cast_string
+
+    n = h["n"]
+    summary = {}
+    _, valid, value, signed = h["int"]
+    for tn, lo, hi in INT_TARGETS:
+        want, ok = _int_oracle(valid, value, signed, lo, hi)
+        if tn == "UINT64":
+            want = [v % 2**64 for v in want]
+        _expect(out[f"to_{tn.lower()}"], np.array(want, dtype=np.int64 if tn != "UINT64"
+                                                  else np.uint64), ok, f"string -> {tn}")
+        summary[f"to_{tn.lower()}_valid"] = int(ok.sum())
+    try:
+        cast_string.string_to_integer(t.column("ansi"), True, pdt.INT64)
+    except cast_string.CastError as e:
+        if (e.row_with_error, e.string_with_error) != (ANSI_BAD_ROW % n, "12x4"):
+            raise AssertionError(f"ANSI cast raised for row {e.row_with_error} "
+                                 f"{e.string_with_error!r}, not {ANSI_BAD_ROW % n} '12x4'")
+    else:
+        raise AssertionError("the ANSI cast did not raise on its bad row")
+    summary["ansi_row"] = ANSI_BAD_ROW % n
+
+    _, dvalid, parsed = h["dec"]
+    for p, sc in DEC_TARGETS:
+        want, ok, fault = _dec_oracle(dvalid, parsed, p, sc)
+        col = out[f"to_decimal_{p}_{-sc}"]
+        if col.dtype.scale != sc:
+            raise AssertionError(f"string -> DECIMAL({p}, {-sc}) has scale {col.dtype.scale}")
+        # validity on every row; values on the valid rows outside the
+        # reference's known fault, whose rows are counted
+        _expect(col, _limbs_of(want) if p > 18 else np.array(want), ok,
+                f"string -> DECIMAL({p}, {-sc})", where=ok & ~fault)
+        summary[f"to_decimal_{p}_{-sc}_valid"] = int(ok.sum())
+        summary[f"to_decimal_{p}_{-sc}_fault_rows"] = int(fault.sum())
+        print(f"string -> DECIMAL({p}, {-sc}): {int(fault.sum())} valid rows in the reference's "
+              f"known fault class (a carry below the decimal point) left out of the value "
+              f"comparison", flush=True)
+
+    a, b, va, vb = h["ops"]
+    both = va & vb
+    for name, oracle in (("multiply128", _dec_mul_oracle), ("divide128", _dec_div_oracle)):
+        res = [oracle(x, y, SPARK_SCALE, SPARK_SCALE, PRODUCT_SCALE) for x, y in zip(a, b)]
+        ovf = np.array([r[0] for r in res])
+        got = out[name]
+        _expect(got.columns[0], ovf.astype(np.uint8), both, f"{name} overflow")
+        keep = both & (~ovf | np.array([y == 0 for y in b]))  # a zero divisor writes 0
+        _expect(got.columns[1], _limbs_of([0 if r[1] is None else r[1] for r in res]), both,
+                f"{name} value", where=keep)
+        summary[f"{name}_overflow"] = int((ovf & both).sum())
+    summary["zero_divisors"] = int(sum(y == 0 for y in b))
+    # rows whose product took the SPARK-40129 first rounding to precision 38
+    summary["multiply128_first_rounding"] = int(sum(
+        _precision10(abs(x * y)) > 38 for x, y in zip(a, b)))
+
+    for name, cols, valids, nbits in (
+            ("zorder_int32x3", h["z32"], [None, h["z32_valid"], None], 32),
+            ("zorder_int64x4", h["z64"], [None] * 4, 64)):
+        limbs = [np.where(v[:, None], c.view(np.uint32).reshape(n, -1), 0) if v is not None
+                 else c.view(np.uint32).reshape(n, -1) for c, v in zip(cols, valids)]
+        want = _zorder_oracle(limbs, nbits)
+        got = out[name]
+        row = want.shape[1]
+        if not (np.array_equal(got.offsets.cpu().numpy(), np.arange(n + 1, dtype=np.int64) * row)
+                and np.array_equal(got.child.data.cpu().numpy().reshape(n, row), want)):
+            raise AssertionError(f"{name} differs from Delta's interleaveBits")
+
+    uv = h["u_valid"]
+    with np.errstate(over="ignore"):
+        for name, u in (("u32_filter", h["u32"]), ("u64_filter", h["u64"])):
+            _expect(out[name], ((u + u.dtype.type(7)) % u.dtype.type(1000) > 3).astype(np.uint8),
+                    uv, name)
+    _expect(out["u64_cast_u32"], h["u64"].astype(np.uint32), uv, "u64_cast_u32")
+    torch.cuda.synchronize()
+    return summary
+
+
 def _run_counted(wrappers, run):
     """Every launch counter to 0, ``run`` once, the counts back."""
     for w in wrappers.values():
@@ -2255,6 +2703,95 @@ def main() -> int:
     del stars
     torch.cuda.empty_cache()
 
+    # -- the spark_exact path: the reference's Spark-exact operators ---------
+    t_phase = time.perf_counter()
+    xh, xt = _spark_exact_inputs(SEED + 10)
+    torch.cuda.synchronize()
+    print(f"spark_exact input: {SPARK_ROWS} rows of integer strings ({int(xt.column('ints').offsets[-1])} "
+          f"B), decimal strings ({int(xt.column('decs').offsets[-1])} B), DECIMAL(38, 10) operand "
+          f"pairs, 3 INT32 range-id and 4 INT64 Z-order columns, UINT32 and UINT64 columns, made "
+          f"and uploaded in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    xops = _spark_exact_ops(xt)
+    # the counted run records the arguments the casts hand B8's wrapper
+    # (the wrapper counts through its module-level name, so its launches
+    # land on the recorder's count while it stands in)
+    xseen, b8 = [], rb.extract_strings_many
+
+    def b8_recorder(*args):
+        xseen.append(args)
+        return b8(*args)
+
+    b8_recorder.launches = 0
+    rb.extract_strings_many = b8_recorder
+    try:
+        (xout, xstage), xlaunches = _run_counted(wrappers, lambda: _spark_exact_path(xops))
+    finally:
+        rb.extract_strings_many = b8
+    xlaunches["extract_strings_many"] += b8_recorder.launches
+    print(f"spark_exact path launches: {xlaunches}", flush=True)
+    if len(xseen) != xlaunches["extract_strings_many"]:
+        raise AssertionError(f"recorded {len(xseen)} extract_strings_many calls, counted "
+                             f"{xlaunches['extract_strings_many']} launches")
+    # B8 against its plain version on every call the casts made, bit for
+    # bit over the whole padded width (the bytes past each length too)
+    xb8_shapes = []
+    for pools, starts, lens, widths in xseen:
+        got, want = b8(pools, starts, lens, widths), rb.extract_strings_many_plain(
+            pools, starts, lens, widths)
+        if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("extract_strings_many disagrees with its plain version on the "
+                                 f"spark_exact path's arguments (widths {list(widths)})")
+        xb8_shapes.append(f"{len(pools)} column(s), uint8 pool [{pools[0].shape[0]}], "
+                          f"{str(starts[0].dtype).replace('torch.', '')} [{starts[0].shape[0]}] "
+                          f"starts, widths {list(widths)}")
+    del xseen, got, want
+    print(f"spark_exact: extract_strings_many equals its plain version bit for bit on all "
+          f"{len(xb8_shapes)} of the path's calls: {xb8_shapes}", flush=True)
+    if xlaunches["extract_strings_many"] < 2:
+        raise AssertionError("the spark_exact path launched extract_strings_many "
+                             f"{xlaunches['extract_strings_many']} times, not once a cast")
+    others = {k: v for k, v in xlaunches.items() if k != "extract_strings_many" and v}
+    if others:
+        raise AssertionError(f"the spark_exact path launched kernels it does not run: {others}")
+    t0 = time.perf_counter()
+    xcheck = _check_spark_exact(xh, xt, xout)
+    print(f"spark_exact path checked against the independent oracles in "
+          f"{time.perf_counter() - t0:.1f} s (Python ints and decimal rules, numpy's unsigned "
+          f"arithmetic, Delta's interleaveBits; the ANSI cast raised CastError on row "
+          f"{xcheck['ansi_row']} '12x4'): {xcheck}", flush=True)
+    del xout
+    xwarm, xpeak = {}, {}
+    for name, op in xops.items():
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        xwarm[f"{name}_ms"] = float(np.median(runs))
+        xpeak[name] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"spark_exact {name} (host clock, ms): first run {xstage[name + '_ms']:.2f}; warm "
+              f"median of 3 {xwarm[name + '_ms']:.2f}; peak device memory {xpeak[name]:.2f} GiB",
+              flush=True)
+    xwarm["end_to_end_ms"] = sum(xwarm.values())
+    xprofiles = {}
+    for name, op in xops.items():
+        print(f"spark_exact profile of {name}:", flush=True)
+        xprofiles[name] = _profile_phase(
+            op, top=4, watch={"extract_strings_kernel": rb.extract_strings_many}
+            if name.startswith("to_") else None)
+    xwall = time.perf_counter() - t_phase
+    print(f"spark_exact phase: {xwall:.1f} s wall (input, counted run, checks, warm runs, "
+          f"profiles)", flush=True)
+    paths["spark_exact"] = {**xstage, "warm": xwarm, "warm_end_to_end_ms": xwarm["end_to_end_ms"],
+                            "rows": SPARK_ROWS, **xcheck, "peak_gib": xpeak,
+                            "extract_strings_checked": xb8_shapes,
+                            "phase_wall_s": xwall, "launches": xlaunches, "profile": xprofiles}
+    del xh, xt, xops
+    torch.cuda.empty_cache()
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -2292,7 +2829,7 @@ def main() -> int:
          "launches": timed_on[k],
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
-                              "tpcds": dlaunches[k]},
+                              "tpcds": dlaunches[k], "spark_exact": xlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

@@ -16,6 +16,7 @@ Entry points that build device data take ``device=None``, which means
 
 from __future__ import annotations
 
+import decimal
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -141,9 +142,10 @@ class Column:
     @classmethod
     def from_pylist(cls, values: Sequence[Any], dtype: DType, device=None) -> "Column":
         """Host python values -> device column; None is null. STRING takes
-        str (UTF-8 encoded) or bytes; fixed-width types take what numpy
-        converts to their storage (FLOAT64 as a float). ``device=None``
-        means the card."""
+        str (UTF-8 encoded) or bytes; decimals take unscaled ints or
+        ``decimal.Decimal`` values (rounded half up to the scale); other
+        fixed-width types take what numpy converts to their storage
+        (FLOAT64 as a float). ``device=None`` means the card."""
         dev = resolve_device(device)
         validity = None
         if any(v is None for v in values):
@@ -156,8 +158,13 @@ class Column:
             np.cumsum(lens, out=offsets[1:])
             chars = np.frombuffer(b"".join(encoded), dtype=np.uint8)
             return cls.strings_from_parts(offsets, chars, validity, device=dev)
-        if not dtype.is_fixed_width or dtype.id == TypeId.DECIMAL128:
-            raise ValueError(f"from_pylist takes STRING or a one-word fixed-width type, got {dtype!r}")
+        if not dtype.is_fixed_width:
+            raise ValueError(f"from_pylist takes STRING or a fixed-width type, got {dtype!r}")
+        if dtype.is_decimal:
+            unscaled = [0 if v is None else _to_unscaled(v, dtype.scale) for v in values]
+            host = (_pack_decimal128_host(unscaled) if dtype.id == TypeId.DECIMAL128
+                    else np.array(unscaled, dtype=dtype.np_dtype))
+            return cls.from_numpy(host, dtype, validity, device=dev)
         host = np.array([0 if v is None else v for v in values])
         return cls.from_numpy(host, dtype, validity, device=dev)
 
@@ -199,23 +206,54 @@ class Column:
 
     def to_pylist(self) -> list:
         """Host python values, None for nulls: STRING as str (invalid
-        UTF-8 replaced), FLOAT64 as float, other one-word types as their
-        numpy scalar's value."""
+        UTF-8 replaced), FLOAT64 as float, decimals as their unscaled
+        ints, other one-word types as their numpy scalar's value."""
         valid = self.valid_mask().cpu().numpy()
         if self.dtype.id == TypeId.STRING:
             offs = self.offsets.cpu().numpy()
             chars = self.chars.cpu().numpy().tobytes()
             return [chars[offs[i]:offs[i + 1]].decode("utf-8", errors="replace") if valid[i] else None
                     for i in range(len(self))]
-        if not self.dtype.is_fixed_width or self.dtype.id == TypeId.DECIMAL128:
-            raise ValueError(f"to_pylist takes STRING or a one-word fixed-width type, got {self.dtype!r}")
+        if not self.dtype.is_fixed_width:
+            raise ValueError(f"to_pylist takes STRING or a fixed-width type, got {self.dtype!r}")
         host = self.to_numpy()
+        if self.dtype.id == TypeId.DECIMAL128:
+            unscaled = _unpack_decimal128_host(host)
+            return [unscaled[i] if valid[i] else None for i in range(len(self))]
         if self.dtype.id == TypeId.FLOAT64:
             host = host.view(np.float64)
         return [host[i].item() if valid[i] else None for i in range(len(self))]
 
     def __repr__(self):
         return f"Column({self.dtype!r}, rows={len(self)}, nulls={self.null_count})"
+
+
+def _to_unscaled(v, scale: int) -> int:
+    """A python int (already unscaled) or a ``decimal.Decimal`` (scaled to
+    ``10**-scale``, rounded half up) -> the unscaled int."""
+    if isinstance(v, decimal.Decimal):
+        return int(v.scaleb(-scale).to_integral_value(rounding=decimal.ROUND_HALF_UP))
+    return int(v)
+
+
+def _pack_decimal128_host(values: Sequence[int]) -> np.ndarray:
+    """Unscaled python ints -> [N, 4] uint32 little-endian limbs (two's
+    complement)."""
+    out = np.empty((len(values), 4), dtype=np.uint32)
+    for i, v in enumerate(values):
+        u = v & ((1 << 128) - 1)
+        for j in range(4):
+            out[i, j] = (u >> (32 * j)) & 0xFFFFFFFF
+    return out
+
+
+def _unpack_decimal128_host(limbs: np.ndarray) -> list:
+    """[N, 4] uint32 limbs -> unscaled python ints (signed)."""
+    vals = []
+    for row in limbs:
+        u = sum(int(row[j]) << (32 * j) for j in range(4))
+        vals.append(u - (1 << 128) if u >= 1 << 127 else u)
+    return vals
 
 
 def _infer_dtype(np_dt: np.dtype) -> DType:

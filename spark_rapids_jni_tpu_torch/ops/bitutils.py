@@ -25,11 +25,10 @@ from __future__ import annotations
 import torch
 
 from ..columnar.dtype import DType, TypeId
-from .uword import MASK32, u32_to_i64
+from .uword import MASK32, SIGN64, u32_to_i64
 
 __all__ = ["total_order_key", "SIGN64", "float_view", "float_store", "backend_has_f64"]
 
-SIGN64 = -(1 << 63)
 _INT64_MAX = (1 << 63) - 1
 
 # types the reference orders as two's-complement integers of their width

@@ -50,11 +50,12 @@ reference: a shift by 64 or more is undefined in CUDA C++.
 
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .bitutils import SIGN64
+from .uword import SIGN64, shr_u64, ucmp64
 
 __all__ = [
     "segment_sum_f64bits",
@@ -71,28 +72,12 @@ LIMBS = 7  # 224-bit window
 # biased effective exponent. Bits 160..223 are headroom for the sum.
 _ANCHOR_LSB = 108
 _MASK32 = 0xFFFFFFFF
-_INT64_MAX = (1 << 63) - 1
 _FRAC52 = (1 << 52) - 1
 _INF_BITS = 0x7FF << 52
 _NAN_BITS = _INF_BITS | (1 << 51)
 # segment counts up to which the per-segment sums are masked reductions
 # (one pass over the payload a segment) rather than one index_add_
 SMALL_SEGMENTS = 16
-
-
-def _shr(x: torch.Tensor, k) -> torch.Tensor:
-    """Logical right shift of u64 words in int64 lanes, ``k`` in [0, 63]
-    (an int or an int64 tensor): the arithmetic shift with the sign
-    copies masked off (2^(64-k) - 1 is INT64_MAX >> (k - 1))."""
-    if isinstance(k, int):
-        return x if k == 0 else (x >> k) & (_INT64_MAX >> (k - 1))
-    mask = torch.where(k == 0, -1, _INT64_MAX >> (k - 1).clamp(min=0))
-    return (x >> k) & mask
-
-
-def _uge(a: torch.Tensor, b) -> torch.Tensor:
-    """Unsigned a >= b for u64 words in int64 lanes (sign bits flipped)."""
-    return (a ^ SIGN64) >= (b ^ SIGN64)
 
 
 def _decompose(bits: torch.Tensor):
@@ -121,7 +106,7 @@ def _element_limbs(mant: torch.Tensor, shift: torch.Tensor) -> list:
     shift = shift.to(torch.int64)
     for k in range(LIMBS):
         t = (32 * k - _ANCHOR_LSB) + shift  # bit offset into mant of this limb's LSB
-        right = _shr(mant, t.clamp(0, 63)) & _MASK32
+        right = shr_u64(mant, t.clamp(0, 63)) & _MASK32
         left = (m32 << (-t).clamp(0, 31)) & _MASK32
         limb = torch.where(t >= 0, right, left)
         out.append(torch.where((t >= 64) | (t <= -32), 0, limb))
@@ -235,7 +220,7 @@ def _extract_bits(mag: torch.Tensor, start: torch.Tensor, width: int) -> torch.T
         nxt = words[w + 1] if w + 1 < len(words) else torch.zeros_like(cur)
         # (cur >> r) | (nxt << (64 - r)), r == 0 taken apart (a shift by 64)
         hi_part = torch.where(r == 0, 0, nxt << (64 - r.clamp(min=1)))
-        res = torch.where(idx == w, _shr(cur, r) | hi_part, res)
+        res = torch.where(idx == w, shr_u64(cur, r) | hi_part, res)
     return res & ((1 << width) - 1)
 
 
@@ -353,12 +338,12 @@ def _abs64_to_f64bits(a: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     msb = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
     v = a
     for s in (32, 16, 8, 4, 2, 1):
-        big = _uge(v, 1 << s)
+        big = ucmp64(operator.ge, v, 1 << s)
         msb = torch.where(big, msb + s, msb)
-        v = torch.where(big, _shr(v, s), v)
+        v = torch.where(big, shr_u64(v, s), v)
     sh = (msb - 52).clamp(min=0)
     shc = sh.clamp(0, 63)
-    keep = _shr(a, shc)
+    keep = shr_u64(a, shc)
     dropped = a & ((1 << shc) - 1)
     half = torch.where(sh > 0, 1 << (sh - 1).clamp(0, 63), 0)
     round_up = (sh > 0) & ((dropped > half) | ((dropped == half) & ((keep & 1) == 1)))

@@ -15,6 +15,10 @@ import torch
 
 __all__ = [
     "MASK32",
+    "SIGN64",
+    "u64_bits",
+    "ucmp64",
+    "shr_u64",
     "to_signed_bits",
     "u32_to_i64",
     "shr_u32",
@@ -28,6 +32,8 @@ __all__ = [
 ]
 
 MASK32 = 0xFFFFFFFF
+SIGN64 = -(1 << 63)
+_INT64_MAX = (1 << 63) - 1
 
 _SIGNED = {8: torch.int8, 16: torch.int16, 32: torch.int32}
 
@@ -63,6 +69,28 @@ def shl_u32(x32: torch.Tensor, k) -> torch.Tensor:
     if not isinstance(k, int):
         k = k.to(torch.int64)
     return to_signed_bits((u32_to_i64(x32) << k) & MASK32, 32)
+
+
+def u64_bits(v: int) -> int:
+    """A Python int in [0, 2^64) as the int64 value holding its bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def ucmp64(op, a, b) -> torch.Tensor:
+    """The unsigned compare ``op`` (``operator.lt``, ``ge``, ...) of u64
+    words held in int64 lanes: flipping the sign bit of both sides maps
+    the unsigned order onto the signed one."""
+    return op(a ^ SIGN64, b ^ SIGN64)
+
+
+def shr_u64(x: torch.Tensor, k) -> torch.Tensor:
+    """Logical right shift of u64 words held in int64 lanes, ``k`` in
+    [0, 63] (an int or an int64 tensor): the arithmetic shift with the
+    sign copies masked off (2^(64-k) - 1 is INT64_MAX >> (k - 1))."""
+    if isinstance(k, int):
+        return x if k == 0 else (x >> k) & (_INT64_MAX >> (k - 1))
+    mask = torch.where(k == 0, -1, _INT64_MAX >> (k - 1).clamp(min=0))
+    return (x >> k) & mask
 
 
 def split_u64(x64: torch.Tensor):

@@ -1192,3 +1192,167 @@ def test_pipeline_joins_on_the_card_match_the_cpu(rng):
             out[dev] = table_to_numpy(pp.compile_plan(plan)(f, {"d": d}))[0]
         for a, b in zip(out["cpu"], out["cuda"]):
             assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+# -- the Spark-exact operators: the casts' padded chars through B8's kernel,
+# and each new operation on CUDA tensors against the same call on CPU ones --
+
+
+def _string_column(strings, valid, dev):
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    c = Column.from_pylist(strings, pdt.STRING, device=dev)
+    return Column(pdt.STRING, validity=torch.tensor(valid, device=dev), offsets=c.offsets,
+                  chars=c.chars)
+
+
+@pytest.mark.parametrize("strings", [
+    ["", "a", "hello world", "", "  12  ", "xyz", "0123456789abcdef0"],
+    ["", "", ""],
+    ["x" * 37, "", "yy", "-12.5e3", "\t9\n"] * 1000,
+])
+def test_padded_chars_kernel_matches_plain(strings):
+    from spark_rapids_jni_tpu_torch.ops import cast_string
+
+    valid = [i % 3 != 1 for i in range(len(strings))]
+    before = rb.extract_strings_many.launches
+    got, glens, gml = cast_string._padded_chars(_string_column(strings, valid, "cuda"))
+    torch.cuda.synchronize()
+    assert rb.extract_strings_many.launches == before + 1
+    want, wlens, wml = cast_string._padded_chars(_string_column(strings, valid, "cpu"))
+    assert gml == wml and got.shape == want.shape
+    assert torch.equal(got.cpu(), want) and torch.equal(glens.cpu(), wlens)
+
+
+def _int_strings(rng, n):
+    vals = rng.integers(-(10**8), 10**8, n).tolist()
+    strs = [str(v) for v in vals]
+    extra = ["9223372036854775807", "-9223372036854775808", "-9223372036854775809",
+             "18446744073709551615", "18446744073709551616", " +12 ", "12.7", "1 2", "", "abc"]
+    strs[:len(extra)] = extra
+    return strs, [i % 17 != 5 for i in range(n)]
+
+
+@pytest.mark.parametrize("tn", ["INT8", "INT32", "INT64", "UINT16", "UINT64"])
+def test_string_to_integer_on_the_card_matches_the_cpu(rng, tn):
+    from spark_rapids_jni_tpu_torch.ops import cast_string
+
+    strs, valid = _int_strings(rng, 20_000)
+    got = cast_string.string_to_integer(_string_column(strs, valid, "cuda"), False, getattr(pdt, tn))
+    want = cast_string.string_to_integer(_string_column(strs, valid, "cpu"), False, getattr(pdt, tn))
+    assert torch.equal(got.data.cpu(), want.data) and torch.equal(got.validity.cpu(), want.validity)
+
+
+def test_ansi_cast_on_the_card_raises_the_row(rng):
+    from spark_rapids_jni_tpu_torch.ops import cast_string
+
+    strs = [str(v) for v in rng.integers(-1000, 1000, 5000).tolist()]
+    strs[3210] = "7q"
+    with pytest.raises(cast_string.CastError) as e:
+        cast_string.string_to_integer(_string_column(strs, [True] * 5000, "cuda"), True, pdt.INT64)
+    assert (e.value.row_with_error, e.value.string_with_error) == (3210, "7q")
+
+
+@pytest.mark.parametrize("precision,scale", [(38, -10), (18, -4), (9, -2)])
+def test_string_to_decimal_on_the_card_matches_the_cpu(rng, precision, scale):
+    from spark_rapids_jni_tpu_torch.ops import cast_string
+
+    strs = []
+    for i in range(20_000):
+        k = int(rng.integers(1, 39))
+        d = "".join(str(int(x)) for x in rng.integers(0, 10, k))
+        p = int(rng.integers(0, k + 1))
+        s = d[:p] + "." + d[p:] if i % 3 else d
+        strs.append(("-" if i % 2 else "") + s + (f"e{int(rng.integers(-20, 21))}" if i % 5 == 0 else ""))
+    valid = [i % 13 != 4 for i in range(len(strs))]
+    got = cast_string.string_to_decimal(_string_column(strs, valid, "cuda"), False, precision, scale)
+    want = cast_string.string_to_decimal(_string_column(strs, valid, "cpu"), False, precision, scale)
+    assert got.dtype == want.dtype
+    assert torch.equal(got.data.cpu(), want.data) and torch.equal(got.validity.cpu(), want.validity)
+
+
+def _decimal_operands(rng, n, dev):
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    cols = []
+    for _ in range(2):
+        vals = [int(rng.integers(-10**18, 10**18)) * 10 ** int(rng.integers(0, 20)) for _ in range(n)]
+        vals[::97] = [0] * len(vals[::97])
+        blob = b"".join(v.to_bytes(16, "little", signed=True) for v in vals)
+        cols.append(np.frombuffer(blob, np.uint32).reshape(n, 4))
+    valid = [np.arange(n) % 19 != 3, None]
+    return carry_table(cols, [pdt.decimal128(-10)] * 2, valid, device=dev).columns
+
+
+# DECIMAL(38, 10) operands: a quotient scale s gives n_shift_exp = s, so 2
+# takes the divide-twice regime, -40 the 10^38-split one, the rest the
+# multiply-then-divide one
+@pytest.mark.parametrize("op,scale", [("multiply128", -6), ("divide128", -6), ("divide128", -2),
+                                      ("divide128", -30), ("divide128", 2), ("divide128", -40)])
+def test_decimal_ops_on_the_card_match_the_cpu(op, scale):
+    from spark_rapids_jni_tpu_torch.ops import decimal_utils
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        a, b = _decimal_operands(np.random.default_rng(7), 4096, dev)
+        out[dev] = getattr(decimal_utils, op)(a, b, scale)
+    for g, w in zip(out["cuda"].columns, out["cpu"].columns):
+        assert torch.equal(g.data.cpu(), w.data) and torch.equal(g.validity.cpu(), w.validity)
+
+
+def test_limbs_on_the_card_match_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch.ops import limbs as L
+
+    vals = [int(x) << int(s) for x, s in zip(rng.integers(0, 2**62, 3000), rng.integers(0, 194, 3000))]
+    vals[:4] = [0, 1, 2**256 - 1, 10**76]
+    dens = [v >> 97 or 1 for v in vals]
+    dens[:3] = [0, 10**38, 2**255 + 1]
+    num, den = torch.from_numpy(L.from_ints(vals, 8)), torch.from_numpy(L.from_ints(dens, 8))
+    for fn in (lambda a, b: L.divmod_bits(a, b), lambda a, b: (L.mul(a, b, 8),),
+               lambda a, b: L.sub(a, b), lambda a, b: (L.precision10(a), L.is_all_nines(a))):
+        for g, w in zip(fn(num.cuda(), den.cuda()), fn(num, den)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("tn,ncols", [("INT32", 3), ("INT64", 4), ("DECIMAL128", 2), ("INT8", 5)])
+def test_interleave_bits_on_the_card_matches_the_cpu(rng, tn, ncols):
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.ops import zorder
+
+    n = 50_000
+    if tn == "DECIMAL128":
+        arrays = [rng.integers(0, 2**32, (n, 4), dtype=np.uint32) for _ in range(ncols)]
+        d = pdt.decimal128(0)
+    else:
+        t = np.dtype(tn.lower())
+        arrays = [rng.integers(np.iinfo(t).min, np.iinfo(t).max, n, dtype=t) for _ in range(ncols)]
+        d = getattr(pdt, tn)
+    valid = [rng.random(n) < 0.9] + [None] * (ncols - 1)
+    out = {dev: zorder.interleave_bits(n, *carry_table(arrays, [d] * ncols, valid, device=dev).columns)
+           for dev in ("cpu", "cuda")}
+    assert torch.equal(out["cuda"].offsets.cpu(), out["cpu"].offsets)
+    assert torch.equal(out["cuda"].child.data.cpu(), out["cpu"].child.data)
+
+
+def test_unsigned_expressions_on_the_card_match_the_cpu(rng):
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.ops import expressions as ex
+
+    n = 100_000
+    arrays = [rng.integers(0, 2**32, n, dtype=np.uint32), rng.integers(0, 2**64, n, dtype=np.uint64),
+              rng.integers(0, 2**64, n, dtype=np.uint64), rng.integers(-10**9, 10**9, n)]
+    arrays[2][::7] = 0
+    valid = [rng.random(n) < 0.95, None, None, None]
+    exprs = [(ex.col("u32") + 7) % 1000 > 3, (ex.col("u64") + 7) % 1000 > 3,
+             ex.col("u64") % ex.col("v64"), ex.col("u64") * ex.col("v64"), ex.col("u64") > ex.col("v64"),
+             ex.col("u64") + ex.col("i64"), ex.col("u64").cast(pdt.UINT32), ex.col("u32") - 5,
+             ex.col("u64").cast(pdt.FLOAT64), (ex.col("i64") * 1e9).cast(pdt.UINT64)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = Table(carry_table(arrays, [pdt.UINT32, pdt.UINT64, pdt.UINT64, pdt.INT64], valid,
+                              device=dev).columns, ["u32", "u64", "v64", "i64"])
+        out[dev] = [e.evaluate(t) for e in exprs]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g.dtype == w.dtype and torch.equal(g.data.cpu(), w.data)
+        assert (g.validity is None) == (w.validity is None)
+        assert g.validity is None or torch.equal(g.validity.cpu(), w.validity)

@@ -5,7 +5,11 @@ type, bits and validity must be identical. That holds three-valued
 AND/OR, null propagation, NULL-on-divide-by-zero, CASE WHEN with a null
 condition, casts, and the reference's type promotion (a Python float
 meeting an integer column computes in float64; a numpy-scalar literal
-promotes as a typed array)."""
+promotes as a typed array). UINT16, UINT32 and UINT64 columns (values up
+to their type's maximum, with nulls) take jnp's promotion lattice, not
+torch's: arithmetic with literals and columns wraps at the width, u32
+with i32 gives int64, u64 with i64 gives float64, and UINT64 compares and
+``%`` are unsigned. Every result is compared bit for bit (tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -26,6 +30,17 @@ from spark_rapids_jni_tpu_torch.ops import expressions as px
 N = 257
 
 
+def _extremes(a, zeros=False):
+    """Seeded unsigned values with the type's edges: 0, 1, the max, the
+    top bit alone and below it; every 11th value 0 where ``zeros``."""
+    top = np.iinfo(a.dtype).max
+    a[:6] = [0, 1, top, top // 2 + 1, top // 2, top - 1]
+    a[6:12] //= a.dtype.type(1 << 7)  # small values too
+    if zeros:
+        a[::11] = 0
+    return a
+
+
 def _inputs(seed=7):
     rng = np.random.default_rng(seed)
     f64 = rng.standard_normal(N) * 100
@@ -40,6 +55,11 @@ def _inputs(seed=7):
         ("b", "BOOL8", rng.integers(0, 2, N).astype(np.uint8), rng.random(N) < 0.75),
         ("d", "TIMESTAMP_DAYS", rng.integers(0, 2557, N).astype(np.int32), rng.random(N) < 0.9),
         ("u8", "UINT8", rng.integers(0, 256, N).astype(np.uint8), rng.random(N) < 0.9),
+        ("u16", "UINT16", _extremes(rng.integers(0, 2**16, N, dtype=np.uint16)), rng.random(N) < 0.9),
+        ("u32", "UINT32", _extremes(rng.integers(0, 2**32, N, dtype=np.uint32)), rng.random(N) < 0.85),
+        ("u32b", "UINT32", _extremes(rng.integers(0, 2**32, N, dtype=np.uint32), zeros=True), None),
+        ("u64", "UINT64", _extremes(rng.integers(0, 2**64, N, dtype=np.uint64)), rng.random(N) < 0.9),
+        ("u64b", "UINT64", _extremes(rng.integers(0, 2**64, N, dtype=np.uint64), zeros=True), None),
     ]
     jcols, arrays, valids, dts = [], [], [], []
     for _, tn, a, v in specs:
@@ -113,6 +133,64 @@ EXPRS = {
     "days_plus_int": lambda m, d: m.col("d") + 30,
     "u8_plus_int": lambda m, d: m.col("u8") + 1,
     "u8_lt_i8": lambda m, d: m.col("u8") < m.col("i8"),
+    # UINT16 / UINT32 / UINT64: jnp's promotion and unsigned semantics
+    "u16_plus_int": lambda m, d: m.col("u16") + 7,
+    "u16_plus_u8": lambda m, d: m.col("u16") + m.col("u8"),
+    "u16_plus_i32": lambda m, d: m.col("u16") + m.col("i32"),
+    "u16_times_i8": lambda m, d: m.col("u16") * m.col("i8"),
+    "u16_times_float": lambda m, d: m.col("u16") * 2.5,
+    "u32_minus_int_wraps": lambda m, d: m.col("u32") - 5,
+    "u32_plus_negative_int_wraps": lambda m, d: m.col("u32") + (-5),
+    "u32_plus_u16": lambda m, d: m.col("u32") + m.col("u16"),
+    "u32_plus_i32": lambda m, d: m.col("u32") + m.col("i32"),
+    "u32_minus_i8": lambda m, d: m.col("u32") - m.col("i8"),
+    "u32_times_u32_wraps": lambda m, d: m.col("u32") * m.col("u32b"),
+    "u32_mod_int": lambda m, d: (m.col("u32") + 7) % 1000,
+    "u32_mod_column_with_zeros": lambda m, d: m.col("u32") % m.col("u32b"),
+    "u32_filter": lambda m, d: (m.col("u32") + 7) % 1000 > 3,
+    "u32_lt_i64": lambda m, d: m.col("u32") < m.col("i64"),
+    "u32_ge_u32": lambda m, d: m.col("u32") >= m.col("u32b"),
+    "u32_eq_np_literal": lambda m, d: m.col("u32") == m.lit(np.uint32(2**32 - 1)),
+    "u32_plus_np_literal": lambda m, d: m.col("u32") + m.lit(np.uint32(4_000_000_000)),
+    "u32_plus_np_int32": lambda m, d: m.col("u32") + m.lit(np.int32(5)),
+    "u32_div_u16": lambda m, d: m.col("u32") / m.col("u16"),
+    "u64_plus_int_wraps": lambda m, d: m.col("u64") + 3,
+    "u64_minus_u64_wraps": lambda m, d: m.col("u64") - m.col("u64b"),
+    "u64_times_u64_wraps": lambda m, d: m.col("u64") * m.col("u64b"),
+    "u64_plus_u32": lambda m, d: m.col("u64") + m.col("u32"),
+    "u64_plus_i64_is_float64": lambda m, d: m.col("u64") + m.col("i64"),
+    "u64_plus_i32_is_float64": lambda m, d: m.col("u64") + m.col("i32"),
+    "u64_plus_f32": lambda m, d: m.col("u64") + m.col("f32"),
+    "u64_times_float": lambda m, d: m.col("u64") * 0.5,
+    "u64_mod_int": lambda m, d: m.col("u64") % 1000,
+    "u64_mod_column_with_zeros": lambda m, d: m.col("u64") % m.col("u64b"),
+    "u64_gt_u64": lambda m, d: m.col("u64") > m.col("u64b"),
+    "u64_le_np_literal": lambda m, d: m.col("u64") <= m.lit(np.uint64(2**63 + 5)),
+    "u64_lt_int": lambda m, d: m.col("u64") < 1000,
+    "u64_ne_u32": lambda m, d: m.col("u64") != m.col("u32"),
+    "u64_lt_f64": lambda m, d: m.col("u64") < m.col("f64"),
+    "u64_div_int": lambda m, d: m.col("u64") / 3,
+    "u64_and_u32_predicates": lambda m, d: (m.col("u64") > 5) & (m.col("u32") < 2**31),
+    "u64_is_null": lambda m, d: m.col("u64").is_null(),
+    "when_u32_or_int": lambda m, d: m.when(m.col("b"), m.col("u32"), 5),
+    "when_u64_or_u16": lambda m, d: m.when(m.col("i8") > 0, m.col("u64"), m.col("u16")),
+    "when_u32_or_i32": lambda m, d: m.when(m.col("b"), m.col("u32"), m.col("i32")),
+    "cast_u16_i8": lambda m, d: m.col("u16").cast(d.INT8),
+    "cast_u32_i32": lambda m, d: m.col("u32").cast(d.INT32),
+    "cast_u32_i64": lambda m, d: m.col("u32").cast(d.INT64),
+    "cast_u32_f64": lambda m, d: m.col("u32").cast(d.FLOAT64),
+    "cast_u32_bool8": lambda m, d: m.col("u32").cast(d.BOOL8),
+    "cast_u64_i32": lambda m, d: m.col("u64").cast(d.INT32),
+    "cast_u64_i64": lambda m, d: m.col("u64").cast(d.INT64),
+    "cast_u64_f64": lambda m, d: m.col("u64").cast(d.FLOAT64),
+    "cast_u64_u16": lambda m, d: m.col("u64").cast(d.UINT16),
+    "cast_u16_u64": lambda m, d: m.col("u16").cast(d.UINT64),
+    "cast_i8_u16": lambda m, d: m.col("i8").cast(d.UINT16),
+    "cast_i32_u32": lambda m, d: m.col("i32").cast(d.UINT32),
+    "cast_i64_u64": lambda m, d: m.col("i64").cast(d.UINT64),
+    "cast_f64_u32_saturates": lambda m, d: (m.col("f64") * 1e8).cast(d.UINT32),
+    "cast_f64_u64_saturates": lambda m, d: (m.col("f64") * 1e17).cast(d.UINT64),
+    "cast_b_u64": lambda m, d: m.col("b").cast(d.UINT64),
 }
 
 
@@ -168,10 +246,23 @@ def test_three_valued_logic_table():
     assert or_.to_pylist() == [True, None, None, True, True, None]
 
 
-@pytest.mark.parametrize("tn", ["UINT16", "UINT32", "UINT64"])
-def test_wide_unsigned_columns_not_ported(tn):
-    from spark_rapids_jni_tpu_torch.columnar import Column
+def test_carry_table_keeps_uint64_bits():
+    a = np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 1], dtype=np.uint64)
+    t = carry_table([a], [pdt.UINT64], device="cpu")
+    assert t.columns[0].data.dtype == torch.int64
+    np.testing.assert_array_equal(t.columns[0].to_numpy(), a)
 
-    t = Table([Column.from_numpy(np.arange(4), getattr(pdt, tn), device="cpu")], ["u"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        (px.col("u") + 1).evaluate(t)
+
+def test_unsigned_arithmetic_against_numpy():
+    # numpy's uint64 / uint32 arithmetic is the oracle of the wrapping and
+    # the unsigned remainder, compare and cast
+    u64 = PT.column("u64").to_numpy()
+    u32 = PT.column("u32").to_numpy()
+    got = ((px.col("u64") * px.col("u64b")) % 1000).evaluate(PT).to_numpy()
+    with np.errstate(over="ignore"):
+        want = (u64 * PT.column("u64b").to_numpy()) % np.uint64(1000)
+        np.testing.assert_array_equal(got, want)
+        got = ((px.col("u32") + 7) % 1000 > 3).evaluate(PT).to_numpy()
+        np.testing.assert_array_equal(got.astype(bool), (u32 + np.uint32(7)) % np.uint32(1000) > 3)
+    got = px.col("u32").cast(pdt.UINT64).evaluate(PT).to_numpy()
+    np.testing.assert_array_equal(got, u32.astype(np.uint64))

@@ -70,8 +70,10 @@ def test_fixed_width_pylist_round_trip():
     col = Column.from_pylist(vals, pdt.FLOAT64, device="cpu")
     assert col.to_pylist() == vals
     assert Column.from_pylist([3, None, 7], pdt.INT16, device="cpu").to_pylist() == [3, None, 7]
-    with pytest.raises(ValueError, match="STRING or a one-word"):
-        Column.from_pylist([1], pdt.decimal128(-2), device="cpu")
+    big = [1, None, -(2**127), 2**127 - 1]
+    assert Column.from_pylist(big, pdt.decimal128(-2), device="cpu").to_pylist() == big
+    with pytest.raises(ValueError, match="STRING or a fixed-width"):
+        Column.from_pylist([1], pdt.LIST, device="cpu")
 
 
 def test_string_column_has_no_flat_data():

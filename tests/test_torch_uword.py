@@ -69,6 +69,35 @@ def test_split_and_join_u64(rng):
     np.testing.assert_array_equal(back, x)
 
 
+@pytest.mark.parametrize("op", ["lt", "le", "gt", "ge", "eq", "ne"])
+def test_ucmp64_is_the_unsigned_order(rng, op):
+    import operator
+
+    x, y = _u64(rng), _u64(rng)
+    y[5:9] = x[5:9]  # some equal pairs
+    fn = getattr(operator, op)
+    np.testing.assert_array_equal(uword.ucmp64(fn, _t64(x), _t64(y)).numpy(), fn(x, y))
+    # a Python int operand holds its bits (u64_bits), as the limits do
+    for v in (0, 2**63 - 1, 2**63, 2**64 - 1):
+        np.testing.assert_array_equal(uword.ucmp64(fn, _t64(x), uword.u64_bits(v)).numpy(),
+                                      fn(x, np.uint64(v)))
+
+
+def test_u64_bits():
+    for v in (0, 1, 2**63 - 1, 2**63, 2**64 - 1):
+        assert uword.u64_bits(v) == int(np.array(v, np.uint64).view(np.int64))
+
+
+@pytest.mark.parametrize("k", [0, 1, 13, 32, 63])
+def test_shr_u64(rng, k):
+    x = _u64(rng)
+    np.testing.assert_array_equal(uword.shr_u64(_t64(x), k).numpy().view(np.uint64),
+                                  x >> np.uint64(k))
+    tk = torch.full((x.shape[0],), k, dtype=torch.int64)
+    np.testing.assert_array_equal(uword.shr_u64(_t64(x), tk).numpy().view(np.uint64),
+                                  x >> np.uint64(k))
+
+
 def test_i64_i32_pair_reinterpretation(rng):
     x = _u64(rng).reshape(64, 64)
     pairs = uword.i64_as_i32_pairs(_t64(x))
