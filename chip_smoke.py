@@ -113,7 +113,30 @@ checkout (one nvcc per source, all at once), then on one card:
    numpy's unsigned arithmetic, Delta's interleaveBits in numpy); per
    operation first-run and warm median-of-3 host ms, peak memory and a
    profile, and the phase's wall seconds;
-9. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+9. the STRING_OPS path, the string and regex tier (``ops/utf8``,
+   ``ops/strings``, ``ops/regex``) on a Spark batch of 1,000,000 rows made
+   from the seed and uploaded through ``carry_table``: four STRING
+   columns (emails of 8-40 bytes, ~2% without '@'; URLs of 20-80 bytes;
+   multilingual text of 1-24 codepoints of 1-4 UTF-8 bytes with U+023A /
+   U+2C65, ß, ΐ and edge spaces; comma lists of 0-8 fields of 0-6 bytes),
+   each with 5% nulls and 1% empty strings, through ``length``, ASCII and
+   Unicode ``upper`` / ``lower``, ``substring`` (positive, zero and
+   negative starts), ``concat`` / ``concat_ws``, ``contains`` /
+   ``startswith`` / ``endswith``, ``strip``, ``instr`` of a 2-byte needle,
+   the UTF-8 decode -> encode round trip, ``contains_re`` / ``matches_re``,
+   ``extract_re`` groups 0-2, ``split_re`` at limits -1, 3, 0 and
+   ``replace_re``. The counted run records every call of B8's wrapper
+   (``extract_strings_many``, ``strings.to_padded``) and of B5's
+   (``ragged_compact_many``, ``strings.from_padded``): each is held bit for
+   bit against its plain version, B8 must launch once a padding call with
+   characters and B5 once a nonzero compaction, the other kernels never.
+   Every result is held against a per-row host oracle (``bytes`` / ``str``
+   methods, ``re`` under re.ASCII, Java's split), and the rows where
+   Spark's semantics differ from the reference's (byte-counted length
+   and substring, the 1:1 case map) are counted; per operation first-run
+   and warm median-of-3 host ms, peak memory and a profile; B8 and B5
+   timed at the path's shapes;
+10. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -273,15 +296,24 @@ def _host_us(fn, reps: int = 100) -> float:
     return us
 
 
+def _traced_ms(fn, kernel: str, launches: int, reps: int = 20) -> dict:
+    """The device time of ``launches`` launches that each do what one call
+    of ``fn`` does: the per-launch mean over the launches named like
+    ``kernel`` that the tracer kept in ``reps`` calls, times ``launches``,
+    with how many it kept beside. Raises when it kept none."""
+    us = [t for name, t in _device_activities(fn, reps) if kernel in name]
+    if not us:
+        raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r}")
+    return dict(device_ms=launches * float(np.mean(us)) / 1e3, device_traced=len(us),
+                device_calls=reps)
+
+
 def _device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the kernels named like ``kernel`` over ``reps``
     calls of ``fn``: the kernel alone, without the wrapper's host work that
     CUDA events around a call also take in. Raises when the profiler
     recorded no such kernel (a wrong name, or a kernel that did not run)."""
-    us = [t for name, t in _device_activities(fn, reps) if kernel in name]
-    if not us:
-        raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r}")
-    return float(np.mean(us)) / 1e3
+    return _traced_ms(fn, kernel, 1, reps)["device_ms"]
 
 
 def _fmt_stages(stage) -> str:
@@ -599,7 +631,8 @@ def _profile_phase(run_path, top: int = 8, watch=None):
     kernel and by aten op, and the device's idle share of the host window.
     ``watch`` maps a kernel's name to the wrapper that launches it: those
     kernels are printed whatever their rank, their device ms land in the
-    result's ``watched``, and the trace must hold each as many times as
+    result's ``watched`` and their (traced, launched) counts in
+    ``watched_traced``, and the trace must hold each as many times as
     its wrapper counted in the traced run. As in ``_device_activities``,
     a warm-up step with one sleep kernel comes first. The tracer has
     dropped part of a run on rare occasions (a join-path trace once held
@@ -640,8 +673,8 @@ def _profile_phase(run_path, top: int = 8, watch=None):
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
         events = got.get("events", [])
-        short = {k: (sum(k in name for name, _, _ in events), w.launches) for k, w in watch.items()}
-        short = {k: v for k, v in short.items() if v[0] != v[1]}
+        traced = {k: (sum(k in name for name, _, _ in events), w.launches) for k, w in watch.items()}
+        short = {k: v for k, v in traced.items() if v[0] != v[1]}
         if events and not short:
             break
         print(f"profile (trace {attempt}): {len(events)} device activities; watched kernels "
@@ -674,7 +707,7 @@ def _profile_phase(run_path, top: int = 8, watch=None):
             print(f"profile kernel (watched): {us / 1e3:9.4f} ms x{cnt:<4d} {name[:110]}", flush=True)
     return {"device_busy_ms": busy_us / 1e3, "host_window_ms": wall_ms,
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(spans),
-            "watched": watched, "traces": attempt, "short_of": short}
+            "watched": watched, "watched_traced": traced, "traces": attempt, "short_of": short}
 
 
 def _main_path(table, dtypes, key: int, value: int):
@@ -2323,6 +2356,508 @@ def _check_spark_exact(h, t, out) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the string_ops path: the string and regex tier on one Spark batch
+# ---------------------------------------------------------------------------
+SOPS_ROWS = ROWS  # a Spark batch, the other paths' rows
+SOPS_NULLS = 0.05
+SOPS_EMPTY = 0.01
+SOPS_TLDS = (b"com", b"org", b"net", b"edu", b"io")
+EMAIL_RE = r"[\w.]+@\w+\.(?:com|org|net|edu)"  # an alternation of TLDs, ".io" left out
+EMAIL_GROUPS = r"([\w.]+)@(\w+)"  # three top-level members: one all-starts run each
+URL_DIGITS = r"\d{2,}"
+INSTR_NEEDLE = "é"  # a 2-byte needle
+SUBSTRINGS = (("email", 3, 5), ("url", 0, 12), ("email", -6, 4), ("multi", 2, 3))
+SPLIT_LIMITS = (-1, 3, 0)
+_ALNUM = b"abcdefghijklmnopqrstuvwxyz0123456789"
+# the multilingual column's codepoints: (first, last, weight)
+_MULTI_RANGES = ((0x61, 0x7A, 0.2), (0x41, 0x5A, 0.1), (0xC0, 0xFF, 0.2), (0x391, 0x3A9, 0.07),
+                 (0x3B1, 0x3C9, 0.08), (0x4E00, 0x4E7F, 0.15), (0x1F600, 0x1F64F, 0.06),
+                 (0x20, 0x20, 0.08))
+_MULTI_SPECIAL = (0x23A, 0x2C65, 0xDF, 0x390)  # a length-changing pair, and two that expand
+
+
+def _draw_rows(rng, alphabet: bytes, lens) -> list:
+    """Random rows of ``alphabet`` of the given lengths, in one draw."""
+    lens = np.asarray(lens, np.int64)
+    buf = np.frombuffer(alphabet, np.uint8)[rng.integers(0, len(alphabet), int(lens.sum()))].tobytes()
+    ends = np.cumsum(lens).tolist()
+    starts = [0] + ends[:-1]
+    return [buf[a:b] for a, b in zip(starts, ends)]
+
+
+def _sops_emails(rng, n: int) -> list:
+    local = _draw_rows(rng, _ALNUM + b"._", rng.integers(3, 21, n))
+    dom = _draw_rows(rng, _ALNUM[:26], rng.integers(3, 13, n))
+    tld = rng.integers(0, len(SOPS_TLDS), n).tolist()
+    at = np.where(rng.random(n) < 0.02, ord("."), ord("@")).tolist()  # ~2% without '@'
+    return [lo + bytes((a,)) + d + b"." + SOPS_TLDS[t] for lo, a, d, t in zip(local, at, dom, tld)]
+
+
+def _sops_urls(rng, n: int) -> list:
+    host = _draw_rows(rng, _ALNUM[:26], rng.integers(3, 13, n))
+    tld = rng.integers(0, len(SOPS_TLDS), n).tolist()
+    nseg = rng.integers(0, 4, n)
+    segs = _draw_rows(rng, _ALNUM, rng.integers(1, 11, int(nseg.sum())))
+    q = rng.random(n) < 0.5
+    qd = _draw_rows(rng, b"0123456789", np.where(q, rng.integers(1, 7, n), 0))
+    https = (rng.random(n) < 0.5).tolist()
+    out, k = [], 0
+    for i in range(n):
+        u = (b"https://www." if https[i] else b"http://www.") + host[i] + b"." + SOPS_TLDS[tld[i]]
+        for _ in range(int(nseg[i])):
+            u += b"/" + segs[k]
+            k += 1
+        if qd[i]:
+            u += b"?id=" + qd[i] + b"&p=" + qd[i][:2]
+        if len(u) < 20:
+            u += b"/index.html"
+        out.append(u[:80])
+    return out
+
+
+def _sops_multi(rng, n: int) -> list:
+    """1-24 codepoints a row: ASCII, Latin-1 accents, Greek, CJK, emoji,
+    U+023A / U+2C65 (2 and 3 bytes: their case map changes the length),
+    ß and ΐ, and leading / trailing spaces."""
+    lens = rng.integers(1, 25, n)
+    total = int(lens.sum())
+    w = np.array([r[2] for r in _MULTI_RANGES])
+    which = rng.choice(len(_MULTI_RANGES), total, p=w / w.sum())
+    lo = np.array([r[0] for r in _MULTI_RANGES])[which]
+    hi = np.array([r[1] for r in _MULTI_RANGES])[which]
+    cps = lo + (rng.random(total) * (hi - lo + 1)).astype(np.int64)
+    special = rng.random(total) < 0.03
+    cps[special] = np.array(_MULTI_SPECIAL)[rng.integers(0, len(_MULTI_SPECIAL), int(special.sum()))]
+    ends = np.cumsum(lens)
+    starts = ends - lens
+    lead = rng.random(n) < 0.2
+    cps[starts[lead]] = 0x20
+    trail = rng.random(n) < 0.2
+    cps[ends[trail] - 1] = 0x20
+    text = cps.astype("<u4").tobytes().decode("utf-32-le")
+    return [text[a:b].encode() for a, b in zip(starts.tolist(), ends.tolist())]
+
+
+def _sops_lists(rng, n: int) -> list:
+    nf = rng.integers(0, 9, n)
+    fields = _draw_rows(rng, _ALNUM, rng.integers(0, 7, int(nf.sum())))
+    out, k = [], 0
+    for f in nf.tolist():
+        out.append(b",".join(fields[k:k + f]))
+        k += f
+    return out
+
+
+def _bytes_parts(rows):
+    """(offsets int32, chars uint8) of a list of bytes."""
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    return offs.astype(np.int32), np.frombuffer(b"".join(rows), np.uint8)
+
+
+def _string_ops_inputs(seed: int, n: int = SOPS_ROWS, device=None):
+    """Four STRING columns made from ``seed`` with numpy and uploaded
+    through ``carry_table``: emails, URLs, multilingual text and comma
+    lists, each with 5% nulls (empty bytes under the null) and 1% empty
+    strings. Returns (host rows and validity by name, the Table)."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    rng = np.random.default_rng(seed)
+    names = ("email", "url", "multi", "list")
+    h = {"n": n}
+    for name, make in zip(names, (_sops_emails, _sops_urls, _sops_multi, _sops_lists)):
+        rows = make(rng, n)
+        valid = rng.random(n) >= SOPS_NULLS
+        for i in np.flatnonzero(~valid | (rng.random(n) < SOPS_EMPTY)).tolist():
+            rows[i] = b""
+        h[name] = (rows, valid)
+    t = carry_table([_bytes_parts(h[k][0]) for k in names], [pdt.STRING] * 4,
+                    [h[k][1] for k in names], device=device)
+    return h, Table(t.columns, list(names))
+
+
+def _utf8_roundtrip(col):
+    """decode_padded then encode_padded of a column's padded bytes."""
+    from spark_rapids_jni_tpu_torch.ops import strings, utf8
+
+    padded, lens = strings.to_padded(col)
+    cp, cp_lens, _ = utf8.decode_padded(padded, lens)
+    out, out_lens = utf8.encode_padded(cp, cp_lens)
+    return padded, lens, out, out_lens, cp_lens
+
+
+def _string_ops(t):
+    """name -> a call of the port's entry point on the uploaded table."""
+    from spark_rapids_jni_tpu_torch.ops import regex, strings
+
+    e, u, m, lst = (t.column(k) for k in ("email", "url", "multi", "list"))
+    col = {"email": e, "url": u, "multi": m}
+    ops = {"length_email": lambda: strings.length(e), "length_multi": lambda: strings.length(m),
+           "upper_email": lambda: strings.upper(e), "lower_url": lambda: strings.lower(u),
+           "upper_multi": lambda: strings.upper(m), "lower_multi": lambda: strings.lower(m)}
+    for c, s, k in SUBSTRINGS:
+        ops[f"substring_{c}_{s}_{k}"] = (lambda c, s, k: lambda: strings.substring(col[c], s, k))(
+            c, s, k)
+    ops.update({
+        "concat": lambda: strings.concat([e, lst], b"|"),
+        "concat_ws": lambda: strings.concat_ws([e, m, lst], b"-"),
+        "contains_at": lambda: strings.contains(e, b"@"),
+        "startswith_https": lambda: strings.startswith(u, b"https"),
+        "endswith_com": lambda: strings.endswith(e, b".com"),
+        "strip_multi": lambda: strings.strip(m),
+        "instr_multi": lambda: strings.instr(m, INSTR_NEEDLE.encode()),
+        "utf8_roundtrip": lambda: _utf8_roundtrip(m),
+        "contains_re_digits": lambda: regex.contains_re(u, URL_DIGITS),
+        "matches_re_email": lambda: regex.matches_re(e, EMAIL_RE),
+    })
+    for g in (0, 1, 2):
+        ops[f"extract_re_{g}"] = (lambda g: lambda: regex.extract_re(e, EMAIL_GROUPS, g))(g)
+    for lim in SPLIT_LIMITS:
+        ops[f"split_re_{lim}"] = (lambda lim: lambda: regex.split_re(lst, ",", lim))(lim)
+    ops["replace_re_digits"] = lambda: regex.replace_re(u, r"\d+", b"#")
+    return ops
+
+
+def _sub_seq(s, start: int, slen):
+    """SUBSTRING's window over a sequence (bytes for the reference, str
+    for Spark): 1-based start, 0 as 1, a negative start from the end
+    spending its length budget off the string."""
+    b0 = start - 1 if start > 0 else (0 if start == 0 else len(s) + start)
+    e0 = len(s) if slen is None else b0 + max(slen, 0)
+    b, e = min(max(b0, 0), len(s)), min(max(e0, 0), len(s))
+    return s[b:e] if e > b else s[:0]
+
+
+_CASE_1TO1: dict = {}
+
+
+def _case_1to1(s: str, upper: bool) -> str:
+    """The reference's case map: Python's mapping where it is one BMP
+    character to one, the character itself elsewhere."""
+    out = []
+    for c in s:
+        key = (c, upper)
+        m = _CASE_1TO1.get(key)
+        if m is None:
+            m = c.upper() if upper else c.lower()
+            m = m if ord(c) < 0x10000 and len(m) == 1 and ord(m) < 0x10000 else c
+            _CASE_1TO1[key] = m
+        out.append(m)
+    return "".join(out)
+
+
+def _java_split(s: str, sep: str, limit: int) -> list:
+    """Java String.split for a separator that cannot match the empty
+    string (Spark's split)."""
+    toks = s.split(sep) if limit <= 0 else s.split(sep, limit - 1)
+    if limit == 0 and s:
+        while toks and toks[-1] == "":
+            toks.pop()
+    return toks
+
+
+def _host_rows(col):
+    """A port STRING column's rows as bytes, and its validity."""
+    offs = col.offsets.cpu().numpy().tolist()
+    chars = col.chars.cpu().numpy().tobytes()
+    return [chars[a:b] for a, b in zip(offs[:-1], offs[1:])], col.valid_mask().cpu().numpy()
+
+
+def _expect_rows(col, want, ok, what: str):
+    """A STRING column's validity exactly ``ok`` and its bytes ``want`` on
+    those rows."""
+    rows, got_ok = _host_rows(col)
+    if not np.array_equal(got_ok, ok):
+        bad = np.flatnonzero(got_ok != ok)
+        raise AssertionError(f"{what}: validity differs on {bad.size} rows, first {bad[:5]}")
+    bad = [i for i in np.flatnonzero(ok).tolist() if rows[i] != want[i]]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} rows differ, first {bad[:3]}: "
+                             f"{[(rows[i], want[i]) for i in bad[:3]]}")
+
+
+def _check_string_ops(h, out) -> dict:
+    """Every result against an independent per-row oracle on the host
+    (``str`` / ``bytes`` methods and ``re`` under re.ASCII, the
+    reference's ASCII \\d \\w \\s). Where the reference's semantics are
+    not Spark's (byte-counted length and substring, the 1:1 case map),
+    the rows whose Spark result differs are counted."""
+    import re
+
+    import torch
+
+    summary = {}
+    rows = {k: h[k][0] for k in ("email", "url", "multi", "list")}
+    ok = {k: h[k][1] for k in rows}
+    text = {k: [r.decode() for r in v] for k, v in rows.items()}
+
+    for c in ("email", "multi"):
+        _expect(out[f"length_{c}"], np.array([len(r) for r in rows[c]], np.int32), ok[c],
+                f"length({c})")
+    summary["length_multi_spark_differs"] = int(sum(
+        len(r) != len(s) for r, s, v in zip(rows["multi"], text["multi"], ok["multi"]) if v))
+    _expect_rows(out["upper_email"], [r.upper() for r in rows["email"]], ok["email"], "upper(email)")
+    _expect_rows(out["lower_url"], [r.lower() for r in rows["url"]], ok["url"], "lower(url)")
+    for fn in ("upper", "lower"):
+        _expect_rows(out[f"{fn}_multi"], [_case_1to1(s, fn == "upper").encode()
+                                          for s in text["multi"]], ok["multi"], f"{fn}(multi)")
+        summary[f"{fn}_multi_spark_differs"] = int(sum(
+            _case_1to1(s, fn == "upper") != getattr(s, fn)()
+            for s, v in zip(text["multi"], ok["multi"]) if v))
+    for c, s, k in SUBSTRINGS:
+        _expect_rows(out[f"substring_{c}_{s}_{k}"], [_sub_seq(r, s, k) for r in rows[c]], ok[c],
+                     f"substring({c}, {s}, {k})")
+    summary["substring_multi_spark_differs"] = int(sum(
+        _sub_seq(r, 2, 3) != _sub_seq(s, 2, 3).encode()
+        for r, s, v in zip(rows["multi"], text["multi"], ok["multi"]) if v))
+
+    _expect_rows(out["concat"], [a + b"|" + b for a, b in zip(rows["email"], rows["list"])],
+                 ok["email"] & ok["list"], "concat(email, list)")
+    ws = [b"-".join(p for p, v in zip(parts, vs) if v) for parts, vs in zip(
+        zip(rows["email"], rows["multi"], rows["list"]),
+        zip(ok["email"], ok["multi"], ok["list"]))]
+    _expect_rows(out["concat_ws"], ws, np.ones(h["n"], bool), "concat_ws(email, multi, list)")
+    for name, c, fn in (("contains_at", "email", lambda r: b"@" in r),
+                        ("startswith_https", "url", lambda r: r.startswith(b"https")),
+                        ("endswith_com", "email", lambda r: r.endswith(b".com"))):
+        _expect(out[name], np.array([fn(r) for r in rows[c]], np.uint8), ok[c], name)
+    _expect_rows(out["strip_multi"], [r.strip(b" ") for r in rows["multi"]], ok["multi"],
+                 "strip(multi)")
+    _expect(out["instr_multi"], np.array([s.find(INSTR_NEEDLE) + 1 for s in text["multi"]],
+                                         np.int32), ok["multi"], "instr(multi)")
+    summary["instr_multi_hits"] = int(sum(INSTR_NEEDLE in s for s in text["multi"]))
+
+    padded, lens, back, back_lens, cp_lens = out["utf8_roundtrip"]
+    if not (back.shape == padded.shape and torch.equal(back, padded)
+            and torch.equal(back_lens, lens)):
+        raise AssertionError("utf8 decode -> encode does not give back the padded bytes")
+    if not np.array_equal(cp_lens.cpu().numpy(), np.array([len(s) for s in text["multi"]])):
+        raise AssertionError("utf8 decode counts other codepoints than Python")
+
+    _expect(out["contains_re_digits"], np.array([re.search(URL_DIGITS, s, re.ASCII) is not None
+                                                 for s in text["url"]], np.uint8), ok["url"],
+            "contains_re(url)")
+    _expect(out["matches_re_email"], np.array([re.fullmatch(EMAIL_RE, s, re.ASCII) is not None
+                                               for s in text["email"]], np.uint8), ok["email"],
+            "matches_re(email)")
+    matches = [re.search(EMAIL_GROUPS, s, re.ASCII) for s in text["email"]]
+    for g in (0, 1, 2):
+        _expect_rows(out[f"extract_re_{g}"], [m.group(g).encode() if m else b"" for m in matches],
+                     ok["email"], f"extract_re(email, {g})")
+    summary["extract_re_matched"] = int(sum(m is not None for m in matches))
+    for lim in SPLIT_LIMITS:
+        toks = out[f"split_re_{lim}"]
+        want = [_java_split(s, ",", lim) for s in text["list"]]
+        k = max(1, max(len(w) for w, v in zip(want, ok["list"]) if v))
+        if len(toks) != k:
+            raise AssertionError(f"split_re(list, {lim}) gave {len(toks)} columns, Java {k}")
+        for j, tcol in enumerate(toks):
+            _expect_rows(tcol, [w[j].encode() if j < len(w) else b"" for w in want],
+                         ok["list"] & np.array([j < len(w) for w in want]),
+                         f"split_re(list, {lim}) token {j}")
+        summary[f"split_re_{lim}_columns"] = len(toks)
+    _expect_rows(out["replace_re_digits"], [re.sub(r"\d+", "#", s, flags=re.ASCII).encode()
+                                            for s in text["url"]], ok["url"], "replace_re(url)")
+    return summary
+
+
+def _capture_string_ops(run):
+    """Run ``run`` once (the spark_exact or the string_ops path) with
+    recorders standing in for B8's wrapper
+    (``ragged_bytes.extract_strings_many``), B5's
+    (``hopper_kernels.ragged_compact_many``) and the two string-tier
+    functions that call them (``strings.to_padded_many``,
+    ``strings.from_padded``), and restore them. The wrappers count through
+    their module-level names, so their launches land on the recorders'
+    counts. Returns (run's result, B8's calls, B5's calls, the predicted
+    launches: one B8 launch per padding call with a column that has
+    characters, one B5 launch per compaction of a nonzero total)."""
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+    from spark_rapids_jni_tpu_torch.ops import strings
+
+    b8, b5, pad_many, from_padded = (rb.extract_strings_many, hk.ragged_compact_many,
+                                     strings.to_padded_many, strings.from_padded)
+    seen8, seen5 = [], []
+    predicted = {"extract_strings_many": 0, "ragged_compact_many": 0}
+
+    def b8_recorder(*args):
+        seen8.append(args)
+        return b8(*args)
+
+    def b5_recorder(pool, columns, row_starts=None):
+        seen5.append((pool, columns))
+        return b5(pool, columns, row_starts=row_starts)
+
+    def pad_recorder(cols):
+        predicted["extract_strings_many"] += any(len(c) and c.chars.shape[0] for c in cols)
+        return pad_many(cols)
+
+    def compact_recorder(padded, lens, validity=None):
+        out = from_padded(padded, lens, validity)
+        predicted["ragged_compact_many"] += bool(out.chars.shape[0])
+        return out
+
+    b8_recorder.launches = b5_recorder.launches = 0
+    rb.extract_strings_many, hk.ragged_compact_many = b8_recorder, b5_recorder
+    strings.to_padded_many, strings.from_padded = pad_recorder, compact_recorder
+    try:
+        result = run()
+    finally:
+        rb.extract_strings_many, hk.ragged_compact_many = b8, b5
+        strings.to_padded_many, strings.from_padded = pad_many, from_padded
+    launches = {"extract_strings_many": b8_recorder.launches,
+                "ragged_compact_many": b5_recorder.launches}
+    return result, seen8, seen5, launches, predicted
+
+
+def _check_b8_calls(seen8, path: str) -> list:
+    """B8 against its plain version on every call ``path`` made, bit for
+    bit over the whole padded width (the bytes past each length too).
+    Returns the shapes checked."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+
+    shapes = []
+    for pools, starts, lens, widths in seen8:
+        got, want = rb.extract_strings_many(pools, starts, lens, widths), \
+            rb.extract_strings_many_plain(pools, starts, lens, widths)
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"extract_strings_many disagrees with its plain version on the "
+                                 f"{path} path's arguments (widths {list(widths)})")
+        shapes.append(f"{len(pools)} column(s), uint8 pool [{pools[0].shape[0]}], "
+                      f"{str(starts[0].dtype).replace('torch.', '')} [{starts[0].shape[0]}] "
+                      f"starts, widths {list(widths)}")
+    return shapes
+
+
+def _check_b5_calls(seen5, path: str) -> None:
+    """B5 against its plain version on every call ``path`` made, bit for
+    bit."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    for pool, columns in seen5:
+        got = hk.ragged_compact_many(pool, columns)
+        want = [hk.ragged_compact_plain(pool, b, o, t) for b, o, t in columns]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("ragged_compact_many disagrees with its plain version on the "
+                                 f"{path} path's arguments")
+
+
+def _string_ops_kernel_phase(seen8, seen5, rate: float):
+    """B8 and B5 timed on every call the path made (each checked against
+    its plain version before), at the path's shapes as the string path's
+    are (CUDA events around a call, B8 in turns with its library call, the
+    index built outside; B5's library with its index in the timed region),
+    summed over the path's launches: identical calls (the same column
+    padded again) are timed once and counted as often as they ran. The
+    device time of a part is its kernel's per-launch mean over a traced
+    replay of its call (``_traced_ms``) times its launches. Returns the
+    two kernels' entries."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+
+    groups8 = {}
+    for args in seen8:
+        key = tuple((p.data_ptr(), s.data_ptr(), w) for p, s, w in zip(args[0], args[1], args[3]))
+        groups8.setdefault(key, []).append(args)
+    parts8 = {}
+    for calls in groups8.values():
+        pools, starts, lens, widths = calls[0]
+        k, n = len(calls), starts[0].shape[0]
+        ext, idxs = [], []
+        for pool, st, ln, lc in zip(pools, starts, lens, widths):
+            plen = pool.shape[0]
+            span = torch.arange(lc, device=pool.device)
+            i = st.to(torch.int64)[:, None] + span
+            idxs.append(torch.where((span < ln.to(torch.int64)[:, None]) & (i < plen), i, plen))
+            ext.append(torch.cat([pool, pool.new_zeros(1)]))
+
+        def kernel(a=calls[0]):
+            return rb.extract_strings_many(*a)
+
+        def library(ext=ext, idxs=idxs):
+            return [e[i] for e, i in zip(ext, idxs)]
+
+        ms, lib_ms = _time_turns([kernel, library], reps=REPS)
+        str_bytes = sum(int(torch.clamp(ln.to(torch.int64), 0, lc).sum())
+                        for ln, lc in zip(lens, widths))
+        parts8[f"{len(pools)} column(s) uint8 [{n}, {'/'.join(map(str, widths))}] x{k}"] = dict(
+            launches=k, ms=k * ms, library_ms=k * lib_ms, host_us=_host_us(kernel, reps=10),
+            plain_ms=k * _time_ms(lambda a=calls[0]: rb.extract_strings_many_plain(*a),
+                                  reps=PLAIN_REPS, warm=1),
+            bound_ms=k * (str_bytes + sum(8 * n + n * lc for lc in widths)) / rate * 1e3,
+            **_traced_ms(kernel, "extract_strings_kernel", k))
+        del ext, idxs
+    parts5 = {}
+    for i, (pool, columns) in enumerate(seen5):
+        (base, offs, total), = columns
+        n = base.shape[0]
+
+        def library(pool=pool, base=base, offs=offs, total=total):
+            o = offs.to(torch.int64)
+            idx = torch.repeat_interleave(base - o[:-1], o[1:] - o[:-1], output_size=total)
+            return pool[idx + torch.arange(total, device=pool.device)]
+
+        parts5[f"call {i}: uint8 [{n}, {pool.shape[0] // max(n, 1)}] -> {total} B"] = dict(
+            launches=1, ms=_time_ms(lambda: hk.ragged_compact_many(pool, columns)),
+            host_us=_host_us(lambda: hk.ragged_compact_many(pool, columns), reps=10),
+            plain_ms=_time_ms(lambda: hk.ragged_compact_plain(pool, base, offs, total),
+                              reps=PLAIN_REPS, warm=1),
+            library_ms=_time_ms(library, reps=PLAIN_REPS, warm=1),
+            # the base and offsets read, the total's bytes read and written
+            bound_ms=(8 * n + 4 * (n + 1) + 2 * int(total)) / rate * 1e3,
+            **_traced_ms(lambda: hk.ragged_compact_many(pool, columns),
+                         "ragged_compact_rows_kernel", 1))
+    method = ("each part's per-launch device mean over the launches the tracer kept of a "
+              "replay of its call (device_traced of device_calls), times its launches")
+    return {
+        "extract_strings_many": _combine(
+            parts8, library="per column ext[idx] (the pool with a zero byte appended), index "
+                            "and copy built outside the timed region, in turns with the kernel",
+            device_ms_method=method),
+        "ragged_compact_many": _combine(
+            parts5, library="pool[repeat_interleave(base - offs[:-1], lens) + arange(total)], "
+                            "index built in the timed region",
+            device_ms_method=method),
+    }
+
+
+def _warm_and_profile(prefix: str, ops, stage, watch):
+    """Each of a path's operations warm (median of 3 host-clock runs, each
+    ending in a synchronize; peak device memory) and then profiled, with
+    ``watch`` as in ``_profile_phase``. ``stage`` holds the first runs.
+    Returns (warm ms by op with their sum, peak GiB by op, profiles)."""
+    import torch
+
+    warm, peak = {}, {}
+    for name, op in ops.items():
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        warm[f"{name}_ms"] = float(np.median(runs))
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{prefix} {name} (host clock, ms): first run {stage[name + '_ms']:.2f}; warm "
+              f"median of 3 {warm[name + '_ms']:.2f}; peak device memory {peak[name]:.2f} GiB",
+              flush=True)
+    warm["end_to_end_ms"] = sum(warm.values())
+    profiles = {}
+    for name, op in ops.items():
+        print(f"{prefix} profile of {name}:", flush=True)
+        profiles[name] = _profile_phase(op, top=4, watch=watch)
+    return warm, peak, profiles
+
+
 def _run_counted(wrappers, run):
     """Every launch counter to 0, ``run`` once, the counts back."""
     for w in wrappers.values():
@@ -2713,38 +3248,17 @@ def main() -> int:
           f"and uploaded in {time.perf_counter() - t_phase:.1f} s", flush=True)
     xops = _spark_exact_ops(xt)
     # the counted run records the arguments the casts hand B8's wrapper
-    # (the wrapper counts through its module-level name, so its launches
-    # land on the recorder's count while it stands in)
-    xseen, b8 = [], rb.extract_strings_many
-
-    def b8_recorder(*args):
-        xseen.append(args)
-        return b8(*args)
-
-    b8_recorder.launches = 0
-    rb.extract_strings_many = b8_recorder
-    try:
-        (xout, xstage), xlaunches = _run_counted(wrappers, lambda: _spark_exact_path(xops))
-    finally:
-        rb.extract_strings_many = b8
-    xlaunches["extract_strings_many"] += b8_recorder.launches
+    # (through strings.to_padded)
+    ((xout, xstage), xseen, _, rec, predicted), xlaunches = _run_counted(
+        wrappers, lambda: _capture_string_ops(lambda: _spark_exact_path(xops)))
+    xlaunches["extract_strings_many"] += rec["extract_strings_many"]
     print(f"spark_exact path launches: {xlaunches}", flush=True)
-    if len(xseen) != xlaunches["extract_strings_many"]:
+    if not len(xseen) == xlaunches["extract_strings_many"] == predicted["extract_strings_many"]:
         raise AssertionError(f"recorded {len(xseen)} extract_strings_many calls, counted "
-                             f"{xlaunches['extract_strings_many']} launches")
-    # B8 against its plain version on every call the casts made, bit for
-    # bit over the whole padded width (the bytes past each length too)
-    xb8_shapes = []
-    for pools, starts, lens, widths in xseen:
-        got, want = b8(pools, starts, lens, widths), rb.extract_strings_many_plain(
-            pools, starts, lens, widths)
-        if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("extract_strings_many disagrees with its plain version on the "
-                                 f"spark_exact path's arguments (widths {list(widths)})")
-        xb8_shapes.append(f"{len(pools)} column(s), uint8 pool [{pools[0].shape[0]}], "
-                          f"{str(starts[0].dtype).replace('torch.', '')} [{starts[0].shape[0]}] "
-                          f"starts, widths {list(widths)}")
-    del xseen, got, want
+                             f"{xlaunches['extract_strings_many']} launches, predicted "
+                             f"{predicted['extract_strings_many']}")
+    xb8_shapes = _check_b8_calls(xseen, "spark_exact")
+    del xseen
     print(f"spark_exact: extract_strings_many equals its plain version bit for bit on all "
           f"{len(xb8_shapes)} of the path's calls: {xb8_shapes}", flush=True)
     if xlaunches["extract_strings_many"] < 2:
@@ -2760,28 +3274,8 @@ def main() -> int:
           f"arithmetic, Delta's interleaveBits; the ANSI cast raised CastError on row "
           f"{xcheck['ansi_row']} '12x4'): {xcheck}", flush=True)
     del xout
-    xwarm, xpeak = {}, {}
-    for name, op in xops.items():
-        torch.cuda.reset_peak_memory_stats()
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            op()
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
-        xwarm[f"{name}_ms"] = float(np.median(runs))
-        xpeak[name] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"spark_exact {name} (host clock, ms): first run {xstage[name + '_ms']:.2f}; warm "
-              f"median of 3 {xwarm[name + '_ms']:.2f}; peak device memory {xpeak[name]:.2f} GiB",
-              flush=True)
-    xwarm["end_to_end_ms"] = sum(xwarm.values())
-    xprofiles = {}
-    for name, op in xops.items():
-        print(f"spark_exact profile of {name}:", flush=True)
-        xprofiles[name] = _profile_phase(
-            op, top=4, watch={"extract_strings_kernel": rb.extract_strings_many}
-            if name.startswith("to_") else None)
+    xwarm, xpeak, xprofiles = _warm_and_profile(
+        "spark_exact", xops, xstage, {"extract_strings_kernel": rb.extract_strings_many})
     xwall = time.perf_counter() - t_phase
     print(f"spark_exact phase: {xwall:.1f} s wall (input, counted run, checks, warm runs, "
           f"profiles)", flush=True)
@@ -2790,6 +3284,60 @@ def main() -> int:
                             "extract_strings_checked": xb8_shapes,
                             "phase_wall_s": xwall, "launches": xlaunches, "profile": xprofiles}
     del xh, xt, xops
+    torch.cuda.empty_cache()
+
+    # -- the string_ops path: the string and regex tier ----------------------
+    t_phase = time.perf_counter()
+    sh, st = _string_ops_inputs(SEED + 11)
+    torch.cuda.synchronize()
+    print(f"string_ops input: {SOPS_ROWS} rows x 4 STRING columns (" + ", ".join(
+        f"{k} {int(st.column(k).offsets[-1])} B" for k in ("email", "url", "multi", "list"))
+        + f"; {SOPS_NULLS:.0%} nulls each), made and uploaded in "
+        f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    sops = _string_ops(st)
+    ((sout, sostage), seen8, seen5, rec, predicted), solaunches = _run_counted(
+        wrappers, lambda: _capture_string_ops(lambda: _spark_exact_path(sops)))
+    for k, v in rec.items():
+        solaunches[k] += v
+    print(f"string_ops path launches: {solaunches}; predicted by the calls: {predicted}",
+          flush=True)
+    for k, v in predicted.items():
+        if solaunches[k] != v or len(seen8 if k == "extract_strings_many" else seen5) != v:
+            raise AssertionError(f"the string_ops path launched {k} {solaunches[k]} times "
+                                 f"({len(seen8)} / {len(seen5)} calls recorded), not {v}")
+    others = {k: v for k, v in solaunches.items() if k not in predicted and v}
+    if others:
+        raise AssertionError(f"the string_ops path launched kernels it does not run: {others}")
+    t0 = time.perf_counter()
+    socheck = _check_string_ops(sh, sout)
+    print(f"string_ops path checked against the per-row oracles (bytes / str methods, re under "
+          f"re.ASCII, Java's split) in {time.perf_counter() - t0:.1f} s: {socheck}", flush=True)
+    print(f"string_ops rows where Spark's semantics differ from the reference's: length(multi) "
+          f"{socheck['length_multi_spark_differs']}, substring(multi, 2, 3) "
+          f"{socheck['substring_multi_spark_differs']} (bytes against characters), upper(multi) "
+          f"{socheck['upper_multi_spark_differs']}, lower(multi) "
+          f"{socheck['lower_multi_spark_differs']} (the 1:1 case map)", flush=True)
+    del sout
+    _check_b8_calls(seen8, "string_ops")
+    _check_b5_calls(seen5, "string_ops")
+    print(f"string_ops: extract_strings_many equals its plain version bit for bit on all "
+          f"{len(seen8)} calls, ragged_compact_many on all {len(seen5)}", flush=True)
+    sok = _string_ops_kernel_phase(seen8, seen5, rate)
+    del seen8, seen5
+    _print_kernels({f"{k} (string_ops)": r for k, r in sok.items()})
+    sowarm, sopeak, soprofiles = _warm_and_profile(
+        "string_ops", sops, sostage, {"extract_strings_kernel": rb.extract_strings_many,
+                                      "ragged_compact_rows_kernel": hk.ragged_compact_many})
+    for k in sok:
+        skernels[k]["string_ops"] = sok[k]
+    sowall = time.perf_counter() - t_phase
+    print(f"string_ops phase: {sowall:.1f} s wall (input, counted run, checks, kernel checks, "
+          f"warm runs, profiles)", flush=True)
+    paths["string_ops"] = {**sostage, "warm": sowarm, "warm_end_to_end_ms": sowarm["end_to_end_ms"],
+                           "rows": SOPS_ROWS, **socheck, "peak_gib": sopeak,
+                           "predicted_launches": predicted, "phase_wall_s": sowall,
+                           "launches": solaunches, "profile": soprofiles}
+    del sh, st, sops
     torch.cuda.empty_cache()
 
     # rows_to_planes runs on both transcode paths: its entry sums the two
@@ -2829,14 +3377,15 @@ def main() -> int:
          "launches": timed_on[k],
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
-                              "tpcds": dlaunches[k], "spark_exact": xlaunches[k]},
+                              "tpcds": dlaunches[k], "spark_exact": xlaunches[k],
+                              "string_ops": solaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{x: r[x] for x in ("library", "parts", "device_ms", "host_us", "library_host_us",
                               "max_abs_err_vs_b3", "layouts_ms", "function_level",
                               "bound_ms_int64_base", "device_call_ms", "activities_per_call",
-                              "one_call_activities", "join_keys") if x in r}}
+                              "one_call_activities", "join_keys", "string_ops") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
     print(json.dumps(line), flush=True)

@@ -37,7 +37,9 @@ from ..columnar import Column
 from ..columnar.dtype import TypeId, decimal32, decimal64, decimal128
 from . import limbs as L
 from .cast_string import CastError  # noqa: F401  (raised here in ANSI mode; re-exported)
-from .cast_string import _first_index, _leading, _padded_chars, _validate_ansi
+from .cast_string import _first_index, _leading, _validate_ansi
+from .rowscan import cumsum_rows
+from .strings import to_padded
 from .uword import join_u64, to_signed_bits
 
 __all__ = ["string_to_decimal"]
@@ -143,13 +145,13 @@ def _parse_decimal(chars: torch.Tensor, lens: torch.Tensor, in_valid: torch.Tens
     dmask = in_run & digit & (last_digit >= 0)[:, None]  # :453's loop guard
 
     dm = dmask.to(torch.int64)
-    td = _cumcount(dmask)  # total_digits including the current one
+    td = cumsum_rows(dmask)  # total_digits including the current one
     nonzero = chars != ord("0")
     sig_seed = dmask & (nonzero | (td > decimal_location[:, None]))
-    found_prior = _cumcount(sig_seed) - sig_seed.to(torch.int64) > 0
+    found_prior = cumsum_rows(sig_seed) - sig_seed.to(torch.int64) > 0
     sig = dmask & (found_prior | nonzero | (td > decimal_location[:, None]))
     sg = sig.to(torch.int64)
-    np_ = _cumcount(sig)  # num_precise_digits including the current one
+    np_ = cumsum_rows(sig)  # num_precise_digits including the current one
 
     cutoff = dmask & ((np_ - sg + 1 > precision) | (td - dm + 1 > last_digit[:, None]))
     cut_pos = _first_index(cutoff, torch.full_like(lens, max_len))
@@ -183,9 +185,9 @@ def _parse_decimal(chars: torch.Tensor, lens: torch.Tensor, in_valid: torch.Tens
     # --- significant digits before the decimal in the string (:411-433) ---
     e_pos = _first_index(after_start & is_e, lens)
     count_region = after_start & ~isdot & (j_idx < e_pos[:, None])
-    df = _cumcount(count_region)  # digits_found including the current one
+    df = cumsum_rows(count_region)  # digits_found including the current one
     counted = count_region & (df <= decimal_location[:, None])
-    started = _cumcount(counted & nonzero) > 0
+    started = cumsum_rows(counted & nonzero) > 0
     sig_in_string = (counted & started).sum(1)
 
     # --- zero padding to the decimal location (:527-539) ------------------
@@ -206,17 +208,6 @@ def _parse_decimal(chars: torch.Tensor, lens: torch.Tensor, in_valid: torch.Tens
     valid = valid & ~ovf2
 
     return acc, positive, valid
-
-
-def _cumcount(mask: torch.Tensor) -> torch.Tensor:
-    """The running count of a [N, L] bool mask along the char axis, as
-    int64: one matmul with an upper-triangular matrix of ones, exact in
-    float32 (every count is at most L). A cumulative sum along the
-    innermost axis of a million rows is a scan that costs the card
-    ~6.5 ms (PERF.md section 6)."""
-    L = mask.shape[1]
-    ones = torch.ones((L, L), dtype=torch.float32, device=mask.device).triu()
-    return (mask.to(torch.float32) @ ones).to(torch.int64)
 
 
 def _mul_pow10_checked(acc: torch.Tensor, k: torch.Tensor,
@@ -254,7 +245,8 @@ def string_to_decimal(col: Column, ansi_mode: bool, precision: int, scale: int) 
         return Column(out_dtype, data=torch.zeros(shape, dtype=out_dtype.torch_dtype,
                                                   device=col.device))
 
-    chars, lens, max_len = _padded_chars(col)
+    chars, lens = to_padded(col)
+    max_len = chars.shape[1]
     pos_limit, neg_limit = _LIMITS[out_dtype.id]
     acc, positive, valid = _parse_decimal(
         chars, lens, col.valid_mask(), max_len, precision, scale, pos_limit, neg_limit)

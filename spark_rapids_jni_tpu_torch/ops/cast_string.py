@@ -19,8 +19,8 @@ Behavioral parity with the reference's cast_string.cu:
   (validate_ansi_column, :594-627).
 
 Strings are padded into an [N, L] byte matrix (L = the longest string of
-the batch) by ``ragged_bytes.extract_strings_many``, B8's kernel on the
-card, and a Python loop walks the L character columns once, carrying the
+the batch) by ``strings.to_padded`` (B8's ``extract_strings_many`` on the
+card), and a Python loop walks the L character columns once, carrying the
 whole column's parser state as tensors; all control flow is
 ``torch.where``.
 """
@@ -28,13 +28,13 @@ whole column's parser state as tensors; all control flow is
 from __future__ import annotations
 
 import operator
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from ..columnar import Column
 from ..columnar.dtype import DType, TypeId
-from . import ragged_bytes
+from .strings import to_padded
 from .uword import SIGN64, to_signed_bits, u64_bits, ucmp64
 
 __all__ = ["CastError", "string_to_integer", "string_to_decimal"]
@@ -69,18 +69,6 @@ def _is_ws(c: torch.Tensor) -> torch.Tensor:
     for w in _WS[1:]:
         r = r | (c == w)
     return r
-
-
-def _padded_chars(col: Column) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """[N, L] uint8 padded char matrix (pad byte 0) + [N] lengths: one
-    column through ``extract_strings_many`` (B8's kernel on CUDA tensors,
-    its plain version on CPU tensors) at L rounded up to 4, sliced to L."""
-    offs = col.offsets
-    lens = offs[1:] - offs[:-1]
-    max_len = max(col.max_char_len, 1)
-    width = (max_len + 3) // 4 * 4
-    chars = ragged_bytes.extract_strings_many([col.chars], [offs[:-1]], [lens], [width])[0]
-    return chars[:, :max_len], lens, max_len
 
 
 def _first_index(mask: torch.Tensor, default: torch.Tensor) -> torch.Tensor:
@@ -190,7 +178,8 @@ def string_to_integer(col: Column, ansi_mode: bool, out_dtype: DType) -> Column:
         return Column(out_dtype, data=torch.zeros((0,), dtype=out_dtype.torch_dtype,
                                                   device=col.device))
 
-    chars, lens, max_len = _padded_chars(col)
+    chars, lens = to_padded(col)
+    max_len = chars.shape[1]
     max_mag, neg_mag = _INT_LIMITS[out_dtype.id]
     acc, negative, valid = _parse_integer(
         chars, lens, col.valid_mask(), out_dtype.is_signed, max_mag, neg_mag, bool(ansi_mode),

@@ -1212,15 +1212,16 @@ def _string_column(strings, valid, dev):
     ["x" * 37, "", "yy", "-12.5e3", "\t9\n"] * 1000,
 ])
 def test_padded_chars_kernel_matches_plain(strings):
-    from spark_rapids_jni_tpu_torch.ops import cast_string
+    from spark_rapids_jni_tpu_torch.ops.strings import to_padded
 
     valid = [i % 3 != 1 for i in range(len(strings))]
     before = rb.extract_strings_many.launches
-    got, glens, gml = cast_string._padded_chars(_string_column(strings, valid, "cuda"))
+    got, glens = to_padded(_string_column(strings, valid, "cuda"))
     torch.cuda.synchronize()
-    assert rb.extract_strings_many.launches == before + 1
-    want, wlens, wml = cast_string._padded_chars(_string_column(strings, valid, "cpu"))
-    assert gml == wml and got.shape == want.shape
+    # a column without characters is padded without a gather
+    assert rb.extract_strings_many.launches == before + (1 if any(strings) else 0)
+    want, wlens = to_padded(_string_column(strings, valid, "cpu"))
+    assert got.shape == want.shape
     assert torch.equal(got.cpu(), want) and torch.equal(glens.cpu(), wlens)
 
 
@@ -1356,3 +1357,91 @@ def test_unsigned_expressions_on_the_card_match_the_cpu(rng):
         assert g.dtype == w.dtype and torch.equal(g.data.cpu(), w.data)
         assert (g.validity is None) == (w.validity is None)
         assert g.validity is None or torch.equal(g.validity.cpu(), w.validity)
+
+
+# -- the string and regex tier (ops/utf8, ops/strings, ops/regex) ----------
+# chip_smoke.py's string_ops operations on a small table of its columns
+# (emails, URLs, multilingual text, comma lists), on the card and on the CPU
+
+STRING_OPS = [
+    "length_email", "length_multi", "upper_email", "lower_url", "upper_multi", "lower_multi",
+    "substring_email_3_5", "substring_url_0_12", "substring_email_-6_4", "substring_multi_2_3",
+    "concat", "concat_ws", "contains_at", "startswith_https", "endswith_com", "strip_multi",
+    "instr_multi", "utf8_roundtrip", "contains_re_digits", "matches_re_email", "extract_re_0",
+    "extract_re_1", "extract_re_2", "split_re_-1", "split_re_3", "split_re_0", "replace_re_digits",
+]
+
+
+@pytest.fixture(scope="module")
+def string_ops_tables():
+    import chip_smoke
+
+    return {dev: chip_smoke._string_ops_inputs(20261017, 6000, device=dev)[1]
+            for dev in ("cpu", "cuda")}
+
+
+def _same_string_result(got, want):
+    if isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_string_result(g, w)
+        return
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+        return
+    assert got.dtype == want.dtype and len(got) == len(want)
+    for part in ("data", "offsets", "chars", "validity"):
+        g, w = getattr(got, part), getattr(want, part)
+        assert (g is None) == (w is None), part
+        assert g is None or torch.equal(g.cpu(), w), part
+
+
+@pytest.mark.parametrize("name", STRING_OPS)
+def test_string_op_on_the_card_matches_the_cpu(string_ops_tables, name):
+    import chip_smoke
+
+    ops = {dev: chip_smoke._string_ops(t) for dev, t in string_ops_tables.items()}
+    assert sorted(ops["cuda"]) == sorted(STRING_OPS)
+    got, _, _, launches, predicted = chip_smoke._capture_string_ops(ops["cuda"][name])
+    torch.cuda.synchronize()
+    assert launches == predicted  # one B8 launch a padding call, one B5 a nonzero compaction
+    _same_string_result(got, ops["cpu"][name]())
+
+
+@pytest.mark.parametrize("values", [[], [None, None], ["", ""], ["ab", None, "", "日本"]])
+def test_string_edges_on_the_card_match_the_cpu(values):
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.ops import regex, strings
+
+    cols = {dev: Column.from_pylist(values, pdt.STRING, device=dev) for dev in ("cpu", "cuda")}
+    calls = [lambda c: strings.upper(c), lambda c: strings.substring(c, 2, 1),
+             lambda c: strings.concat([c, c], b","), lambda c: strings.instr(c, b"b"),
+             lambda c: regex.extract_re(c, r"(\w)", 1), lambda c: regex.split_re(c, "b", 0),
+             lambda c: regex.replace_re(c, r"\w", b"__")]
+    for call in calls:
+        _same_string_result(call(cols["cuda"]), call(cols["cpu"]))
+
+
+@pytest.mark.parametrize("extra", [0, 1, 3])
+def test_utf8_codec_on_the_card_matches_the_cpu(rng, extra):
+    from spark_rapids_jni_tpu_torch.ops import utf8
+
+    n, L = 3000, 21 + extra  # widths that are not a multiple of 4
+    mat = rng.integers(0, 256, (n, L), dtype=np.uint8)  # malformed UTF-8 almost everywhere
+    lens = rng.integers(0, L + 1, n).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cp, cp_lens, byte_off = utf8.decode_padded(torch.from_numpy(mat).to(dev),
+                                                   torch.from_numpy(lens).to(dev))
+        out[dev] = (cp, cp_lens, byte_off, *utf8.encode_padded(cp, cp_lens))
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_regex_device_tables_are_cached_per_device():
+    from spark_rapids_jni_tpu_torch.ops import regex
+
+    prog = regex.compile_pattern(r"[\w.]+@\w+")
+    tables = prog.device_tables("cuda")
+    assert prog.device_tables(torch.device("cuda")) is tables
+    assert all(t.is_cuda for t in tables) and prog.device_tables("cpu")[0].device.type == "cpu"
