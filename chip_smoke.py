@@ -136,7 +136,29 @@ checkout (one nvcc per source, all at once), then on one card:
    and substring, the 1:1 case map) are counted; per operation first-run
    and warm median-of-3 host ms, peak memory and a profile; B8 and B5
    timed at the path's shapes;
-10. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+10. the IO path, a Spark scan: TPC-H SF1's lineitem (6,001,215 rows, not
+   cut: ``gen_lineitem``'s seven columns and the specification's
+   ``l_shipmode`` and ``l_comment``, made from the seed) written by the
+   harness writers of ``tests/torch_io_writers.py`` as Parquet the way
+   Spark's default write lays it out (128 MB row groups, ~1 MB v1 pages,
+   dictionary where the distinct values fit 1 MB, SNAPPY with
+   literal-only blocks, and once UNCOMPRESSED) and as ZLIB ORC (64 MB
+   stripes), and a nested Parquet file of 1,000,000 rows (LIST<INT64> of
+   0-8 elements, STRUCT<INT32, STRING>, 5% nulls at each level). Each
+   file goes through ``parquet_footer.read_and_filter`` for every 128 MB
+   split (the kept row groups must be those whose midpoint falls in the
+   split, their rows summing to the file's), ``read_table`` onto the
+   card (every column bit for bit the source arrays), and for lineitem
+   ``convert_to_rows`` (the blob byte-identical to the rows of the same
+   arrays uploaded directly; the counted run launches
+   ``extract_strings_many``, ``var_accumulate`` and ``assemble_rows``
+   once each and no other kernel, each call held bit for bit against its
+   plain version) and ``frames.encode_table`` -> ``decode_table`` with
+   checks on and off (bit-identical; one flipped payload byte raises
+   ``DataCorruption``). Per file and stage: first-run and warm median-of-3
+   host ms, GB/s, H2D copies and bytes, peak memory and a profile, and the
+   native codec calls (the card host has no pyarrow);
+11. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -300,12 +322,19 @@ def _traced_ms(fn, kernel: str, launches: int, reps: int = 20) -> dict:
     """The device time of ``launches`` launches that each do what one call
     of ``fn`` does: the per-launch mean over the launches named like
     ``kernel`` that the tracer kept in ``reps`` calls, times ``launches``,
-    with how many it kept beside. Raises when it kept none."""
-    us = [t for name, t in _device_activities(fn, reps) if kernel in name]
+    with how many it kept beside. The tracer has kept none of a replay's
+    launches on occasion (all 20 of a B5 replay once), so a replay that keeps none is
+    traced again, twice at most; raises when three kept none (a wrong
+    name, or a kernel that did not run)."""
+    for attempt in range(1, 4):
+        us = [t for name, t in _device_activities(fn, reps) if kernel in name]
+        if us:
+            break
+        print(f"traced replay {attempt} kept no launch named like {kernel!r}", flush=True)
     if not us:
         raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r}")
     return dict(device_ms=launches * float(np.mean(us)) / 1e3, device_traced=len(us),
-                device_calls=reps)
+                device_calls=reps, device_traces=attempt)
 
 
 def _device_ms(fn, kernel: str, reps: int = 20) -> float:
@@ -473,10 +502,11 @@ def _build_phase():
 
     t0 = time.perf_counter()
     _build.build_all()
-    for name in _build.SOURCES:
+    for name in [*_build.SOURCES, *_build.HOST_SOURCES]:
         _build.library(name)
-    print(f"build: {len(_build.SOURCES)} kernel libraries in {time.perf_counter() - t0:.1f} s "
-          f"({_build.BUILD_DIR})", flush=True)
+    print(f"build: {len(_build.SOURCES)} kernel libraries and {len(_build.HOST_SOURCES)} host "
+          f"library ({', '.join(_build.HOST_SOURCES)}; zstd linked: {_build.zstd_probe()[0]}) in "
+          f"{time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})", flush=True)
 
 
 def _kernel_phase(table, layout, rate: float):
@@ -2828,6 +2858,481 @@ def _string_ops_kernel_phase(seen8, seen5, rate: float):
     }
 
 
+# ---------------------------------------------------------------------------
+# the io path: Parquet and ORC bytes -> footer filter -> device Table -> rows
+# ---------------------------------------------------------------------------
+
+IO_ROWS = LINEITEM_ROWS  # TPC-H SF1's lineitem, not cut
+IO_NESTED_ROWS = 1_000_000
+IO_SPLIT = 128 << 20  # spark.sql.files.maxPartitionBytes
+IO_KERNELS = ("extract_strings_many", "var_accumulate", "assemble_rows")
+IO_SIZES = {}  # writer sizes (row groups, pages, stripes): the writers' defaults
+IO_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+
+
+def _io_writers():
+    """The harness writers (``tests/torch_io_writers.py``, no jax)."""
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent / "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_io_writers
+
+    return torch_io_writers
+
+
+def _io_inputs(seed: int):
+    """The lineitem columns (``IO_ROWS``), the nested data
+    (``IO_NESTED_ROWS``) and the files written from them: {name: (bytes,
+    format, row group spans or None)}."""
+    w = _io_writers()
+    rows, nested_rows = IO_ROWS, IO_NESTED_ROWS
+    pq_sizes = {k: v for k, v in IO_SIZES.items() if k in ("row_group_bytes", "page_bytes",
+                                                           "dict_bytes")}
+    cols = w.lineitem_columns(rows, seed)
+    files = {}
+    for codec in ("snappy", None):
+        spans = []
+        buf = w.write_parquet(cols, codec, spans=spans, **pq_sizes)
+        files[f"lineitem.parquet.{codec or 'uncompressed'}"] = (buf, "parquet", spans)
+    files["lineitem.orc.zlib"] = (w.write_orc(cols, **{k: v for k, v in IO_SIZES.items()
+                                                       if k in ("stripe_bytes", "block")}),
+                                  "orc", None)
+    nd = w.nested_data(nested_rows, seed + 1)
+    files["nested.parquet.snappy"] = (
+        w.write_parquet_nested(nd, "snappy", **{k: v for k, v in IO_SIZES.items()
+                                                if k == "rows_per_page"}), "parquet", None)
+    return cols, nd, files
+
+
+def _io_read_schema(name: str, cols):
+    """Spark's read schema for the footer filter: every column."""
+    from spark_rapids_jni_tpu_torch.io.parquet_footer import (ListElement, StructElement,
+                                                              ValueElement)
+
+    if name.startswith("nested"):
+        return (StructElement().add_child("l", ListElement(ValueElement()))
+                .add_child("s", StructElement().add_child("a", ValueElement())
+                           .add_child("b", ValueElement())))
+    root = StructElement()
+    for c in cols:
+        root.add_child(c.name, ValueElement())
+    return root
+
+
+def _io_footers(buf, schema):
+    from spark_rapids_jni_tpu_torch.io import parquet_footer as pf
+
+    return [pf.read_and_filter(buf, off, IO_SPLIT, schema) for off in range(0, len(buf), IO_SPLIT)]
+
+
+def _check_footers(footers, spans, rows: int, ncols: int) -> list:
+    """Each split keeps the row groups whose midpoint falls in it (by the
+    writer's own spans when it gave them), all with the read schema's
+    columns, and the splits' rows sum to the file's. Returns the groups
+    kept a split."""
+    kept = []
+    for i, f in enumerate(footers):
+        off = i * IO_SPLIT
+        groups = f._meta.get(4).values if f._meta.get(4) is not None else []
+        kept.append(len(groups))
+        if spans is not None:
+            want = [r for start, size, r in spans if off <= start + size // 2 < off + IO_SPLIT]
+            if len(groups) != len(want) or f.get_num_rows() != sum(want):
+                raise AssertionError(f"split {i} kept {len(groups)} groups / {f.get_num_rows()} "
+                                     f"rows, the midpoints say {len(want)} / {sum(want)}")
+        if f.get_num_columns() != ncols:
+            raise AssertionError(f"split {i} has {f.get_num_columns()} columns, not {ncols}")
+    if sum(f.get_num_rows() for f in footers) != rows:
+        raise AssertionError("the splits' rows do not sum to the file's")
+    return kept
+
+
+def _io_expected(cols, fmt: str, pdt):
+    """(dtype, host data) of each lineitem column as the reader of ``fmt``
+    gives it: FLOAT64 as bits; parquet widens INT8 (physical INT32) to
+    INT32; dates INT32 in both."""
+    kinds = {"double": pdt.FLOAT64, "date": pdt.INT32, "string": pdt.STRING,
+             "int8": pdt.INT32 if fmt == "parquet" else pdt.INT8}
+    out = []
+    for c in cols:
+        d = kinds[c.kind]
+        out.append((d, c.values if c.kind == "string" else
+                    np.asarray(c.values).astype(d.np_dtype) if c.kind != "double" else
+                    np.asarray(c.values).view(np.uint64)))
+    return out
+
+
+def _check_flat_read(table, expected, names) -> None:
+    """Every column bit for bit the source: dtype, no validity, data bits;
+    STRING offsets and chars."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+
+    if table.names != list(names) or table.num_columns != len(expected):
+        raise AssertionError(f"read {table.names}, not {list(names)}")
+    for nm, col, (d, want) in zip(names, table.columns, expected):
+        if col.dtype != d or col.validity is not None:
+            raise AssertionError(f"{nm}: read {col.dtype!r} (validity "
+                                 f"{col.validity is not None}), not {d!r} without nulls")
+        if d == pdt.STRING:
+            if not (np.array_equal(col.offsets.cpu().numpy(), want[0])
+                    and np.array_equal(col.chars.cpu().numpy(), want[1])):
+                raise AssertionError(f"{nm}: offsets or chars differ from the source")
+        elif not np.array_equal(col.to_numpy(), want):
+            raise AssertionError(f"{nm}: data differs from the source")
+
+
+def _check_nested_read(table, nd) -> None:
+    """The nested file's columns bit for bit the source: LIST validity,
+    offsets, INT64 child data and validity; STRUCT validity, the INT32
+    child and the STRING child (validity, offsets, chars)."""
+    def mask(col, want, what):
+        got = np.ones(len(want), bool) if col.validity is None else col.validity.cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"nested {what}: validity differs from the source")
+
+    lst, st = table.column("l"), table.column("s")
+    mask(lst, nd.list_valid, "l")
+    elem = lst.child
+    mask(elem, nd.elem_valid, "l.element")
+    if not (np.array_equal(lst.offsets.cpu().numpy(), nd.list_offsets)
+            and np.array_equal(elem.to_numpy(), nd.elem_values)):
+        raise AssertionError("nested l: offsets or element values differ from the source")
+    mask(st, nd.struct_valid, "s")
+    a, b = st.children
+    mask(a, nd.a_valid, "s.a")
+    mask(b, nd.b_valid, "s.b")
+    if not (np.array_equal(a.to_numpy(), nd.a_values)
+            and np.array_equal(b.offsets.cpu().numpy(), nd.b_offsets)
+            and np.array_equal(b.chars.cpu().numpy(), nd.b_chars)):
+        raise AssertionError("nested s: a, or b's offsets or chars, differ from the source")
+
+
+def _table_bytes(table) -> int:
+    """Decoded bytes of a table: every data, offsets, chars and validity
+    buffer, children included."""
+    def col_bytes(c):
+        n = 0
+        for t in (c.data, c.validity, c.offsets, c.chars):
+            if t is not None:
+                n += t.numel() * t.element_size()
+        kids = ([c.child] if c.child is not None else []) + list(c.children or ())
+        return n + sum(col_bytes(k) for k in kids)
+
+    return sum(col_bytes(c) for c in table.columns)
+
+
+def _io_direct_rows(expected, names, device):
+    """convert_to_rows of the source arrays uploaded directly, the oracle of
+    the read table's rows."""
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+
+    cols = [Column.strings_from_parts(*want, device=device) if d == pdt.STRING
+            else Column.from_numpy(want.view(np.float64) if d == pdt.FLOAT64 else want, d,
+                                   device=device)
+            for d, want in expected]
+    return rc.convert_to_rows(Table(cols, names))
+
+
+def _same_columns(a, b) -> bool:
+    import torch
+
+    def same(x, y):
+        if (x is None) != (y is None):
+            return False
+        return x is None or (x.dtype == y.dtype and torch.equal(x, y))
+
+    return all(ca.dtype == cb.dtype and all(same(getattr(ca, f), getattr(cb, f)) for f in
+                                            ("data", "validity", "offsets", "chars"))
+               for ca, cb in zip(a.columns, b.columns)) and a.num_columns == b.num_columns
+
+
+def _io_path(buf, fmt: str, schema, lineitem: bool):
+    """One file through the path: the footer filter for every split
+    (parquet), read_table onto the card, and for lineitem convert_to_rows
+    and the frames with checks on and off. Returns (footers, table, rows,
+    frames {checked: (bytes, decoded table)}, host ms by stage)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.io import orc_reader, parquet_reader
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_jni_tpu_torch.utils import integrity
+
+    stage = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    footers = timed("footer", lambda: _io_footers(buf, schema)) if fmt == "parquet" else None
+    reader = parquet_reader if fmt == "parquet" else orc_reader
+    table = timed("read", lambda: reader.read_table(buf, device=IO_DEVICE))
+    rows, fr = None, {}
+    if lineitem:
+        rows = timed("to_rows", lambda: rc.convert_to_rows(table))
+        for checked in (True, False):
+            with (integrity.enabled() if checked else integrity.disabled()):
+                sfx = "" if checked else "_unchecked"
+                enc = timed("frame_encode" + sfx, lambda: frames.encode_table(table))
+                fr[checked] = (enc, timed("frame_decode" + sfx,
+                                          lambda: frames.decode_table(enc, device=IO_DEVICE)))
+    stage["end_to_end_ms"] = sum(stage.values())
+    return footers, table, rows, fr, stage
+
+
+def _check_io_frames(table, fr) -> dict:
+    """The frames decode to the read table bit for bit, checked and not;
+    with checks on, one flipped payload byte raises DataCorruption."""
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.utils import integrity
+    from spark_rapids_jni_tpu_torch.utils.errors import DataCorruption
+
+    for checked, (enc, dec) in fr.items():
+        if not _same_columns(dec, table):
+            raise AssertionError(f"the frame (checks {'on' if checked else 'off'}) decodes to "
+                                 "another table")
+    enc = fr[True][0]
+    bad = bytearray(enc)
+    bad[len(bad) // 2] ^= 0x10  # a payload byte (the header is a few hundred bytes)
+    with integrity.enabled():
+        try:
+            frames.decode_table(bytes(bad), device=IO_DEVICE)
+        except DataCorruption:
+            pass
+        else:
+            raise AssertionError("a flipped payload byte decoded without DataCorruption")
+    return {"frame_bytes": len(enc), "frame_bytes_unchecked": len(fr[False][0]),
+            "crc": integrity.checksum_name()}
+
+
+def _io_capture(run):
+    """``run`` once under ``_capture_string_kernels``: (its result, the
+    string kernels' recorded calls)."""
+    box = []
+    seen = _capture_string_kernels(lambda: box.append(run()))
+    return box[0], seen
+
+
+def _check_io_calls(seen) -> dict:
+    """B8, B9 and B10 against their plain versions, bit for bit, on every
+    call the counted run made; no decode kernel called."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+
+    plains = {"extract_strings_many": rb.extract_strings_many_plain,
+              "var_accumulate": rb.var_accumulate_plain, "assemble_rows": rb.assemble_rows_plain}
+    shapes = {}
+    for k, plain in plains.items():
+        for fn, args, kwargs in seen[k]:
+            got, want = fn(*args, **kwargs), plain(*args, **kwargs)
+            if isinstance(got, list):
+                ok = len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+            else:
+                ok = torch.equal(got, want)
+            if not ok:
+                raise AssertionError(f"{k} disagrees with its plain version on the io path's call")
+        shapes[k] = len(seen[k])
+    others = {k: len(v) for k, v in seen.items() if k not in plains and v}
+    if others:
+        raise AssertionError(f"the io path called decode kernels: {others}")
+    return shapes
+
+
+def _io_stage_fns(buf, fmt, schema, table, enc):
+    """The stages of a warm run, each a callable."""
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.io import orc_reader, parquet_reader
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+
+    reader = parquet_reader if fmt == "parquet" else orc_reader
+    fns = {}
+    if fmt == "parquet":
+        fns["footer"] = lambda: _io_footers(buf, schema)
+    fns["read"] = lambda: reader.read_table(buf, device=IO_DEVICE)
+    if enc is not None:
+        fns["to_rows"] = lambda: rc.convert_to_rows(table)
+        fns["frame_encode"] = lambda: frames.encode_table(table)
+        fns["frame_decode"] = lambda: frames.decode_table(enc, device=IO_DEVICE)
+    return fns
+
+
+# where the read's host time goes: cProfile's cumulative time of these
+# functions of the readers (its overhead inflates the Python-heavy ones)
+_READ_PARTS = {
+    "page_headers": ("parquet_reader.py", "_read_page_header"),
+    "decompress": ("parquet_reader.py", "_decompress"),
+    "uploads": ("column.py", "upload"),
+    "byte_array_walk": ("codecs.py", "byte_array_lens"),
+    "rle_run_directory": ("parquet_reader.py", "_parse_rle_runs"),
+    "levels": ("parquet_reader.py", "_read_rle_bitpacked"),
+    "index_expand": ("parquet_reader.py", "_rle_expand_device"),
+    "dictionary_take": ("parquet_reader.py", "take"),
+    "plain_strings": ("parquet_reader.py", "_byte_array_chars_device"),
+    "slot_scatter": ("parquet_reader.py", "_leaf_column"),
+    "orc_deframe": ("orc_reader.py", "_deframe"),
+    "orc_int_rle": ("orc_reader.py", "_rle_v2"),
+    "orc_byte_rle": ("orc_reader.py", "_byte_rle"),
+    "orc_strings": ("orc_reader.py", "_to_column_normalized"),
+}
+
+
+def _host_breakdown(fn) -> dict:
+    """One warm call of ``fn`` under cProfile (ending in a synchronize):
+    the wall ms of the call and the cumulative ms of each of
+    ``_READ_PARTS`` that it reached."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {"profiled_ms": (time.perf_counter() - t0) * 1e3}
+    stats = pstats.Stats(prof).stats
+    for part, (file, func) in _READ_PARTS.items():
+        hits = [v for (f, _line, name), v in stats.items() if f.endswith(file) and name == func]
+        if hits:
+            out[f"{part}_ms"] = sum(v[3] for v in hits) * 1e3
+            out[f"{part}_calls"] = sum(v[1] for v in hits)
+    return out
+
+
+def _io_measure(name, fns, first, file_bytes: int, decoded: int) -> dict:
+    """Per stage: warm median of 3 host ms (each run ending in a
+    synchronize), GB/s (the read: file and decoded bytes; the others:
+    decoded bytes), peak GiB, the H2D copies and bytes of one run through
+    ``columnar.column.upload``, and a profile (device busy, idle share,
+    device activities) of every stage but the footer filter, which is host
+    code."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import column
+
+    out = {}
+    for st, fn in fns.items():
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            h0 = dict(column.H2D)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(runs))
+        h2d = {k: column.H2D[k] - h0[k] for k in h0}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rates = {"decoded_gb_s": decoded / ms / 1e6}
+        if st == "read":
+            rates["file_gb_s"] = file_bytes / ms / 1e6
+        print(f"io {name} {st} (host clock, ms): first run {first[st + '_ms']:.2f}; warm median of "
+              f"3 {ms:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+              + f"; H2D {h2d['copies']} copies, {h2d['bytes']} B; peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        prof = None  # the footer filter is host code: nothing to trace on the card
+        if st != "footer":
+            print(f"io {name} profile of {st}:", flush=True)
+            prof = _profile_phase(fn, top=4)
+        out[st] = {"first_ms": first[st + "_ms"], "warm_ms": ms, **rates, "h2d_copies": h2d["copies"],
+                   "h2d_bytes": h2d["bytes"], "peak_gib": peak, "profile": prof}
+        if st == "read":
+            out[st]["host"] = _host_breakdown(fn)
+            host = out[st]["host"]
+            print(f"io {name} read under cProfile (cumulative ms / calls): " + ", ".join(
+                f"{k[:-3]} {v:.1f}" + (f" / {host[k[:-3] + '_calls']}" if k[:-3] + "_calls" in host
+                                       else "")
+                for k, v in host.items() if k.endswith("_ms")), flush=True)
+    return out
+
+
+def _io_phase(wrappers) -> tuple:
+    """The io path on every file: counted runs (the three to-rows kernels
+    once each on a lineitem file, no kernel on the nested one), every
+    check, then the stages measured. Returns (paths entry, launches summed
+    over the files)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.io import codecs
+    from spark_rapids_jni_tpu_torch.utils import integrity
+
+    t_phase = time.perf_counter()
+    cols, nd, files = _io_inputs(SEED + 12)
+    names = [c.name for c in cols]
+    print(f"io input: lineitem {len(cols[0])} rows x {len(cols)} columns ("
+          + ", ".join(f"{k} {len(v[0])} B" for k, v in files.items())
+          + f"), nested {len(nd.list_valid)} rows; written in {time.perf_counter() - t_phase:.1f} s; "
+          f"frames' CRC {integrity.checksum_name()}", flush=True)
+    out, launches_all = {"files": {}}, {k: 0 for k in wrappers}
+    for name, (buf, fmt, spans) in files.items():
+        t_file = time.perf_counter()
+        lineitem = name.startswith("lineitem")
+        schema = _io_read_schema(name, cols)
+        ccalls0 = dict(codecs.CALLS)
+        ((footers, table, rows, fr, stage), seen), launches = _run_counted(
+            wrappers, lambda: _io_capture(lambda: _io_path(buf, fmt, schema, lineitem)))
+        ccalls = {k: codecs.CALLS[k] - ccalls0[k] for k in ccalls0}
+        for k, v in launches.items():
+            launches_all[k] += v
+        want = {k: (1 if lineitem and k in IO_KERNELS else 0) for k in wrappers}
+        if launches != want:
+            raise AssertionError(f"io {name} launched {launches}, not {want}")
+        info = {"bytes": len(buf), "format": fmt, "launches": launches, "codec_calls": ccalls}
+        if name.endswith("snappy") and not ccalls["snappy"]:
+            raise AssertionError(f"io {name}: the native snappy codec decoded no page")
+        if footers is not None:
+            info["groups_per_split"] = _check_footers(
+                footers, spans, len(nd.list_valid) if not lineitem else len(cols[0]),
+                len(cols) if lineitem else 2)
+        if lineitem:
+            expected = _io_expected(cols, fmt, pdt)
+            _check_flat_read(table, expected, names)
+            direct = _io_direct_rows(expected, names, IO_DEVICE)
+            if len(rows) != len(direct) or not all(
+                    torch.equal(a.child.data, b.child.data) and torch.equal(a.offsets, b.offsets)
+                    for a, b in zip(rows, direct)):
+                raise AssertionError(f"io {name}: the rows of the read table differ from the "
+                                     "rows of the source uploaded directly")
+            info["row_bytes"] = int(sum(int(r.offsets[-1]) for r in rows))
+            del direct
+            info["kernel_calls"] = _check_io_calls(seen)
+            info.update(_check_io_frames(table, fr))
+        else:
+            _check_nested_read(table, nd)
+        del seen
+        decoded = _table_bytes(table)
+        info["decoded_bytes"] = decoded
+        print(f"io {name}: {len(buf)} B, {decoded} B decoded; launches {launches}; native codec "
+              f"calls {ccalls}; checks passed (footer splits {info.get('groups_per_split')}, every "
+              f"column bit for bit the source" + (", rows byte-identical to the direct upload's, "
+                                                 "B8/B9/B10 equal to their plain versions, frames "
+                                                 "bit-identical checked and not, a flipped byte "
+                                                 "raised DataCorruption" if lineitem else "")
+              + ")", flush=True)
+        fns = _io_stage_fns(buf, fmt, schema, table, fr[True][0] if lineitem else None)
+        info["stages"] = _io_measure(name, fns, stage, len(buf), decoded)
+        info["first"] = stage
+        del footers, table, rows, fr, fns
+        torch.cuda.empty_cache()
+        info["wall_s"] = time.perf_counter() - t_file
+        out["files"][name] = info
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["rows"], out["nested_rows"] = len(cols[0]), len(nd.list_valid)
+    print(f"io phase: {out['phase_wall_s']:.1f} s wall (writers, counted runs, checks, warm runs, "
+          f"profiles)", flush=True)
+    return out, launches_all
+
+
 def _warm_and_profile(prefix: str, ops, stage, watch):
     """Each of a path's operations warm (median of 3 host-clock runs, each
     ending in a synchronize; peak device memory) and then profiled, with
@@ -3340,6 +3845,10 @@ def main() -> int:
     del sh, st, sops
     torch.cuda.empty_cache()
 
+    # -- the io path: Parquet and ORC bytes -> footer -> Table -> rows -------
+    paths["io"], iolaunches = _io_phase(wrappers)
+    torch.cuda.empty_cache()
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -3378,7 +3887,7 @@ def main() -> int:
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
                               "tpcds": dlaunches[k], "spark_exact": xlaunches[k],
-                              "string_ops": solaunches[k]},
+                              "string_ops": solaunches[k], "io": iolaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

@@ -1,10 +1,13 @@
 """Device columns over torch tensors: the port of the JAX package's
-``columnar/column.py`` (fixed width, STRING and LIST<INT8>).
+``columnar/column.py``.
 
 - fixed width:  ``data``     [N]        (DECIMAL128: [N, 4] int32 limbs, LE)
 - validity:     ``validity`` [N] bool   (True == valid; None == all valid)
 - STRING:       ``offsets``  [N+1] int32, ``chars`` [nbytes] uint8
-- LIST<INT8>:   ``offsets``  [N+1] int32, ``child`` Column (JCUDF row batches)
+- LIST:         ``offsets``  [N+1] int32, ``child`` Column of any type
+                (LIST<INT8> holds JCUDF row batches)
+- STRUCT:       ``children`` tuple of Columns (+ ``child_names``), all
+                length N (cudf's struct_column layout)
 
 Storage types follow ``DType.torch_dtype``: unsigned widths above 8 bits
 sit in the signed torch type of the same width, FLOAT64 as IEEE bits in
@@ -39,18 +42,38 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+H2D = {"copies": 0, "bytes": 0}  # host -> CUDA uploads made through ``upload``
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One copy of a host array (read-only buffers too) into a tensor on
+    ``device``; copies to a CUDA device count in ``H2D``."""
+    t = torch.from_numpy(np.array(host, copy=True, order="C"))
+    if device.type == "cuda":
+        H2D["copies"] += 1
+        H2D["bytes"] += t.numel() * t.element_size()
+    return t.to(device)
+
+
 def _host_to_tensor(host: np.ndarray, t_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Copy a numpy array into a tensor of ``t_dtype`` with the same bits."""
-    view = np.ascontiguousarray(host).view(np_view_of_torch(t_dtype))
-    return torch.from_numpy(view.copy()).to(device)
+    return upload(np.ascontiguousarray(host).view(np_view_of_torch(t_dtype)), device)
+
+
+def _mask_to(validity, device) -> Optional[torch.Tensor]:
+    """A validity mask as a bool tensor: tensors stay where they are, host
+    masks go to ``device`` (None means the card)."""
+    if validity is None or isinstance(validity, torch.Tensor):
+        return validity
+    return upload(np.asarray(validity).astype(bool), resolve_device(device))
 
 
 _OFFSET_TYPES = (TypeId.STRING, TypeId.LIST)
 
 
 class Column:
-    """A device column (fixed-width data, a STRING column or a LIST<INT8>
-    row batch)."""
+    """A device column: fixed-width data, STRING, LIST of any child, or
+    STRUCT of children."""
 
     def __init__(
         self,
@@ -60,23 +83,26 @@ class Column:
         offsets: Optional[torch.Tensor] = None,
         chars: Optional[torch.Tensor] = None,
         child: Optional["Column"] = None,
+        children: Optional[Sequence["Column"]] = None,
+        child_names: Optional[Sequence[str]] = None,
     ):
-        if dtype.id == TypeId.STRUCT:
-            raise NotImplementedError(
-                f"{dtype!r} columns are not ported yet "
-                "(ROADMAP.md, Open items, section 1, item 1: STRUCT handles)"
-            )
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.offsets = offsets
         self.chars = chars
         self.child = child
+        self.children = tuple(children) if children is not None else None
+        self.child_names = tuple(child_names) if child_names is not None else None
 
     # -- shape --------------------------------------------------------------
     def __len__(self) -> int:
         if self.dtype.id in _OFFSET_TYPES:
             return int(self.offsets.shape[0]) - 1
+        if self.dtype.id == TypeId.STRUCT:
+            if self.validity is not None:
+                return int(self.validity.shape[0])
+            return len(self.children[0]) if self.children else 0
         return int(self.data.shape[0])
 
     @property
@@ -85,6 +111,12 @@ class Column:
 
     @property
     def device(self) -> torch.device:
+        if self.dtype.id == TypeId.STRUCT:
+            if self.validity is not None:
+                return self.validity.device
+            if not self.children:
+                raise ValueError("a STRUCT column with no children and no validity has no device")
+            return self.children[0].device
         return (self.offsets if self.dtype.id in _OFFSET_TYPES else self.data).device
 
     @property
@@ -126,18 +158,16 @@ class Column:
         dev = resolve_device(device)
         if dtype is None:
             dtype = _infer_dtype(arr.dtype)
-        if dtype.id == TypeId.LIST:
-            raise ValueError("build LIST columns with Column.list_from_parts")
+        if not dtype.is_fixed_width:
+            raise ValueError(f"build {dtype!r} columns with Column.*_from_parts")
         if dtype.id == TypeId.FLOAT64:
             host = arr.astype(np.float64, copy=False).view(np.uint64)
         else:
             host = arr.astype(dtype.np_dtype, copy=False)
         if dtype.id == TypeId.DECIMAL128 and (host.ndim != 2 or host.shape[1] != 4):
             raise ValueError("DECIMAL128 data must be [N, 4] 32-bit limbs")
-        v = None
-        if validity is not None:
-            v = torch.from_numpy(np.asarray(validity).astype(bool)).to(dev)
-        return cls(dtype, data=_host_to_tensor(host, dtype.torch_dtype, dev), validity=v)
+        return cls(dtype, data=_host_to_tensor(host, dtype.torch_dtype, dev),
+                   validity=_mask_to(validity, dev))
 
     @classmethod
     def from_pylist(cls, values: Sequence[Any], dtype: DType, device=None) -> "Column":
@@ -181,9 +211,8 @@ class Column:
             return _host_to_tensor(np.asarray(x).astype(np_dtype, copy=False), t_dtype,
                                    resolve_device(device))
 
-        if validity is not None and not isinstance(validity, torch.Tensor):
-            validity = torch.from_numpy(np.asarray(validity).astype(bool)).to(resolve_device(device))
-        col = cls(dt.STRING, validity=validity, offsets=_to(offsets, np.int32, torch.int32),
+        col = cls(dt.STRING, validity=_mask_to(validity, device),
+                  offsets=_to(offsets, np.int32, torch.int32),
                   chars=_to(chars, np.uint8, torch.uint8))
         if not isinstance(offsets, torch.Tensor):
             offs = np.asarray(offsets, dtype=np.int64)
@@ -191,36 +220,64 @@ class Column:
         return col
 
     @classmethod
-    def list_from_parts(cls, offsets: torch.Tensor, child: "Column", validity=None) -> "Column":
+    def list_from_parts(cls, offsets, child: "Column", validity=None, device=None) -> "Column":
+        """LIST column from offsets [N+1] int32 and a child column of any
+        type; numpy parts go to ``device`` (None means the card), tensors
+        stay where they are."""
         from . import dtype as dt
 
-        return cls(dt.LIST, validity=validity, offsets=offsets, child=child)
+        if not isinstance(offsets, torch.Tensor):
+            offsets = upload(np.asarray(offsets).astype(np.int32, copy=False), resolve_device(device))
+        return cls(dt.LIST, validity=_mask_to(validity, device), offsets=offsets, child=child)
+
+    @classmethod
+    def struct_from_parts(cls, children: Sequence["Column"], names: Sequence[str],
+                          validity=None, device=None) -> "Column":
+        """STRUCT column from equal-length children; a numpy validity goes
+        to ``device`` (None means the card)."""
+        from . import dtype as dt
+
+        return cls(dt.STRUCT, validity=_mask_to(validity, device), children=tuple(children),
+                   child_names=tuple(names))
 
     # -- host round trip ------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
         """Data as a host array in the JAX package's storage dtype (the
         bits are those on the device: FLOAT64 comes back as uint64 bits)."""
-        if self.dtype.id in _OFFSET_TYPES:
-            raise ValueError(f"{self.dtype!r} columns have no flat data; read offsets and chars/child")
+        if not self.dtype.is_fixed_width:
+            raise ValueError(f"{self.dtype!r} columns have no flat data; read offsets, chars, "
+                             "child or children")
         return self.data.cpu().numpy().view(self.dtype.np_dtype)
 
     def to_pylist(self) -> list:
         """Host python values, None for nulls: STRING as str (invalid
-        UTF-8 replaced), FLOAT64 as float, decimals as their unscaled
-        ints, other one-word types as their numpy scalar's value."""
+        UTF-8 replaced), LIST as lists, STRUCT as dicts by child name
+        (``f<j>`` when unnamed), BOOL8 as bool, FLOAT64 as float, decimals
+        as their unscaled ints, other one-word types as their numpy
+        scalar's value."""
         valid = self.valid_mask().cpu().numpy()
-        if self.dtype.id == TypeId.STRING:
+        tid = self.dtype.id
+        if tid == TypeId.STRING:
             offs = self.offsets.cpu().numpy()
             chars = self.chars.cpu().numpy().tobytes()
             return [chars[offs[i]:offs[i + 1]].decode("utf-8", errors="replace") if valid[i] else None
                     for i in range(len(self))]
-        if not self.dtype.is_fixed_width:
-            raise ValueError(f"to_pylist takes STRING or a fixed-width type, got {self.dtype!r}")
+        if tid == TypeId.LIST:
+            offs = self.offsets.cpu().numpy()
+            child_vals = self.child.to_pylist()
+            return [child_vals[offs[i]:offs[i + 1]] if valid[i] else None for i in range(len(self))]
+        if tid == TypeId.STRUCT:
+            names = self.child_names or tuple(f"f{j}" for j in range(len(self.children)))
+            per_child = [c.to_pylist() for c in self.children]
+            return [{nm: per_child[j][i] for j, nm in enumerate(names)} if valid[i] else None
+                    for i in range(len(self))]
         host = self.to_numpy()
-        if self.dtype.id == TypeId.DECIMAL128:
+        if tid == TypeId.DECIMAL128:
             unscaled = _unpack_decimal128_host(host)
             return [unscaled[i] if valid[i] else None for i in range(len(self))]
-        if self.dtype.id == TypeId.FLOAT64:
+        if tid == TypeId.BOOL8:
+            return [bool(host[i]) if valid[i] else None for i in range(len(self))]
+        if tid == TypeId.FLOAT64:
             host = host.view(np.float64)
         return [host[i].item() if valid[i] else None for i in range(len(self))]
 

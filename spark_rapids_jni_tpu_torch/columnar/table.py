@@ -61,6 +61,10 @@ class Table:
     def dtypes(self):
         return [c.dtype for c in self.columns]
 
+    def to_pydict(self) -> dict:
+        """{name: the column's ``to_pylist()``}."""
+        return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}
+
     def select(self, idxs) -> "Table":
         """The columns named or numbered in ``idxs``, in that order."""
         idxs = [self.names.index(i) if isinstance(i, str) else i for i in idxs]

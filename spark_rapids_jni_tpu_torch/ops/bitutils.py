@@ -1,8 +1,8 @@
 """FLOAT64 bits <-> arithmetic values, and order keys for sorting and
 comparing fixed-width columns (port of the JAX package's
-``ops/bitutils``: ``float_view``, ``float_store``, ``backend_has_f64``
-and ``total_order_key``; ``to_le_bytes`` and ``ragged_positions`` are not
-ported yet).
+``ops/bitutils``: ``float_view``, ``float_store``, ``backend_has_f64``,
+``total_order_key``, ``to_le_bytes`` / ``from_le_bytes`` and
+``ragged_positions``).
 
 FLOAT64 columns hold IEEE-754 bits in int64 lanes (``columnar/dtype.py``).
 The reference converts those bits through float32 on backends without a
@@ -27,7 +27,8 @@ import torch
 from ..columnar.dtype import DType, TypeId
 from .uword import MASK32, SIGN64, u32_to_i64
 
-__all__ = ["total_order_key", "SIGN64", "float_view", "float_store", "backend_has_f64"]
+__all__ = ["total_order_key", "SIGN64", "float_view", "float_store", "backend_has_f64",
+           "to_le_bytes", "from_le_bytes", "ragged_positions"]
 
 _INT64_MAX = (1 << 63) - 1
 
@@ -88,3 +89,33 @@ def float_store(values: torch.Tensor, d: DType) -> torch.Tensor:
     if d.id == TypeId.FLOAT32:
         return values.to(torch.float32)
     raise ValueError(f"float_store on non-floating dtype {d!r}")
+
+
+def ragged_positions(lens: torch.Tensor):
+    """Ragged compaction index math: [N] int32 lengths -> (offsets [N+1]
+    int32, row_of [total] int32, pos_in_row [total] int32, total). One host
+    read, of ``total`` (the output's size). The indices are int32: at the
+    readers' sizes a gather index runs to ~160 M entries."""
+    offs = torch.cat([lens.new_zeros((1,), dtype=torch.int32),
+                      torch.cumsum(lens, 0, dtype=torch.int32)])
+    total = int(offs[-1])
+    if total == 0:
+        z = offs.new_zeros((0,))
+        return offs, z, z, 0
+    j = torch.arange(total, dtype=torch.int32, device=lens.device)
+    row_of = torch.searchsorted(offs, j, right=True, out_int32=True) - 1
+    return offs, row_of, j - offs[row_of], total
+
+
+def to_le_bytes(data: torch.Tensor, d: DType) -> torch.Tensor:
+    """Typed storage -> its little-endian bytes, uint8 [*data.shape, size]
+    ([N, 1] for one-byte types; DECIMAL128's [N, 4] limbs give [N, 4, 4])."""
+    item = data.element_size()
+    return data.contiguous().view(torch.uint8).reshape(*data.shape, item)
+
+
+def from_le_bytes(bytes_: torch.Tensor, d: DType) -> torch.Tensor:
+    """Inverse of ``to_le_bytes``: uint8 [..., size] -> storage of ``d``."""
+    if d.size_bytes == 1:
+        return bytes_[:, 0].contiguous().view(d.torch_dtype)
+    return bytes_.contiguous().view(d.torch_dtype).squeeze(-1)

@@ -13,7 +13,9 @@ counts are exact and its float32 sums are held to rtol 2e-6 / atol 1e-3,
 the reference's bound, because the kernel's atomics add in an order that
 changes from run to run; B2's sums to 1e-4, its reference's bound. The
 probe cases shared with the CPU tests come from ``torch_paged_cases``
-(beside this file, no jax)."""
+(beside this file, no jax). The IO tests read files of the harness
+writers (``torch_io_writers``, no pyarrow) on the card and hold every
+column, frame and row blob against the same read on the CPU, exactly."""
 
 import numpy as np
 import pytest
@@ -1445,3 +1447,159 @@ def test_regex_device_tables_are_cached_per_device():
     tables = prog.device_tables("cuda")
     assert prog.device_tables(torch.device("cuda")) is tables
     assert all(t.is_cuda for t in tables) and prog.device_tables("cpu")[0].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the data plane and IO: the readers' device work, frames, nested handles.
+# The files come from the harness writers (no pyarrow on the card's host).
+# ---------------------------------------------------------------------------
+
+
+def _same_column(g, w, where="column"):
+    assert g.dtype == w.dtype, where
+    for f in ("data", "validity", "offsets", "chars"):
+        a, b = getattr(g, f), getattr(w, f)
+        assert (a is None) == (b is None), (where, f)
+        if a is not None:
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), (where, f)
+    if g.child is not None:
+        _same_column(g.child, w.child, where + ".child")
+    for i, (a, b) in enumerate(zip(g.children or (), w.children or ())):
+        _same_column(a, b, f"{where}.{i}")
+
+
+def _same_table(g, w, names=True):
+    assert not names or g.names == w.names
+    assert g.num_columns == w.num_columns
+    for nm, a, b in zip(w.names, g.columns, w.columns):
+        _same_column(a, b, nm)
+
+
+@pytest.fixture(scope="module")
+def io_files():
+    import torch_io_writers as writers
+
+    cols = writers.lineitem_columns(20_000, 91)
+    small = dict(row_group_bytes=300_000, page_bytes=30_000, dict_bytes=8_000)
+    rng = np.random.default_rng(92)
+    n = 3000
+    nulls = [writers.Col("all_null", "int32", np.zeros(n, np.int32), np.zeros(n, bool)),
+             writers.Col("some_null", "double", rng.standard_normal(n), rng.random(n) > 0.5),
+             writers.Col("str_null", "string", writers.lineitem_strings(n, 93)[1],
+                         rng.random(n) > 0.3)]
+    return {
+        "snappy": writers.write_parquet(cols, "snappy", **small),
+        "uncompressed": writers.write_parquet(cols, None, **small),
+        "nulls": writers.write_parquet(nulls, "snappy", **small),
+        "empty": writers.write_parquet([writers.Col("x", "int32", np.zeros(0, np.int32))], None),
+        "orc": writers.write_orc(cols, stripe_bytes=300_000, block=8192),
+        "nested": writers.write_parquet_nested(writers.nested_data(5000, 94), "snappy",
+                                               rows_per_page=700),
+    }
+
+
+@pytest.mark.parametrize("name", ["snappy", "uncompressed", "nulls", "empty", "nested"])
+def test_parquet_read_on_the_card_matches_the_cpu(io_files, name):
+    from spark_rapids_jni_tpu_torch.io import parquet_reader
+
+    got = parquet_reader.read_table(io_files[name], device="cuda")
+    torch.cuda.synchronize()
+    _same_table(got, parquet_reader.read_table(io_files[name], device="cpu"))
+
+
+def test_parquet_read_defaults_to_the_card(io_files):
+    from spark_rapids_jni_tpu_torch.io import codecs, parquet_reader
+
+    before = codecs.CALLS["snappy"]
+    t = parquet_reader.read_table(io_files["snappy"])
+    assert all(c.device.type == "cuda" for c in t.columns)
+    assert codecs.CALLS["snappy"] > before  # the native codec, no pyarrow here
+
+
+def test_orc_read_on_the_card_matches_the_cpu(io_files):
+    from spark_rapids_jni_tpu_torch.io import orc_reader
+
+    got = orc_reader.read_table(io_files["orc"], device="cuda")
+    _same_table(got, orc_reader.read_table(io_files["orc"], device="cpu"))
+
+
+def test_rle_expansion_on_the_card_clamps_like_jax():
+    import torch_io_writers as writers
+    from spark_rapids_jni_tpu_torch.io import parquet_reader as pr
+
+    vals = np.random.default_rng(95).integers(0, 4096, 5000).astype(np.uint32)
+    data = writers.rle_hybrid(vals, 12)
+    got = pr._rle_expand_device(data, 12, vals.size, torch.device("cuda"))
+    assert torch.equal(got.cpu(), torch.from_numpy(vals.astype(np.int32)))
+    # an RLE run whose literal is far past the stream: the clamped window
+    # index keeps the gather inside the buffer (no device assert)
+    run = writers._varint(200 << 1) + (4000).to_bytes(2, "little")
+    got = pr._rle_expand_device(run, 12, 200, torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert got.cpu().tolist() == [4000] * 200
+
+
+def test_dictionary_take_on_the_card_clamps_like_jax():
+    from spark_rapids_jni_tpu_torch.io import parquet_reader as pr
+
+    page = b"".join(len(v).to_bytes(4, "little") + v for v in (b"a", b"bb", b"ccc"))
+    d = pr._Dictionary(page, pr._T_BYTE_ARRAY, 3, torch.device("cuda"))
+    got = d.take(torch.tensor([0, 2, 9, -1], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert got.lens.cpu().tolist() == [1, 3, 3, 1]
+    assert bytes(got.chars.cpu().numpy()) == b"acccccca"
+
+
+@pytest.mark.parametrize("lens", [[], [0, 0], [3, 0, 5, 1]])
+def test_ragged_positions_on_the_card(lens):
+    from spark_rapids_jni_tpu_torch.ops import bitutils
+
+    x = torch.tensor(lens, dtype=torch.int32)
+    for g, w in zip(bitutils.ragged_positions(x.cuda()), bitutils.ragged_positions(x)):
+        if isinstance(w, int):
+            assert g == w
+        else:
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("checked", [True, False])
+def test_frames_on_the_card(io_files, checked):
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.io import parquet_reader
+    from spark_rapids_jni_tpu_torch.utils import integrity
+    from spark_rapids_jni_tpu_torch.utils.errors import DataCorruption
+
+    t = parquet_reader.read_table(io_files["nulls"], device="cuda")
+    with (integrity.enabled() if checked else integrity.disabled()):
+        buf = frames.encode_table(t)
+        assert buf == frames.encode_table(parquet_reader.read_table(io_files["nulls"],
+                                                                    device="cpu"))
+        back = frames.decode_table(buf)
+    # a decoded frame carries default column names
+    _same_table(back, parquet_reader.read_table(io_files["nulls"], device="cpu"), names=False)
+    if checked:
+        bad = bytearray(buf)
+        bad[-2] ^= 1
+        with integrity.enabled(), pytest.raises(DataCorruption):
+            frames.decode_table(bytes(bad))
+
+
+def test_read_rows_on_the_card_match_the_cpu(io_files):
+    from spark_rapids_jni_tpu_torch.io import parquet_reader
+
+    rows = {dev: rc.convert_to_rows(parquet_reader.read_table(io_files["snappy"], device=dev))
+            for dev in ("cpu", "cuda")}
+    assert torch.equal(rows["cuda"][0].child.data.cpu(), rows["cpu"][0].child.data)
+    assert torch.equal(rows["cuda"][0].offsets.cpu(), rows["cpu"][0].offsets)
+
+
+def test_nested_handles_on_the_card():
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    kid = Column.from_numpy(np.arange(4, dtype=np.int64))
+    s = Column.struct_from_parts([kid], ["k"], validity=np.array([1, 0, 1, 1], bool))
+    lst = Column.list_from_parts(np.array([0, 1, 1, 4], np.int32),
+                                 Column.from_numpy(np.arange(4, dtype=np.int32)))
+    assert s.device.type == "cuda" and s.validity.is_cuda and lst.offsets.is_cuda
+    assert s.to_pylist() == [{"k": 0}, None, {"k": 2}, {"k": 3}]
+    assert lst.to_pylist() == [[0], [], [1, 2, 3]]

@@ -76,6 +76,47 @@ def test_join_path_modules_are_walked(mod):
     assert f"{PKG}.{mod}" in _port_modules()
 
 
+@pytest.mark.parametrize("mod", ["columnar.frames", "utils", "utils.errors", "utils.integrity",
+                                 "io", "io.thrift_compact", "io.parquet_footer", "io.codecs",
+                                 "io.parquet_reader", "io.orc_reader"])
+def test_io_modules_are_walked(mod):
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
+def test_port_adds_no_knob_literal():
+    # the reference's knobs are SRJT_*: the port reads no environment knob
+    # of that prefix, in its Python or its C++
+    hits = [str(p.relative_to(REPO)) for p in sorted((REPO / PKG).rglob("*"))
+            if p.suffix in (".py", ".cu", ".cuh", ".cc", ".h") and "SRJT_" in p.read_text()]
+    assert hits == []
+    assert "SRJT_" not in (REPO / "chip_smoke.py").read_text()
+    assert "SRJT_" not in (REPO / "tests" / "torch_io_writers.py").read_text()
+
+
+def test_io_entry_points_raise_without_a_card(monkeypatch):
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.io import orc_reader, parquet_reader
+
+    kid = Column.from_numpy(np.arange(3, dtype=np.int32), device="cpu")
+    buf = frames.encode_table(Table([kid]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frames.decode_table(buf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parquet_reader.read_table(b"PAR1....PAR1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        orc_reader.read_table(b"ORC....")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Column.list_from_parts(np.array([0, 1, 3]), kid)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Column.struct_from_parts([kid], ["a"], validity=np.ones(3, bool))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Column.strings_from_parts(np.array([0, 1]), np.array([97], np.uint8))
+    # tensor parts stay where they are: no device is asked for
+    assert Column.struct_from_parts([kid], ["a"]).device.type == "cpu"
+
+
 def test_chip_smoke_imports_no_jax():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = []
@@ -121,6 +162,8 @@ def test_kernel_modules_import_without_nvcc():
         f"import {PKG}.ops.ragged_bytes, {PKG}.ops.hopper_kernels, {PKG}.ops.row_conversion\n"
         f"import {PKG}.ops.join, {PKG}.ops.hashing, {PKG}.parallel.shuffle\n"
         f"import {PKG}.pipeline, {PKG}.models\n"
+        f"import {PKG}.io.codecs, {PKG}.io.parquet_reader, {PKG}.io.orc_reader\n"
+        f"import {PKG}.columnar.frames\n"
         f"import {PKG}._build as b\n"
         "print(len(b._libs))\n"
     )
@@ -135,3 +178,6 @@ def test_build_flags_target_sm90a():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for src, _ in _build.SOURCES.values():
         assert (_build.CSRC / src).exists()
+    for src, native, _ in _build.HOST_SOURCES.values():
+        assert (_build.CSRC / src).exists()
+        assert all((_build.NATIVE_SRC / n).exists() for n in native)

@@ -240,11 +240,33 @@ def test_fixed_width_optimized_limit_errors(names, match):
         prc.convert_from_rows_fixed_width_optimized(rows, pd)
 
 
-def test_struct_columns_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 1"):
-        Column(pdt.STRUCT)
+def test_row_layout_rejects_struct():
+    # STRUCT columns exist in the port; JCUDF rows take no STRUCT, as in
+    # the reference
     with pytest.raises(ValueError, match="only STRING compound"):
         prc.compute_row_layout([pdt.INT32, pdt.STRUCT])
+    with pytest.raises(ValueError, match="only STRING compound"):
+        jrc.compute_row_layout([jdt.INT32, jdt.STRUCT])
+
+
+def test_struct_columns_construct():
+    kids = [Column.from_numpy(np.arange(4, dtype=np.int32), device="cpu"),
+            Column.from_pylist(["a", "bb", None, ""], pdt.STRING, device="cpu")]
+    s = Column.struct_from_parts(kids, ["i", "s"], validity=np.array([1, 1, 0, 1], bool),
+                                 device="cpu")
+    assert s.dtype == pdt.STRUCT and len(s) == 4 and s.null_count == 1
+    assert s.to_pylist() == [{"i": 0, "s": "a"}, {"i": 1, "s": "bb"}, None, {"i": 3, "s": ""}]
+    bare = Column(pdt.STRUCT, children=kids, child_names=("i", "s"))
+    assert len(bare) == 4 and bare.validity is None and bare.device.type == "cpu"
+
+
+def test_struct_rows_cannot_encode():
+    from spark_rapids_jni_tpu_torch.columnar import Table
+
+    kid = Column.from_numpy(np.arange(3, dtype=np.int64), device="cpu")
+    t = Table([kid, Column.struct_from_parts([kid], ["x"])])
+    with pytest.raises(ValueError, match="only STRING compound"):
+        prc.convert_to_rows(t)
 
 
 def test_rejects_non_list_rows():
