@@ -158,7 +158,32 @@ checkout (one nvcc per source, all at once), then on one card:
    ``DataCorruption``). Per file and stage: first-run and warm median-of-3
    host ms, GB/s, H2D copies and bytes, peak memory and a profile, and the
    native codec calls (the card host has no pyarrow);
-11. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+11. the DISTRIBUTED path, the in-mesh tier (``parallel/``), run right
+   after the tpcds path on its stars: a mesh of 8 shards on the one card
+   (``make_mesh({"data": 8}, devices=[cuda:0] * 8)``, the stand-in for the
+   reference's forced host devices) and, once, ``make_mesh()``'s default of
+   one shard a card. ``distributed_groupby_sum`` of 1,048,576 INT64 keys
+   uniform in [0, 4096) with INT64 values in [0, 1000), and ``_multi`` on
+   (key % 64, key // 64) as INT32, exact against numpy with each group's
+   shard and order; ``exchange_by_key`` of the join path's fact batch on
+   ``item_sk`` (every row on shard pmod(murmur3(item_sk), 8), in row
+   order, bit for bit with validity), the raise / flag / retry contracts
+   at a shard's rows / 64, and one flipped value in a received bucket
+   raising ``DataCorruption``; ``exchange_table`` of the item dimension on
+   ``i_brand_id`` (a permutation, strings byte for byte);
+   ``distributed_inner_join`` of the fact's non-null ``item_sk`` with the
+   dimension's (the (key, left, right) multiset exact);
+   ``distributed_sort`` of 1,048,576 INT64 keys, uniform and 90% one key,
+   ascending and descending, against ``np.sort``; and q7, q19, q52, q55
+   (SF1) and q94, q95 (SF10) ``*_distributed``, bit for bit the single-chip
+   results on the same tables. The counted run records every B1 call (the
+   single-key routing): each is held against ``partition_map_plain`` bit
+   for bit, their count must be what the routing rule predicts from the
+   routing calls, and no other kernel may launch. Per operation: first-run
+   and warm median-of-3 host ms, peak memory and a profile (device busy,
+   idle share, launches); each exchange's padded wire bytes against its
+   dense bytes; the phase's wall seconds;
+12. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -3333,6 +3358,450 @@ def _io_phase(wrappers) -> tuple:
     return out, launches_all
 
 
+# ---------------------------------------------------------------------------
+# the distributed path: the in-mesh tier on an 8-shard mesh of one card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 8
+DIST_ROWS = 1_048_576  # the group-by and sort batch (BASELINE.json configs[0])
+DIST_SPLIT = 64  # the overflow contracts' capacity: a shard's rows / 64
+# (query, star of the tpcds path): q7-q55 at SF1, q94 and q95 at SF10
+DIST_QUERIES = (("q7", "wide1"), ("q19", "wide1"), ("q52", "store1"), ("q55", "store1"),
+                ("q94", "web10"), ("q95", "web10"))
+DIST_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+
+
+def _np_murmur(lanes, seed: int = 42) -> np.ndarray:
+    """Chained murmur3_32 of raw integer lanes in numpy uint32 (Spark
+    Murmur3Hash chaining; a 4-byte lane is one block, an 8-byte lane its
+    low then its high word): the port's routing hash before the pmod."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    h = np.full(lanes[0].shape[0], seed, np.uint32)
+    with np.errstate(over="ignore"):
+        for lane in lanes:
+            lane = np.ascontiguousarray(lane)
+            words = ([lane.view(np.uint32)] if lane.itemsize == 4
+                     else list(lane.view(np.uint32).reshape(-1, 2).T))
+            for k in words:
+                k = rotl(k * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+                h = rotl(h ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+            h = h ^ np.uint32(4 * len(words))
+            h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+            h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+            h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def _np_pmod(h: np.ndarray, p: int) -> np.ndarray:
+    return np.mod(h.view(np.int32).astype(np.int64), p)
+
+
+def _dist_inputs(seed: int, device):
+    """The raw-array inputs: 1,048,576 INT64 keys uniform in [0, 4096) (the
+    main path's domain) and INT64 values in [0, 1000); the sort's keys
+    uniform over the full INT64 range and 90% one key; the join path's
+    fact batch and item dimension (``_join_inputs``)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    rng = np.random.default_rng(seed)
+    h = {"keys": rng.integers(0, NUM_KEYS, DIST_ROWS).astype(np.int64),
+         "vals": rng.integers(0, 1000, DIST_ROWS).astype(np.int64),
+         "uniform": rng.integers(-2**63, 2**63 - 1, DIST_ROWS, dtype=np.int64)}
+    h["skewed"] = np.where(rng.random(DIST_ROWS) < 0.9, 42,
+                           rng.integers(-2**63, 2**63 - 1, DIST_ROWS, dtype=np.int64))
+    h["k1"], h["k2"] = (h["keys"] % 64).astype(np.int32), (h["keys"] // 64).astype(np.int32)
+    t = {k: torch.from_numpy(v).to(device) for k, v in h.items()}
+    (fa, fv), (da, dv) = side = _join_inputs(seed + 1)
+    fact = Table(carry_table(fa, [_pdtype(pdt, tn) for _, tn in FACT_COLS], fv,
+                             device=device).columns, [n for n, _ in FACT_COLS])
+    dim = Table(carry_table(da, [_pdtype(pdt, tn) for _, tn in DIM_COLS], dv,
+                            device=device).columns, [n for n, _ in DIM_COLS])
+    # the join's left side: the fact's non-null item_sk rows, cut to a
+    # multiple of the shards (the raw-array join takes N / P rows a shard)
+    live = np.flatnonzero(fv[1])
+    live = live[:live.shape[0] // DIST_SHARDS * DIST_SHARDS]
+    h["lk"], h["lv"] = fa[1][live], fa[8][live]  # item_sk, ss_ticket_number
+    h["rk"], h["rv"] = da[0], da[1]  # item_sk, i_brand_id
+    for k in ("lk", "lv", "rk", "rv"):
+        t[k] = torch.from_numpy(np.ascontiguousarray(h[k])).to(device)
+    return h, t, side, fact, dim
+
+
+def _dist_ops(t, fact, dim, stars, mesh, one_a_card):
+    """The path's operations, each a callable: the raw-array group-bys
+    (8 shards, and the default mesh of one shard a card), the exchange of
+    the fact batch (default capacity, then the three overflow contracts at
+    a shard's rows / 64), the Table-tier exchange of the dimension, the
+    raw join, the sample sorts and the six TPC-DS queries."""
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.parallel import (distributed, join_distributed, mesh as pmesh,
+                                                     shuffle, sort_distributed, table_ops)
+    from spark_rapids_jni_tpu_torch.utils.errors import RetryableError
+
+    fact_s = pmesh.shard_table_rows(fact, mesh)
+    cap = DIST_ROWS // DIST_SHARDS // DIST_SPLIT
+
+    def overflow_raises():
+        try:
+            shuffle.exchange_by_key(fact_s, ["item_sk"], mesh, capacity=cap)
+        except RetryableError as e:
+            return e
+        raise AssertionError("an exchange past its capacity did not raise RetryableError")
+
+    ops = {
+        "groupby_sum": lambda: distributed.distributed_groupby_sum(t["keys"], t["vals"], mesh),
+        "groupby_sum_multi": lambda: distributed.distributed_groupby_sum_multi(
+            [t["k1"], t["k2"]], t["vals"], mesh),
+        "groupby_sum_one_shard_a_card": lambda: distributed.distributed_groupby_sum(
+            t["keys"], t["vals"], one_a_card),
+        "exchange_by_key": lambda: shuffle.exchange_by_key(fact_s, ["item_sk"], mesh),
+        "exchange_overflow_raise": overflow_raises,
+        "exchange_overflow_flag": lambda: shuffle.exchange_by_key(
+            fact_s, ["item_sk"], mesh, capacity=cap, on_overflow="flag"),
+        "exchange_overflow_retry": lambda: shuffle.exchange_by_key(
+            fact_s, ["item_sk"], mesh, capacity=cap, on_overflow="retry"),
+        "exchange_table": lambda: table_ops.exchange_table(dim, ["i_brand_id"], mesh),
+        "inner_join": lambda: join_distributed.distributed_inner_join(
+            t["lk"], t["lv"], t["rk"], t["rv"], mesh),
+    }
+    for keys in ("uniform", "skewed"):
+        for desc in (False, True):
+            ops[f"sort_{keys}" + ("_desc" if desc else "")] = (
+                lambda k=keys, d=desc: sort_distributed.distributed_sort(t[k], mesh, descending=d))
+    for q, star in DIST_QUERIES:
+        ops[f"{q}_distributed"] = lambda q=q, s=star: getattr(tpcds, f"{q}_distributed")(
+            stars[s], mesh)
+    return ops
+
+
+def _dist_capture(ops):
+    """Run every operation once, timed by the host clock to a synchronize,
+    with recorders in the routing and in front of B1's wrapper: each call of
+    ``distributed._hash_dest_multi`` and ``shuffle.hash_partition_map``
+    that the routing rule sends to B1 (one INT32 or INT64 lane, or one such
+    column at the default seed) adds one to the prediction, and every B1
+    call is held bit for bit against ``partition_map_plain`` after its
+    operation, outside the timing. Returns (results, first-run ms by
+    operation, B1 calls by operation, predicted by operation)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.parallel import distributed, shuffle
+
+    route, hpm, b1_d, b1_h = (distributed._hash_dest_multi, shuffle.hash_partition_map,
+                              distributed.partition_map, hashing.partition_map)
+    seen, predicted = [], [0]
+
+    def route_rec(key_arrays, n_parts):
+        key_arrays = list(key_arrays)
+        predicted[0] += (len(key_arrays) == 1 and key_arrays[0].shape[0] > 0
+                         and key_arrays[0].dtype in (torch.int32, torch.int64))
+        return route(key_arrays, n_parts)
+
+    def hpm_rec(cols, num_partitions, seed=42):
+        cols = list(cols)
+        predicted[0] += (len(cols) == 1 and seed == 42 and len(cols[0]) > 0
+                         and cols[0].dtype.id in (TypeId.INT32, TypeId.INT64))
+        return hpm(cols, num_partitions, seed)
+
+    def b1_rec(keys, num_partitions, valid=None):
+        out = hk.partition_map(keys, num_partitions, valid)
+        if keys.shape[0]:  # an empty call launches nothing
+            seen.append((keys, num_partitions, valid, out))
+        return out
+
+    out, stage, calls, pred = {}, {}, {}, {}
+    distributed._hash_dest_multi, shuffle.hash_partition_map = route_rec, hpm_rec
+    distributed.partition_map = hashing.partition_map = b1_rec
+    try:
+        for name, op in ops.items():
+            seen.clear()
+            predicted[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = op()
+            torch.cuda.synchronize()
+            stage[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            for keys, p, valid, got in seen:
+                if not torch.equal(got, hk.partition_map_plain(keys, p, valid)):
+                    raise AssertionError(f"distributed {name}: B1 differs from its plain version "
+                                         f"on [{keys.shape[0]}] {keys.dtype} keys")
+            calls[name], pred[name] = len(seen), predicted[0]
+    finally:
+        distributed._hash_dest_multi, shuffle.hash_partition_map = route, hpm
+        distributed.partition_map, hashing.partition_map = b1_d, b1_h
+    seen.clear()
+    stage["end_to_end_ms"] = sum(stage.values())
+    return out, stage, calls, pred
+
+
+def _expect_groups(key_lanes, vals: np.ndarray, p: int):
+    """The distributed group-by's exact output: the unique key tuples in
+    shard order (by the routing hash), by key within a shard, their int64
+    sums, and each group's shard."""
+    stacked = np.stack([k.astype(np.int64) for k in key_lanes], axis=1)
+    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
+    sums = np.bincount(inv.reshape(-1), weights=vals, minlength=len(uniq)).astype(np.int64)
+    dest = _np_pmod(_np_murmur([uniq[:, j].astype(k.dtype) for j, k in enumerate(key_lanes)]), p)
+    order = np.argsort(dest, kind="stable")
+    return [uniq[order, j] for j in range(len(key_lanes))], sums[order], dest[order]
+
+
+def _check_dist_groupby(h, out, p_one: int) -> dict:
+    """Both group-bys against numpy: keys, their order (shard by shard) and
+    placement, and sums exact, no overflow."""
+    res = {}
+    for name, lanes, p in (("groupby_sum", [h["keys"]], DIST_SHARDS),
+                           ("groupby_sum_multi", [h["k1"], h["k2"]], DIST_SHARDS),
+                           ("groupby_sum_one_shard_a_card", [h["keys"]], p_one)):
+        got = out[name]
+        gkeys, gsums, ovf = ([got[0]], got[1], got[2]) if len(lanes) == 1 else got
+        if ovf:
+            raise AssertionError(f"distributed {name} overflowed")
+        wkeys, wsums, dest = _expect_groups(lanes, h["vals"], p)
+        for g, w in zip(gkeys, wkeys):
+            if not np.array_equal(np.asarray(g).astype(np.int64), w):
+                raise AssertionError(f"distributed {name}: group keys or their shard order differ")
+        if not np.array_equal(gsums, wsums):
+            raise AssertionError(f"distributed {name}: sums differ from numpy")
+        res[name] = {"groups": int(len(wsums)),
+                     "groups_by_shard": np.bincount(dest, minlength=p).tolist()}
+    return res
+
+
+def _check_exchange(fa, fv, pairs, mask, dest: np.ndarray, what: str) -> list:
+    """An exchange of the fact batch: the received rows of shard d are the
+    rows whose oracle destination is d, in row order, bit for bit with
+    their validity; returns the rows each shard received."""
+    m = mask.reshape(-1).cpu().numpy()
+    order = np.argsort(dest, kind="stable")
+    by_shard = mask.reshape(DIST_SHARDS, -1).sum(1).cpu().numpy().tolist()
+    if by_shard != np.bincount(dest, minlength=DIST_SHARDS).tolist():
+        raise AssertionError(f"{what}: rows by shard {by_shard} differ from the oracle's")
+    for (name, _), a, v, (data, valid) in zip(FACT_COLS, fa, fv, pairs):
+        got = data.reshape((m.shape[0],) + tuple(data.shape[2:])).cpu().numpy()[m]
+        if not np.array_equal(got.view(np.uint8), np.ascontiguousarray(a[order]).view(np.uint8)):
+            raise AssertionError(f"{what}: column {name} differs from the oracle's rows")
+        if (valid is None) != (v is None) or (
+                v is not None and not np.array_equal(valid.reshape(-1).cpu().numpy()[m], v[order])):
+            raise AssertionError(f"{what}: the validity of {name} differs from the oracle's")
+    return by_shard
+
+
+def _same_result(got, want, what: str) -> None:
+    """A distributed query's result bit for bit against the single-chip one:
+    names, types, data bits and null masks, or q94/q95's count and float
+    bits."""
+    import torch
+
+    if isinstance(want, dict):
+        if got["order_count"] != want["order_count"] or any(
+                np.float64(got[k]).view(np.uint64) != np.float64(want[k]).view(np.uint64)
+                for k in ("total_shipping_cost", "total_net_profit")):
+            raise AssertionError(f"{what}: {got} differs from the single chip's {want}")
+        return
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.names} x {got.num_rows} differs from the single "
+                             f"chip's {want.names} x {want.num_rows}")
+    for name, g, w in zip(want.names, got.columns, want.columns):
+        if g.dtype != w.dtype or not torch.equal(g.data, w.data) or not torch.equal(
+                g.valid_mask(), w.valid_mask()):
+            raise AssertionError(f"{what}: column {name} differs from the single chip's")
+
+
+def _check_dist(h, t, side, dim, stars, out, p_one: int) -> dict:
+    """Every operation's result against its oracle."""
+    import torch
+    from spark_rapids_jni_tpu_torch.models import tpcds
+    from spark_rapids_jni_tpu_torch.utils.errors import RetryableError
+
+    (fa, fv), (da, dv) = side
+    res = _check_dist_groupby(h, out, p_one)
+    dest = _np_partition(fa[1], fv[1], DIST_SHARDS)
+    pairs, mask, ovf = out["exchange_by_key"]
+    if bool(ovf.any()):
+        raise AssertionError("the exchange at its default capacity overflowed")
+    res["exchange_rows_by_shard"] = _check_exchange(fa, fv, pairs, mask, dest, "exchange_by_key")
+    if not isinstance(out["exchange_overflow_raise"], RetryableError):
+        raise AssertionError("the raise contract did not raise RetryableError")
+    pairs, mask, ovf = out["exchange_overflow_flag"]
+    if not bool(ovf.any()) or int(mask.sum()) >= DIST_ROWS:
+        raise AssertionError("the flag contract did not flag its dropped rows")
+    res["flag_rows_kept"] = int(mask.sum())
+    pairs, mask, ovf = out["exchange_overflow_retry"]
+    if bool(ovf.any()):
+        raise AssertionError("the retry contract left an overflow")
+    _check_exchange(fa, fv, pairs, mask, dest, "exchange_overflow_retry")
+    res["retry_capacity"] = int(mask.shape[-1])
+
+    # the dimension's exchange on i_brand_id: the rows of shard d in row
+    # order, every string byte for byte
+    table, ovf = out["exchange_table"]
+    if ovf:
+        raise AssertionError("exchange_table overflowed")
+    order = np.argsort(_np_pmod(_np_murmur([da[1]]), DIST_SHARDS), kind="stable")
+    if sorted(order.tolist()) != list(range(DIM_ROWS)) or table.num_rows != DIM_ROWS:
+        raise AssertionError("exchange_table did not return a permutation of the rows")
+    for (name, _), col, a, v in zip(DIM_COLS, table.columns, da, dv):
+        data, valid = _np_gather(a, v, order)
+        if isinstance(data, tuple):
+            ok = (np.array_equal(col.offsets.cpu().numpy(), data[0])
+                  and np.array_equal(col.chars.cpu().numpy(), data[1]))
+        else:
+            ok = np.array_equal(col.to_numpy(), data)
+        if not ok or not np.array_equal(col.valid_mask().cpu().numpy(), valid):
+            raise AssertionError(f"exchange_table: column {name} differs from the oracle's rows")
+
+    k, lv, rv, ovf = out["inner_join"]
+    lmap, rmap = _np_join_maps(h["lk"], np.ones(h["lk"].shape[0], bool), h["rk"], None, "inner")
+    want = np.stack([h["lk"][lmap].astype(np.int64), h["lv"][lmap], h["rv"][rmap]])
+    got = np.stack([k.astype(np.int64), lv, rv.astype(np.int64)])
+    if ovf or not np.array_equal(got[:, np.lexsort(got[::-1])], want[:, np.lexsort(want[::-1])]):
+        raise AssertionError("inner_join's (key, left, right) multiset differs from numpy's")
+    res["join_rows"] = int(lmap.shape[0])
+
+    for keys in ("uniform", "skewed"):
+        for desc in (False, True):
+            name = f"sort_{keys}" + ("_desc" if desc else "")
+            s, ovf = out[name]
+            want = np.sort(h[keys])
+            if ovf or not np.array_equal(s, want[::-1] if desc else want):
+                raise AssertionError(f"{name} differs from np.sort")
+
+    rows = {}
+    for q, star in DIST_QUERIES:
+        want = getattr(tpcds, q)(stars[star])
+        _same_result(out[f"{q}_distributed"], want, f"{q}_distributed")
+        rows[q] = want["order_count"] if isinstance(want, dict) else want.num_rows
+        if not rows[q]:
+            raise AssertionError(f"{q} selected nothing")
+    res["query_rows"] = rows
+    return res
+
+
+def _dist_corruption(fact, mesh) -> None:
+    """One flipped value in a received bucket of the fact's exchange must
+    raise DataCorruption."""
+    from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils.errors import DataCorruption
+
+    real = pmesh.all_to_all
+    first = [True]
+
+    def flip_one(parts):
+        out = real(parts)
+        if first[0]:  # the first lane: an occupied slot's low bit
+            out[3][2, 0] ^= 1
+            first[0] = False
+        return out
+
+    pmesh.all_to_all = flip_one
+    try:
+        shuffle.exchange_by_key(pmesh.shard_table_rows(fact, mesh), ["item_sk"], mesh)
+    except DataCorruption as e:
+        print(f"distributed: a flipped value in a received bucket raised DataCorruption ({e})",
+              flush=True)
+        return
+    finally:
+        pmesh.all_to_all = real
+    raise AssertionError("a flipped value in a received bucket passed the exchange's check")
+
+
+def _wire_bytes(h, fact, dim) -> dict:
+    """Each exchange's padded wire bytes (P x P x capacity x row bytes, the
+    reference's cost model: every lane's bytes a row and the mask's byte)
+    against its dense bytes (rows x row bytes), at the capacity each ran."""
+    from spark_rapids_jni_tpu_torch.parallel.table_ops import default_capacity
+
+    p, per = DIST_SHARDS, DIST_ROWS // DIST_SHARDS
+    fact_row = sum(c.data[:1].numel() * c.data.element_size() + (c.validity is not None)
+                   for c in fact.columns) + 1
+    dim_row = 4 * (len(DIM_COLS) + 1) + 1  # INT32 lanes and codes, the present lane
+    nl, nr = h["lk"].shape[0], h["rk"].shape[0]
+    jcap = max(nl, nr) // p
+    cases = {  # name: (rows, row bytes, capacity, exchanges)
+        "groupby_sum": (DIST_ROWS, 8 + 8 + 1, per, 1),
+        "groupby_sum_multi": (DIST_ROWS, 4 + 4 + 8 + 1, per, 1),
+        "exchange_by_key": (DIST_ROWS, fact_row, per, 1),
+        "exchange_table": (DIM_ROWS, dim_row, default_capacity(DIM_ROWS // p, p), 1),
+        "inner_join_left": (nl, 4 + 8 + 1, jcap, 1),
+        "inner_join_right": (nr, 4 + 4 + 1, jcap, 1),
+        "sort": (DIST_ROWS, 8 + 1, per, 1),
+    }
+    return {k: {"wire_bytes": p * p * cap * rb * ex, "dense_bytes": n * rb, "capacity": cap}
+            for k, (n, rb, cap, ex) in cases.items()}
+
+
+def _dist_phase(wrappers, stars) -> tuple:
+    """The distributed path: inputs, the counted run with every B1 call
+    recorded and held against its plain version, every check, the
+    corruption check, then each operation warm and profiled. Returns
+    (paths entry, launches)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DIST_DEVICE, 0) if DIST_DEVICE == "cuda" else torch.device(DIST_DEVICE)
+    mesh = pmesh.make_mesh({"data": DIST_SHARDS}, devices=[dev] * DIST_SHARDS)
+    # the default mesh: one shard a card (on the CPU rehearsal, one shard)
+    one_a_card = pmesh.make_mesh() if DIST_DEVICE == "cuda" else pmesh.make_mesh(devices=[dev])
+    p_one = one_a_card.shape["data"]
+    h, t, side, fact, dim = _dist_inputs(SEED + 13, dev)
+    torch.cuda.synchronize()
+    print(f"distributed input: mesh {mesh} and the default {one_a_card}; {DIST_ROWS} INT64 keys in "
+          f"[0, {NUM_KEYS}) with INT64 values, {DIST_ROWS} sort keys twice (uniform, 90% one "
+          f"key), the fact batch {FACT_ROWS} x {len(FACT_COLS)} and the dimension {DIM_ROWS} x "
+          f"{len(DIM_COLS)}, join sides {h['lk'].shape[0]} / {h['rk'].shape[0]}; TPC-DS stars "
+          f"of the tpcds path; made and uploaded in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    ops = _dist_ops(t, fact, dim, stars, mesh, one_a_card)
+    (out, stage, calls, pred), launches = _run_counted(wrappers, lambda: _dist_capture(ops))
+    print(f"distributed path launches: {launches}; B1 calls by operation {calls}, predicted by "
+          f"the routing rule {pred}", flush=True)
+    if calls != pred:
+        raise AssertionError(f"distributed: B1 calls {calls} differ from the routing rule's {pred}")
+    total = sum(calls.values())
+    others = {k: v for k, v in launches.items() if k != "partition_map" and v}
+    if others:
+        raise AssertionError(f"the distributed path launched kernels it does not run: {others}")
+    if DIST_DEVICE == "cuda" and launches["partition_map"] != total:
+        raise AssertionError(f"the distributed path launched B1 {launches['partition_map']} "
+                             f"times, {total} calls recorded")
+    t0 = time.perf_counter()
+    check = _check_dist(h, t, side, dim, stars, out, p_one)
+    print(f"distributed path checked in {time.perf_counter() - t0:.1f} s: group-bys, placement "
+          f"and sums exact against numpy; every fact row on its shard, in row order, bit for bit "
+          f"with validity (default capacity and the retry contract); raise and flag contracts; "
+          f"the dimension's exchange a permutation, strings byte for byte; the join's multiset and "
+          f"both sorts exact; the six TPC-DS queries bit-identical to single-chip; all {total} B1 "
+          f"calls bit for bit their plain version: {check}", flush=True)
+    del out
+    _dist_corruption(fact, mesh)
+    wire = _wire_bytes(h, fact, dim)
+    for k, w in wire.items():
+        print(f"distributed {k} exchange: capacity {w['capacity']}, padded wire "
+              f"{w['wire_bytes']} B against dense {w['dense_bytes']} B "
+              f"({w['wire_bytes'] / w['dense_bytes']:.1f}x)", flush=True)
+    warm_ops = {k: v for k, v in ops.items() if k != "exchange_overflow_raise"}
+    warm, peak, profiles = _warm_and_profile("distributed", warm_ops, stage,
+                                             {"partition_map_kernel": hk.partition_map})
+    wall = time.perf_counter() - t_phase
+    print(f"distributed phase: {wall:.1f} s wall (input, counted run, checks, warm runs, "
+          f"profiles)", flush=True)
+    return ({**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], **check,
+             "shards": DIST_SHARDS, "rows": DIST_ROWS, "b1_calls": calls, "wire": wire,
+             "peak_gib": peak, "phase_wall_s": wall, "launches": launches,
+             "profile": profiles}, launches)
+
+
 def _warm_and_profile(prefix: str, ops, stage, watch):
     """Each of a path's operations warm (median of 3 host-clock runs, each
     ending in a synchronize; peak device memory) and then profiled, with
@@ -3740,6 +4209,12 @@ def main() -> int:
     paths["tpcds"] = {**dstage, "warm": dwarm, "warm_end_to_end_ms": dwarm["end_to_end_ms"],
                       "rows": TPCDS_ROWS, "result_rows": dsizes, "peak_gib": dpeak,
                       "phase_wall_s": dwall, "launches": dlaunches, "profile": dprofiles}
+
+    # -- the distributed path: the in-mesh tier on the tpcds path's stars ---
+    for star in set(stars) - {s for _, s in DIST_QUERIES}:
+        del stars[star]
+    torch.cuda.empty_cache()
+    paths["distributed"], mlaunches = _dist_phase(wrappers, stars)
     del stars
     torch.cuda.empty_cache()
 
@@ -3886,8 +4361,9 @@ def main() -> int:
          "launches": timed_on[k],
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
-                              "tpcds": dlaunches[k], "spark_exact": xlaunches[k],
-                              "string_ops": solaunches[k], "io": iolaunches[k]},
+                              "tpcds": dlaunches[k], "distributed": mlaunches[k],
+                              "spark_exact": xlaunches[k], "string_ops": solaunches[k],
+                              "io": iolaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

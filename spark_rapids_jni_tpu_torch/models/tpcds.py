@@ -14,8 +14,11 @@ the card). Each star query runs through one ``pipeline.CompiledPipeline``
 stage whose bounded domains come from host reads of the dimension
 tables; FLOAT64 sums and means are exact (``ops/f64acc``).
 
-The ``*_distributed`` variants need the mesh operators, which are not
-ported yet, and raise ``NotImplementedError``.
+The ``*_distributed`` variants run the same plans on the distributed
+Table operators (``parallel/table_ops``) over a mesh: the pre-filtered
+dimensions join the fact across the shards, then a distributed group-by
+(FLOAT64 sums and means exact, so the results are bit-identical to the
+single-chip queries').
 """
 
 from __future__ import annotations
@@ -43,10 +46,6 @@ __all__ = [
     "q42", "q52", "q52_distributed", "q55", "q55_distributed",
     "q94", "q94_distributed", "q95", "q95_distributed", "q98",
 ]
-
-_DISTRIBUTED = ("the distributed Table operators are not ported yet "
-                "(ROADMAP.md, Open items, section 1, item 10)")
-
 
 def _exact_total(c: Column) -> float:
     """Exact grand total of a FLOAT64 column: a one-segment exact
@@ -428,9 +427,63 @@ def _q7_pipeline(n_item_ids: int, n_dates: int, n_items: int, n_cdemo: int,
     )
 
 
+def _renamed(t: Table, cols, names) -> Table:
+    """The columns ``cols`` of ``t`` under ``names`` (a dimension's join
+    key takes the fact's name)."""
+    return Table(t.select(cols).columns, list(names))
+
+
+def _joins(fact: Table, dims, mesh) -> Table:
+    """Inner-join ``fact`` with each (dimension, key) in turn across the
+    mesh; an overflow raises."""
+    from ..parallel.table_ops import distributed_join_table
+
+    for dim, key in dims:
+        fact, ovf = distributed_join_table(fact, dim, on=[key], mesh=mesh, how="inner")
+        if ovf:
+            raise RuntimeError("join capacity overflow — raise capacity")
+    return fact
+
+
+def _groupby(t: Table, keys, aggs, mesh) -> Table:
+    from ..parallel.table_ops import distributed_groupby_table
+
+    out, ovf = distributed_groupby_table(t, keys, aggs, mesh)
+    if ovf:
+        raise RuntimeError("groupby capacity overflow — raise group_capacity")
+    return out
+
+
 def q7_distributed(tables: Dict[str, Table], mesh, gender: int = 1, marital: int = 2,
                    education: int = 3, year: int = 2000) -> Table:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q7 on the distributed Table operators: the pre-filtered dimensions
+    join the sharded fact, then a distributed group-by with exact means
+    (limb sums and counts merge across shards, one division at the end),
+    bit-identical to ``q7``."""
+    dsel = (col("d_year") == lit(np.int32(year))).evaluate(tables["date_dim"])
+    d1 = _renamed(copying.apply_boolean_mask(tables["date_dim"], dsel), ["d_date_sk"],
+                  ["ss_sold_date_sk"])
+    cd = tables["customer_demographics"]
+    csel = (
+        (col("cd_gender") == lit(np.int32(gender)))
+        & (col("cd_marital_status") == lit(np.int32(marital)))
+        & (col("cd_education_status") == lit(np.int32(education)))
+    ).evaluate(cd)
+    c1 = _renamed(copying.apply_boolean_mask(cd, csel), ["cd_demo_sk"], ["ss_cdemo_sk"])
+    pr = tables["promotion"]
+    psel = (
+        (col("p_channel_email") == lit(np.int32(0)))
+        | (col("p_channel_event") == lit(np.int32(0)))
+    ).evaluate(pr)
+    p1 = _renamed(copying.apply_boolean_mask(pr, psel), ["p_promo_sk"], ["ss_promo_sk"])
+    i1 = _renamed(tables["item"], ["i_item_sk", "i_item_id"], ["ss_item_sk", "i_item_id"])
+    j = _joins(tables["store_sales"], [(d1, "ss_sold_date_sk"), (c1, "ss_cdemo_sk"),
+                                       (p1, "ss_promo_sk"), (i1, "ss_item_sk")], mesh)
+    agg = _groupby(j, ["i_item_id"], [("ss_quantity", "mean", "agg1"),
+                                      ("ss_list_price", "mean", "agg2"),
+                                      ("ss_coupon_amt", "mean", "agg3"),
+                                      ("ss_sales_price", "mean", "agg4")], mesh)
+    return sort_by_key(agg, agg.select(["i_item_id"]), ascending=[True])
 
 
 def q19(
@@ -522,7 +575,34 @@ def _q19_pipeline(n_brands: int, n_manufact: int, n_dates: int, n_items: int,
 
 def q19_distributed(tables: Dict[str, Table], mesh, manager_id: int = 8, month: int = 11,
                     year: int = 1998) -> Table:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q19 on the distributed Table operators; the zip inequality runs
+    after the address and store payloads arrive. Bit-identical to
+    ``q19``."""
+    dsel = (
+        (col("d_moy") == lit(np.int32(month))) & (col("d_year") == lit(np.int32(year)))
+    ).evaluate(tables["date_dim"])
+    d1 = _renamed(copying.apply_boolean_mask(tables["date_dim"], dsel), ["d_date_sk"],
+                  ["ss_sold_date_sk"])
+    isel = (col("i_manager_id") == lit(np.int32(manager_id))).evaluate(tables["item"])
+    i1 = _renamed(copying.apply_boolean_mask(tables["item"], isel),
+                  ["i_item_sk", "i_brand_id", "i_manufact_id"],
+                  ["ss_item_sk", "i_brand_id", "i_manufact_id"])
+    c1 = _renamed(tables["customer"], ["c_customer_sk", "c_current_addr_sk"],
+                  ["ss_customer_sk", "c_current_addr_sk"])
+    a1 = _renamed(tables["customer_address"], ["ca_address_sk", "ca_zip5"],
+                  ["c_current_addr_sk", "ca_zip5"])
+    s1 = _renamed(tables["store"], ["s_store_sk", "s_zip5"], ["ss_store_sk", "s_zip5"])
+    j = _joins(tables["store_sales"], [(d1, "ss_sold_date_sk"), (i1, "ss_item_sk"),
+                                       (c1, "ss_customer_sk"), (a1, "c_current_addr_sk"),
+                                       (s1, "ss_store_sk")], mesh)
+    j = copying.apply_boolean_mask(j, (col("ca_zip5") != col("s_zip5")).evaluate(j))
+    agg = _groupby(j, ["i_brand_id", "i_manufact_id"],
+                   [("ss_ext_sales_price", "sum", "ext_price")], mesh)
+    order_keys = Table(
+        [agg.column("ext_price"), agg.column("i_brand_id"), agg.column("i_manufact_id")],
+        ["p", "b", "m"],
+    )
+    return sort_by_key(agg, order_keys, ascending=[False, True, True])
 
 
 # -- the reporting family: q42, q52, q55 --------------------------------------------
@@ -614,7 +694,12 @@ def q52(tables: Dict[str, Table], manager_id: int = 1, month: int = 11, year: in
 
 def q52_distributed(tables: Dict[str, Table], mesh, manager_id: int = 1, month: int = 11,
                     year: int = 2000) -> Table:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q52 on the distributed Table operators (q55's exchange plan, the
+    year re-attached). Bit-identical to ``q52``."""
+    agg = q55_distributed(tables, mesh, manager_id=manager_id, month=month, year=year)
+    return _attach_year_and_sort(
+        agg, year, "i_brand_id", ["d_year", "ext_price", "i_brand_id"], [True, False, True]
+    )
 
 
 def q55(tables: Dict[str, Table], manager_id: int = 28, month: int = 11, year: int = 1999) -> Table:
@@ -648,7 +733,19 @@ def _q55_pipeline(n_brands: int, manager_id: int, month: int, year: int):
 
 def q55_distributed(tables: Dict[str, Table], mesh, manager_id: int = 28, month: int = 11,
                     year: int = 1999) -> Table:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q55 on the distributed Table operators: the filtered dimensions
+    inner-join the fact across the mesh, then a distributed group-by.
+    Bit-identical to ``q55``."""
+    dates, item = tables["date_dim"], tables["item"]
+    dsel = ((col("d_moy") == lit(month)) & (col("d_year") == lit(year))).evaluate(dates)
+    d1 = _renamed(copying.apply_boolean_mask(dates, dsel), ["d_date_sk"], ["ss_sold_date_sk"])
+    isel = (col("i_manager_id") == lit(manager_id)).evaluate(item)
+    i1 = _renamed(copying.apply_boolean_mask(item, isel), ["i_item_sk", "i_brand_id"],
+                  ["ss_item_sk", "i_brand_id"])
+    j = _joins(tables["store_sales"], [(d1, "ss_sold_date_sk"), (i1, "ss_item_sk")], mesh)
+    agg = _groupby(j, ["i_brand_id"], [("ss_ext_sales_price", "sum", "ext_price")], mesh)
+    order_keys = Table([agg.column("ext_price"), agg.column("i_brand_id")], ["p", "b"])
+    return sort_by_key(agg, order_keys, ascending=[False, True])
 
 
 # -- q98 -------------------------------------------------------------------------
@@ -713,17 +810,27 @@ def _q98_pipeline(n_cats: int, n_brands: int, month: int, year: int):
 # -- q94 / q95 -------------------------------------------------------------------
 
 
-def _q95_family(tables: Dict[str, Table], returns_how: str, ship_lo: int, ship_hi: int) -> dict:
+def _q95_family(tables: Dict[str, Table], returns_how: str, ship_lo: int, ship_hi: int,
+                mesh=None) -> dict:
     """The plan q95 (EXISTS returns) and q94 (NOT EXISTS returns) share:
     per-order multi-warehouse detection, the ship-date filter, a semi join
     on the multi-warehouse orders, then a semi (q95) or anti (q94) join on
-    the returned orders, per-order sums and exact totals."""
+    the returned orders, per-order sums and exact totals. ``mesh=None``
+    runs the single-chip ops; a mesh runs both group-bys and both
+    membership joins on the distributed Table operators."""
+    from ..parallel.table_ops import distributed_join_table
+
     ws = tables["web_sales"]
-    per_order = groupby_aggregate(
-        ws.select(["ws_order_number"]),
-        ws.select(["ws_warehouse_sk"]),
-        [("ws_warehouse_sk", "min"), ("ws_warehouse_sk", "max")],
-    )
+    if mesh is None:
+        per_order = groupby_aggregate(
+            ws.select(["ws_order_number"]),
+            ws.select(["ws_warehouse_sk"]),
+            [("ws_warehouse_sk", "min"), ("ws_warehouse_sk", "max")],
+        )
+    else:
+        per_order = _groupby(ws, ["ws_order_number"],
+                             [("ws_warehouse_sk", "min", "ws_warehouse_sk_min"),
+                              ("ws_warehouse_sk", "max", "ws_warehouse_sk_max")], mesh)
     multi = (col("ws_warehouse_sk_min") != col("ws_warehouse_sk_max")).evaluate(per_order)
     ws_wh = copying.apply_boolean_mask(per_order, multi).select(["ws_order_number"])
 
@@ -735,14 +842,25 @@ def _q95_family(tables: Dict[str, Table], returns_how: str, ship_lo: int, ship_h
         & (col("ws_ship_date_sk") <= lit(np.int32(ship_hi)))
     ).evaluate(ws)
     ws1 = copying.apply_boolean_mask(ws, pred)
-    ws1 = left_semi_join(ws1, ws_wh, on=["ws_order_number"])
-    join2 = left_anti_join if returns_how == "left_anti" else left_semi_join
-    ws1 = join2(ws1, wr_keys, on=["ws_order_number"])
-    per = groupby_aggregate(
-        ws1.select(["ws_order_number"]),
-        ws1.select(["ws_ext_ship_cost", "ws_net_profit"]),
-        [("ws_ext_ship_cost", "sum"), ("ws_net_profit", "sum")],
-    )
+    if mesh is None:
+        ws1 = left_semi_join(ws1, ws_wh, on=["ws_order_number"])
+        join2 = left_anti_join if returns_how == "left_anti" else left_semi_join
+        ws1 = join2(ws1, wr_keys, on=["ws_order_number"])
+        per = groupby_aggregate(
+            ws1.select(["ws_order_number"]),
+            ws1.select(["ws_ext_ship_cost", "ws_net_profit"]),
+            [("ws_ext_ship_cost", "sum"), ("ws_net_profit", "sum")],
+        )
+    else:
+        ws1, o1 = distributed_join_table(ws1, ws_wh, on=["ws_order_number"], mesh=mesh,
+                                         how="left_semi")
+        ws1, o2 = distributed_join_table(ws1, wr_keys, on=["ws_order_number"], mesh=mesh,
+                                         how=returns_how)
+        if o1 or o2:
+            raise RuntimeError("join capacity overflow — raise capacity")
+        per = _groupby(ws1, ["ws_order_number"],
+                       [("ws_ext_ship_cost", "sum", "ws_ext_ship_cost_sum"),
+                        ("ws_net_profit", "sum", "ws_net_profit_sum")], mesh)
     return {
         "order_count": int(per.num_rows),
         "total_shipping_cost": _exact_total(per.column("ws_ext_ship_cost_sum")),
@@ -758,7 +876,8 @@ def q94(tables: Dict[str, Table], ship_lo: int = 400, ship_hi: int = 460) -> dic
 
 def q94_distributed(tables: Dict[str, Table], mesh, ship_lo: int = 400,
                     ship_hi: int = 460) -> dict:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q94 on the distributed Table operators; identical to ``q94``."""
+    return _q95_family(tables, "left_anti", int(ship_lo), int(ship_hi), mesh=mesh)
 
 
 def q95(tables: Dict[str, Table], ship_lo: int = 400, ship_hi: int = 460) -> dict:
@@ -781,4 +900,7 @@ def q95(tables: Dict[str, Table], ship_lo: int = 400, ship_hi: int = 460) -> dic
 
 def q95_distributed(tables: Dict[str, Table], mesh, ship_lo: int = 400,
                     ship_hi: int = 460) -> dict:
-    raise NotImplementedError(_DISTRIBUTED)
+    """q95 on the distributed Table operators: both group-bys and both
+    membership joins run as exchanges over the mesh. Identical to
+    ``q95``."""
+    return _q95_family(tables, "left_semi", int(ship_lo), int(ship_hi), mesh=mesh)

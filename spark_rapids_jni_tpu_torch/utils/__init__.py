@@ -1,2 +1,3 @@
-"""Host utilities of the port: the error taxonomy the data plane raises
-(``errors``) and the CRC contract of its frames (``integrity``)."""
+"""Host utilities of the port: the error taxonomy (``errors``), the CRC
+contract of its frames and exchanges (``integrity``) and the device-memory
+budget (``memory``)."""

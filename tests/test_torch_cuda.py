@@ -1603,3 +1603,143 @@ def test_nested_handles_on_the_card():
     assert s.device.type == "cuda" and s.validity.is_cuda and lst.offsets.is_cuda
     assert s.to_pylist() == [{"k": 0}, None, {"k": 2}, {"k": 3}]
     assert lst.to_pylist() == [[0], [], [1, 2, 3]]
+
+
+# -- the in-mesh distribution tier: 8 shards on one card against 8 on the CPU
+
+
+@pytest.fixture
+def meshes8():
+    from spark_rapids_jni_tpu_torch.parallel.mesh import make_mesh
+
+    return {dev: make_mesh({"data": 8}, devices=[torch.device(dev)] * 8)
+            for dev in ("cpu", "cuda:0")}
+
+
+def _on_both(fn, *arrays):
+    """``fn(mesh, *tensors)`` on the card's mesh and the CPU's."""
+    return [fn(dev, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays))
+            for dev in ("cuda:0", "cpu")]
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    if isinstance(x, (list, tuple)):
+        return [_host(y) for y in x]
+    return x
+
+
+def _assert_same(got, want):
+    if isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_same(g, w)
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    else:
+        assert got == want
+
+
+def test_exchange_on_the_card_matches_the_cpu_mesh(meshes8, rng):
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    n = 8 * 4096
+    vals = rng.integers(-2**62, 2**62, n, dtype=np.int64)
+    neg = rng.integers(-2**31, 0, n).astype(np.int32)
+    dest = rng.integers(0, 8, n).astype(np.int32)
+    got, want = _on_both(lambda dev, v, w, d: _host(shuffle.all_to_all_exchange(
+        [v, w], d, meshes8[dev])), vals, neg, dest)
+    _assert_same(got, want)
+    assert got[1].sum() == n and not got[2].any()
+
+
+def test_distributed_groupby_on_the_card_matches_the_cpu_mesh(meshes8, rng):
+    from spark_rapids_jni_tpu_torch.parallel import distributed
+
+    n = 8 * 4096
+    keys = rng.integers(0, 4096, n).astype(np.int64)
+    vals = rng.integers(0, 1000, n).astype(np.int64)
+    before = hk.partition_map.launches
+    got, want = _on_both(lambda dev, k, v: list(distributed.distributed_groupby_sum(
+        k, v, meshes8[dev])), keys, vals)
+    assert hk.partition_map.launches == before + 8  # B1 once a shard
+    _assert_same(got, want)
+    got, want = _on_both(lambda dev, a, b, v: list(distributed.distributed_groupby_sum_multi(
+        [a, b], v, meshes8[dev])), (keys % 64).astype(np.int32), (keys // 64).astype(np.int32),
+        vals)
+    _assert_same(got, want)
+
+
+def test_distributed_join_and_sort_on_the_card_match_the_cpu_mesh(meshes8, rng):
+    from spark_rapids_jni_tpu_torch.parallel import join_distributed, sort_distributed
+
+    n = 8 * 2048
+    lk, rk = rng.integers(0, 5000, n).astype(np.int64), np.arange(n, dtype=np.int64)
+    lv, rv = rng.integers(0, 1000, n).astype(np.int32), rng.standard_normal(n)
+    got, want = _on_both(lambda dev, *a: list(join_distributed.distributed_inner_join(
+        *a, meshes8[dev])), lk, lv, rk, rv)
+    _assert_same(got, want)
+    skewed = np.where(rng.random(n) < 0.9, 7, rng.integers(-2**62, 2**62, n)).astype(np.int64)
+    for keys in (rng.integers(-2**62, 2**62, n, dtype=np.int64), skewed):
+        for desc in (False, True):
+            got, want = _on_both(lambda dev, k: list(sort_distributed.distributed_sort(
+                k, meshes8[dev], descending=desc)), keys)
+            _assert_same(got, want)
+            assert not got[1]
+            np.testing.assert_array_equal(got[0], np.sort(keys)[::-1] if desc else np.sort(keys))
+
+
+@pytest.mark.parametrize("np_dt", [np.int32, np.int64])
+def test_single_key_destinations_run_b1(rng, np_dt):
+    from spark_rapids_jni_tpu_torch.parallel import distributed
+
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, 100_003).astype(np_dt))
+    before = hk.partition_map.launches
+    got = distributed._hash_dest(keys.cuda(), 8)
+    torch.cuda.synchronize()
+    assert hk.partition_map.launches == before + 1
+    assert torch.equal(got.cpu(), hk.partition_map_plain(keys, 8))
+    # composite keys chain murmur3: no B1
+    distributed._hash_dest_multi([keys.cuda(), keys.cuda()], 8)
+    assert hk.partition_map.launches == before + 1
+
+
+def test_exchange_overflow_raises_on_the_card(meshes8):
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils.errors import RetryableError
+
+    vals = torch.arange(8 * 64, device="cuda")
+    dest = torch.zeros((8 * 64,), dtype=torch.int32, device="cuda")
+    with pytest.raises(RetryableError):
+        shuffle.all_to_all_exchange([vals], dest, meshes8["cuda:0"], capacity=4)
+    (r,), m, o = shuffle.all_to_all_exchange([vals], dest, meshes8["cuda:0"], capacity=4,
+                                             on_overflow="retry")
+    assert r.is_cuda and not bool(o.any()) and int(m.sum()) == 8 * 64
+
+
+def test_table_tier_on_the_card_matches_the_cpu_mesh(meshes8):
+    from spark_rapids_jni_tpu_torch.models import tpcds
+
+    web = {dev: tpcds.gen_web(8000, seed=13, device=dev) for dev in ("cpu", "cuda")}
+    got = tpcds.q95_distributed(web["cuda"], meshes8["cuda:0"])
+    assert got == tpcds.q95_distributed(web["cpu"], meshes8["cpu"]) == tpcds.q95(web["cpu"])
+    store = {dev: tpcds.gen_store(20000, seed=12, device=dev) for dev in ("cpu", "cuda")}
+    g = tpcds.q52_distributed(store["cuda"], meshes8["cuda:0"])
+    w = tpcds.q52_distributed(store["cpu"], meshes8["cpu"])
+    assert g.names == w.names and g.num_rows == w.num_rows > 0
+    for a, b in zip(g.columns, w.columns):
+        assert a.data.is_cuda and torch.equal(a.data.cpu(), b.data)
+
+
+def test_mesh_and_executor_raise_without_a_card(monkeypatch):
+    from spark_rapids_jni_tpu_torch.parallel import device, mesh
+
+    assert mesh.make_mesh().shape == {"data": torch.cuda.device_count()}
+    assert device.device_for_executor(0).type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.device_for_executor(0)

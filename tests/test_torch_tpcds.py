@@ -4,8 +4,10 @@ gen_store_wide, gen_web, 0 and 1 rows included), and every single-chip
 query (q3, q7, q19, q42, q52, q55, q94, q95, q98) gives the JAX package's
 result bits, at default and other parameters, including ones that select
 nothing. q98's ratio is a float64 multiply and divide of bit-identical
-inputs, so it is held bit for bit too. The distributed variants raise,
-naming the roadmap item that ports the mesh operators."""
+inputs, so it is held bit for bit too. Each distributed variant (q7, q19,
+q52, q55, q94, q95) on an 8-shard CPU mesh gives the port's single-chip
+result bit for bit, and q95_distributed the JAX package's
+q95_distributed."""
 
 import numpy as np
 import pytest
@@ -137,14 +139,62 @@ def test_selective_cases_select_rows():
     assert port("gen_web", "q95", 13)["order_count"] > 0
 
 
-# -- what is not ported -------------------------------------------------------------
+# -- the distributed variants -------------------------------------------------------
+
+DISTRIBUTED = {  # query: (generator, seed, parameters), each selecting rows
+    "q7": ("gen_store_wide", 11, {}),
+    "q19": ("gen_store_wide", 12, {}),
+    "q52": ("gen_store", 12, {}),
+    "q55": ("gen_store", 11, {"manager_id": 29, "month": 3, "year": 2001}),
+    "q94": ("gen_web", 14, {}),
+    "q95": ("gen_web", 13, {}),
+}
 
 
-@pytest.mark.parametrize("name", ["q7_distributed", "q19_distributed", "q52_distributed",
-                                  "q55_distributed", "q94_distributed", "q95_distributed"])
-def test_distributed_variants_raise_naming_item_10(name):
-    with pytest.raises(NotImplementedError, match="section 1, item 10"):
-        getattr(ptpcds, name)({}, mesh=None)
+def _mesh8():
+    from spark_rapids_jni_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh({"data": 8}, devices=[torch.device("cpu")] * 8)
+
+
+def _assert_same_result(got, want):
+    """Port against port, bit for bit: a table's names, types, data bits
+    and null masks (the distributed group-by leaves out a validity the
+    single-chip pipeline carries all true, in both packages), or a
+    q94/q95 dict's count and float bits."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        assert got["order_count"] == want["order_count"]
+        for k in ("total_shipping_cost", "total_net_profit"):
+            assert np.float64(got[k]).view(np.uint64) == np.float64(want[k]).view(np.uint64), k
+        return
+    assert got.names == want.names and got.num_rows == want.num_rows
+    for name, g, w in zip(want.names, got.columns, want.columns):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g.data, w.data), name
+        assert torch.equal(g.valid_mask(), w.valid_mask()), name
+
+
+@pytest.mark.parametrize("name", sorted(DISTRIBUTED))
+def test_distributed_variant_matches_single_chip(name):
+    gen, seed, params = DISTRIBUTED[name]
+    pt = _tables(gen, seed)[1]
+    want = getattr(ptpcds, name)(pt, **params)
+    got = getattr(ptpcds, f"{name}_distributed")(pt, _mesh8(), **params)
+    _assert_same_result(got, want)
+    assert (want["order_count"] if isinstance(want, dict) else want.num_rows) > 0
+
+
+@pytest.mark.slow  # ~25 s: the JAX side compiles its four shard_map programs
+def test_q95_distributed_matches_reference():
+    """The port's q95_distributed against the JAX package's on conftest's
+    8 host devices, the same tables: count and float bits identical."""
+    from spark_rapids_jni_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    jt, pt = _tables("gen_web", 13)
+    got = ptpcds.q95_distributed(pt, _mesh8())
+    want = jtpcds.q95_distributed(jt, jmake_mesh({"data": 8}))
+    _assert_same_result(got, want)
 
 
 @pytest.mark.parametrize("gen", sorted(GENS))
