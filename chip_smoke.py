@@ -183,7 +183,32 @@ checkout (one nvcc per source, all at once), then on one card:
    and warm median-of-3 host ms, peak memory and a profile (device busy,
    idle share, launches); each exchange's padded wire bytes against its
    dense bytes; the phase's wall seconds;
-12. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+12. the RUNTIME path, the op boundary (``utils/dispatch.op_boundary``)
+   and the runtime core around the paths above, at their full sizes. On
+   the fixed and join paths' tables: one run each with metrics and
+   tracing armed inside one root trace, with every launch counter at 0,
+   bit for bit the disarmed run (the float32 sums within the path's
+   tolerance, their bit identity reported: B3 adds float64 atomics in no
+   fixed order), ``op.<name>.calls`` exactly the path's calls, the flight
+   recorder's trace one span a boundary under the root; a
+   ``torch.profiler`` trace in which each op's ``record_function`` range
+   holds its kernels' launches (``convert_to_rows`` B6,
+   ``convert_from_rows`` ``rows_to_planes``, ``hash_partition`` B1,
+   ``inner_join`` B4); a seeded retryable rule on ``convert_from_rows`` at
+   50% with retry armed (the path bit for bit, retries equal to the fires
+   ``random.Random(seed)`` predicts), a fatal rule on ``convert_to_rows``
+   (one attempt), and ``retry_with_split`` of ``convert_to_rows`` under a
+   300 MiB budget (the splits predicted and counted in
+   ``memory.split_retries``, the blob reassembled bit for bit). On the
+   distributed path's mesh: ``exchange_by_key`` with metrics armed
+   (``shuffle.bytes_exchanged`` the padded wire bytes; the retry
+   contract's capacity doublings counted as the largest bucket
+   predicts). Then the boundary's host cost a call (bare, wrapped and
+   disarmed, wrapped and armed; median of 1,000), a ``hang`` rule on
+   ``multiply128`` against ``deadline_s=0.2`` and a real out-of-memory in
+   a wrapped op (``RetryableError``); the fixed and join paths' warm times
+   with the boundary in place, the phase's and the script's wall seconds;
+13. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -3783,6 +3808,7 @@ def _dist_phase(wrappers, stars) -> tuple:
           f"the dimension's exchange a permutation, strings byte for byte; the join's multiset and "
           f"both sorts exact; the six TPC-DS queries bit-identical to single-chip; all {total} B1 "
           f"calls bit for bit their plain version: {check}", flush=True)
+    ex_default = out["exchange_by_key"]
     del out
     _dist_corruption(fact, mesh)
     wire = _wire_bytes(h, fact, dim)
@@ -3790,6 +3816,9 @@ def _dist_phase(wrappers, stars) -> tuple:
         print(f"distributed {k} exchange: capacity {w['capacity']}, padded wire "
               f"{w['wire_bytes']} B against dense {w['dense_bytes']} B "
               f"({w['wire_bytes'] / w['dense_bytes']:.1f}x)", flush=True)
+    # the runtime path's exchange check (d), on this mesh and batch
+    runtime_ex = _runtime_exchange(pmesh.shard_table_rows(fact, mesh), mesh, ex_default, wire)
+    del ex_default
     warm_ops = {k: v for k, v in ops.items() if k != "exchange_overflow_raise"}
     warm, peak, profiles = _warm_and_profile("distributed", warm_ops, stage,
                                              {"partition_map_kernel": hk.partition_map})
@@ -3798,6 +3827,7 @@ def _dist_phase(wrappers, stars) -> tuple:
           f"profiles)", flush=True)
     return ({**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], **check,
              "shards": DIST_SHARDS, "rows": DIST_ROWS, "b1_calls": calls, "wire": wire,
+             "runtime_exchange": runtime_ex,
              "peak_gib": peak, "phase_wall_s": wall, "launches": launches,
              "profile": profiles}, launches)
 
@@ -3861,6 +3891,400 @@ def _print_kernels(kernels):
                   flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the runtime path: the op boundary around the paths (knobs, metrics,
+# tracing, deadlines, retry, fault injection)
+# ---------------------------------------------------------------------------
+
+RUNTIME_CALLS = 1000  # calls a boundary-cost case is timed over (median)
+RUNTIME_FAULT_PERCENT = 50.0  # the seeded retryable rule on convert_from_rows
+RUNTIME_RETRY = dict(max_attempts=4, base_delay_ms=1.0, seed=SEED)
+RUNTIME_SPLIT_BUDGET = 300 << 20  # below the fixed batch's 792,000,000 B of rows
+HANG_DEADLINE_S = 0.2
+HANG_SLACK_S = 0.1  # the hang polls its deadline every 50 ms at most, and wakes 5 ms past it
+
+
+def _kernels_in_range(prof, range_name: str) -> list:
+    """Device kernels launched inside the ``record_function`` range(s)
+    named ``range_name`` of a finished ``torch.profiler`` session: those
+    whose runtime launch call (``cudaLaunch*`` / ``cuLaunch*``, matched by
+    its correlation id) starts within the range on the host."""
+    from torch.autograd import DeviceType
+
+    ev = prof.profiler.kineto_results.events()
+    ranges = [(e.start_ns(), e.end_ns()) for e in ev
+              if e.name() == range_name and e.device_type() == DeviceType.CPU]
+    corr = {e.correlation_id() for e in ev
+            if e.device_type() == DeviceType.CPU and e.name().startswith(("cudaLaunch", "cuLaunch"))
+            and any(s <= e.start_ns() <= t for s, t in ranges)}
+    return [e.name() for e in ev
+            if e.device_type() == DeviceType.CUDA and e.correlation_id() in corr]
+
+
+def _ranges_enclose(run, expect) -> dict:
+    """``run`` once under ``torch.profiler`` (host and device) with tracing
+    armed; every op range in ``expect`` must enclose the launch of a
+    kernel named like its value. A trace that misses one is taken again,
+    twice at most. Returns the kernels found under each range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_jni_tpu_torch.utils import tracing
+
+    run()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with tracing.enabled():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        found = {op: sorted({n[:60] for n in _kernels_in_range(prof, op)}) for op in expect}
+        missing = {op: k for op, k in expect.items() if not any(k in n for n in found[op])}
+        if not missing:
+            return {"ranges": found, "traces": attempt}
+        print(f"runtime: trace {attempt} shows no {missing} under the op ranges", flush=True)
+    raise AssertionError(f"the profiler shows no kernel {missing} inside the op ranges: {found}")
+
+
+def _armed_run(label: str, run, ops: dict) -> tuple:
+    """(b) ``run`` once with metrics and tracing armed, inside one root
+    trace ``path.<label>``: ``op.<name>.calls`` must be exactly ``ops``, and
+    the flight recorder's trace must hold one span a boundary crossed,
+    each a child of the root. Returns (run's result, summary)."""
+    from spark_rapids_jni_tpu_torch.utils import metrics, trace_sink, tracing
+
+    metrics.reset()
+    trace_sink.reset_for_tests()
+    t0 = time.perf_counter()
+    with metrics.enabled(), tracing.enabled():
+        qt = tracing.start_trace(f"path.{label}")
+        with qt.activate():
+            out = run()
+        qt.finish()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = {k[3:-6]: v for k, v in metrics.counters_snapshot().items()
+             if k.startswith("op.") and k.endswith(".calls") and v}
+    if calls != ops:
+        raise AssertionError(f"runtime {label}: op calls {calls}, the path makes {ops}")
+    rec = trace_sink.recorder().last(1)[0]
+    roots = [s for s in rec["spans"] if s["parent"] is None]
+    op_spans = [s for s in rec["spans"] if s["name"].startswith("op.")]
+    if (len(roots) != 1 or roots[0]["name"] != f"path.{label}" or rec["status"] != "ok"
+            or sorted(s["name"][3:] for s in op_spans) != sorted(
+                n for n, c in ops.items() for _ in range(c))
+            or any(s["parent"] != roots[0]["span"] for s in op_spans)):
+        raise AssertionError(f"runtime {label}: the flight recorder's trace is not one span a "
+                             f"boundary under the root: {trace_sink.render_trace(rec)}")
+    print(f"runtime {label}, armed (metrics and tracing): op calls {calls}; "
+          f"{wall_ms:.2f} ms host; flight recorder:\n{trace_sink.render_trace(rec)}", flush=True)
+    out_stats = {"op_calls": calls, "spans": len(op_spans), "armed_ms": wall_ms,
+                 "dispatch_tiers": {k: v for k, v in metrics.counters_snapshot().items()
+                                    if k.startswith("dispatch.tier.") and v}}
+    metrics.reset()
+    return out, out_stats
+
+
+def _same_sums(got, want, what: str) -> bool:
+    """Float32 sums against the disarmed run's: bit for bit expected; B3
+    adds float64 atomics in no fixed order, so the path's tolerance holds
+    them and whether they were bit-identical is reported."""
+    import torch
+
+    same = torch.equal(got, want)
+    if not same and not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"runtime {what}: sums outside the path's tolerance of the "
+                             "disarmed run")
+    return same
+
+
+def _predicted_fires(seed: int, attempts: int) -> int:
+    """Fires of a rule at ``RUNTIME_FAULT_PERCENT`` over one op's retried
+    attempts: the injector's draws, ``random.Random(seed).uniform(0,
+    100) < percent``, until one does not fire."""
+    import random
+
+    rng = random.Random(seed)
+    fires = 0
+    while fires < attempts and rng.uniform(0, 100) < RUNTIME_FAULT_PERCENT:
+        fires += 1
+    return fires
+
+
+def _split_plan(rows: int, row_bytes: int, budget: int, depth: int) -> tuple:
+    """(splits, batches) of retry_with_split over a batch that fails while
+    its rows' bytes exceed ``budget``."""
+    if rows * row_bytes <= budget or depth == 0 or rows < 2:
+        return 0, 1
+    a = _split_plan(rows // 2, row_bytes, budget, depth - 1)
+    b = _split_plan(rows - rows // 2, row_bytes, budget, depth - 1)
+    return 1 + a[0] + b[0], a[1] + b[1]
+
+
+def _runtime_fixed(wrappers, table, dtypes, layout, rows, dec, sums, counts) -> tuple:
+    """The runtime path on the fixed path's table: (b) the armed run, bit
+    for bit the disarmed one, and the op ranges around B6 and
+    rows_to_planes; (c) a seeded retryable fault on convert_from_rows
+    with retry armed, a fatal one on convert_to_rows, and retry_with_split
+    of convert_to_rows under a budget below the batch. Returns (summary,
+    launches of the armed run)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_jni_tpu_torch.utils import faultinj, memory, metrics, retry
+    from spark_rapids_jni_tpu_torch.utils.errors import FatalDeviceError
+
+    run = lambda: _main_path(table, dtypes, key=0, value=1)  # noqa: E731
+    (arm, stats), launches = _run_counted(
+        wrappers, lambda: _armed_run("fixed", run, {"convert_to_rows": 1, "convert_from_rows": 1}))
+    for k in FIXED_PATH_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"runtime fixed: the armed run never launched {k}")
+    if not (torch.equal(arm[0][0].child.data, rows[0].child.data)
+            and _same_columns(arm[1], dec) and torch.equal(arm[3], counts)):
+        raise AssertionError("runtime fixed: the armed run differs from the disarmed run")
+    stats["sums_bit_identical"] = _same_sums(arm[2], sums, "fixed")
+    del arm
+    stats["profiler"] = _ranges_enclose(
+        lambda: rc.convert_from_rows(rc.convert_to_rows(table)[0], dtypes),
+        {"convert_to_rows": "expand", "convert_from_rows": "rows_to_planes"})
+    print(f"runtime fixed: op ranges enclose their kernels: {stats['profiler']}", flush=True)
+
+    # (c) a seeded retryable fault with retry armed: the path finishes bit
+    # for bit, and retries equal the fires random.Random(seed) predicts
+    seed = next(s for s in range(SEED, SEED + 1000)
+                if 1 <= _predicted_fires(s, RUNTIME_RETRY["max_attempts"])
+                < RUNTIME_RETRY["max_attempts"])
+    predicted = _predicted_fires(seed, RUNTIME_RETRY["max_attempts"])
+    retry.reset_stats()
+    metrics.reset()
+    faultinj.configure({"seed": seed, "faults": {
+        "convert_from_rows": {"type": "retryable", "percent": RUNTIME_FAULT_PERCENT}}})
+    try:
+        t0 = time.perf_counter()
+        with retry.enabled(**RUNTIME_RETRY), metrics.enabled():
+            chaos = run()
+        chaos_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        faultinj.disable()
+    st = retry.stats()
+    fired = metrics.registry().value("retry.retries.RetryableError")
+    if not (st["retries"] == fired == predicted and st["exhausted"] == 0):
+        raise AssertionError(f"runtime fixed: {st['retries']} retries, {fired} counted fires, "
+                             f"{predicted} predicted by random.Random({seed})")
+    if not (torch.equal(chaos[0][0].child.data, rows[0].child.data)
+            and _same_columns(chaos[1], dec) and torch.equal(chaos[3], counts)):
+        raise AssertionError("runtime fixed: the path under a retried fault differs")
+    del chaos
+    stats["retryable"] = {"seed": seed, "fires": fired, "predicted": predicted, "ms": chaos_ms,
+                          "retry": st}
+    print(f"runtime fixed: retryable rule on convert_from_rows at {RUNTIME_FAULT_PERCENT:g}% "
+          f"(seed {seed}) fired {fired} times, {predicted} predicted by random.Random(seed); "
+          f"retry stats {st}; the path finished bit for bit in {chaos_ms:.2f} ms", flush=True)
+
+    # a fatal fault is attempted once, retry armed or not
+    retry.reset_stats()
+    faultinj.configure({"seed": seed, "faults": {"convert_to_rows": {"type": "fatal"}}})
+    try:
+        with retry.enabled(**RUNTIME_RETRY):
+            rc.convert_to_rows(table)
+        raise AssertionError("runtime fixed: a fatal rule did not raise")
+    except FatalDeviceError as e:
+        st = retry.stats()
+        if st["attempts"] != 1 or st["fatal"] != 1 or st["retries"] != 0:
+            raise AssertionError(f"runtime fixed: a fatal fault was retried: {st}")
+        print(f"runtime fixed: fatal rule on convert_to_rows raised FatalDeviceError ({e}) after "
+              f"{st['attempts']} attempt", flush=True)
+    finally:
+        faultinj.disable()
+    stats["fatal_attempts"] = 1
+
+    # retry_with_split under a budget below the batch: split and
+    # reassembled bit for bit; each budget-forced split counts in
+    # memory.split_retries, as the Table tier's split does
+    plan = _split_plan(ROWS, layout.row_size_fixed, RUNTIME_SPLIT_BUDGET,
+                       retry.RetryPolicy().split_depth)
+
+    def fits(b):
+        if b.num_rows * layout.row_size_fixed > memory.device_memory_budget(b.columns[0].device):
+            raise memory.MemoryBudgetExceeded(
+                f"{b.num_rows} rows of {layout.row_size_fixed} B over the budget")
+        return rc.convert_to_rows(b)
+
+    def split(b):
+        memory._note_split()
+        return retry._default_split(b)
+
+    retry.reset_stats()
+    before = memory.split_retry_count()
+    t0 = time.perf_counter()
+    with memory.budget(RUNTIME_SPLIT_BUDGET):
+        parts = retry.retry_with_split(fits, table, split=split, op_name="convert_to_rows",
+                                       combine=lambda ps: [c for p in ps for c in p],
+                                       policy=retry.RetryPolicy(base_delay_ms=0.0, seed=SEED))
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t0) * 1e3
+    nsplit = memory.split_retry_count() - before
+    blob = torch.cat([p.child.data for p in parts])
+    if not (nsplit == retry.stats()["splits"] == plan[0] and len(parts) == plan[1]
+            and sum(len(p) for p in parts) == ROWS and torch.equal(blob, rows[0].child.data)):
+        raise AssertionError(f"runtime fixed: retry_with_split made {nsplit} splits and "
+                             f"{len(parts)} batches, {plan} predicted, or its rows differ")
+    del parts, blob
+    stats["split"] = {"budget": RUNTIME_SPLIT_BUDGET, "splits": nsplit, "batches": plan[1],
+                      "ms": split_ms}
+    print(f"runtime fixed: retry_with_split(convert_to_rows) under a {RUNTIME_SPLIT_BUDGET} B "
+          f"budget made {nsplit} splits (memory.split_retries, as predicted) into {plan[1]} "
+          f"batches, reassembled bit for bit, in {split_ms:.2f} ms", flush=True)
+    return stats, launches
+
+
+def _runtime_join(wrappers, fact, dim, part, offsets, joined, sums, counts) -> tuple:
+    """The runtime path on the join path's tables: (b) the armed run, bit
+    for bit the disarmed one, and the op ranges around B1 and B4. Returns
+    (summary, launches of the armed run)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import join
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    (arm, stats), launches = _run_counted(
+        wrappers, lambda: _armed_run("join", lambda: _join_path(fact, dim),
+                                     {"hash_partition": 1, "inner_join": 1}))
+    for k in JOIN_PATH_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"runtime join: the armed run never launched {k}")
+    if not (_same_columns(arm[0], part) and arm[1] == offsets and _same_columns(arm[2], joined)
+            and torch.equal(arm[4], counts)):
+        raise AssertionError("runtime join: the armed run differs from the disarmed run")
+    stats["sums_bit_identical"] = _same_sums(arm[3], sums, "join")
+    del arm
+    stats["profiler"] = _ranges_enclose(
+        lambda: join.inner_join(shuffle.hash_partition(fact, PARTITIONS, ["item_sk"])[0], dim,
+                                ["item_sk"]),
+        {"hash_partition": "partition_map", "inner_join": "probe"})
+    print(f"runtime join: op ranges enclose their kernels: {stats['profiler']}", flush=True)
+    return stats, launches
+
+
+def _runtime_exchange(fact_s, mesh, default_out, wire: dict) -> dict:
+    """(d) ``exchange_by_key`` of the fact batch on the 8-shard mesh with
+    metrics armed: ``shuffle.bytes_exchanged`` must equal the padded wire
+    bytes the path prints; then the retry contract at a shard's rows / 64,
+    whose capacity doublings must be counted as predicted from the
+    largest bucket of the default-capacity exchange."""
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils import metrics, retry
+
+    metrics.reset()
+    with metrics.enabled():
+        shuffle.exchange_by_key(fact_s, ["item_sk"], mesh)
+    got = metrics.registry().value("shuffle.bytes_exchanged")
+    want = wire["exchange_by_key"]["wire_bytes"]
+    if got != want or metrics.registry().value("shuffle.exchanges") != 1:
+        raise AssertionError(f"runtime exchange: shuffle.bytes_exchanged {got} != wire {want}")
+    per = DIST_ROWS // DIST_SHARDS
+    cap = cap0 = per // DIST_SPLIT
+    biggest = int(default_out[1].sum(1).max())  # the fullest (source, destination) bucket
+    caps = [cap]
+    while cap < biggest and cap < per:
+        cap = min(2 * cap, per)
+        caps.append(cap)
+    row_bytes = want // (DIST_SHARDS * DIST_SHARDS * per)
+    metrics.reset()
+    retry.reset_stats()
+    with metrics.enabled():
+        shuffle.exchange_by_key(fact_s, ["item_sk"], mesh, capacity=cap0, on_overflow="retry")
+    reg = metrics.registry()
+    out = {"bytes_exchanged": got, "wire_bytes": want, "retry_capacities": caps,
+           "capacity_retries": reg.value("shuffle.capacity_retries"),
+           "retry_bytes": reg.value("shuffle.bytes_exchanged")}
+    if not (out["capacity_retries"] == retry.stats()["capacity_retries"] == len(caps) - 1
+            and out["retry_bytes"] == sum(DIST_SHARDS * DIST_SHARDS * c * row_bytes for c in caps)):
+        raise AssertionError(f"runtime exchange: the retry contract counted {out}, predicted "
+                             f"{len(caps) - 1} doublings through {caps}")
+    metrics.reset()
+    print(f"runtime exchange (metrics armed): shuffle.bytes_exchanged {got} = the padded wire "
+          f"bytes; the retry contract at capacity {cap0} doubled {len(caps) - 1} times through "
+          f"{caps} (largest bucket {biggest}), {out['retry_bytes']} B counted", flush=True)
+    return out
+
+
+def _boundary_cost() -> dict:
+    """(a) host microseconds a call, median of ``RUNTIME_CALLS``: a bare
+    function, the same wrapped by ``op_boundary`` and disarmed, and
+    wrapped with metrics and tracing armed (each armed call a one-op
+    trace: span, flight recorder, record_function and NVTX ranges)."""
+    from spark_rapids_jni_tpu_torch.utils import metrics, trace_sink, tracing
+    from spark_rapids_jni_tpu_torch.utils.dispatch import op_boundary
+
+    def bare(x):
+        return x
+
+    wrapped = op_boundary("runtime.noop")(bare)
+
+    def per_call_us(fn):
+        fn(1)
+        ns = []
+        for _ in range(RUNTIME_CALLS):
+            t0 = time.perf_counter_ns()
+            fn(1)
+            ns.append(time.perf_counter_ns() - t0)
+        return float(np.median(ns)) / 1e3
+
+    out = {"bare_us": per_call_us(bare), "disarmed_us": per_call_us(wrapped)}
+    with metrics.enabled(), tracing.enabled():
+        out["armed_us"] = per_call_us(wrapped)
+    metrics.reset()
+    trace_sink.reset_for_tests()
+    return out
+
+
+def _runtime_chaos() -> dict:
+    """(c) the rest of the chaos on the card: a ``hang`` on multiply128
+    against ``deadline_s``, and a real out-of-memory inside a wrapped op."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.ops import decimal_utils
+    from spark_rapids_jni_tpu_torch.utils import faultinj
+    from spark_rapids_jni_tpu_torch.utils.dispatch import op_boundary
+    from spark_rapids_jni_tpu_torch.utils.errors import DeadlineExceeded, RetryableError
+
+    limbs = torch.zeros((1000, 4), dtype=torch.int32, device="cuda")
+    a = Column(pdt.decimal128(SPARK_SCALE), data=limbs)
+    faultinj.configure({"faults": {"multiply128": {"type": "hang", "delayMs": 5000}}})
+    t0 = time.perf_counter()
+    try:
+        decimal_utils.multiply128(a, a, PRODUCT_SCALE, deadline_s=HANG_DEADLINE_S)
+        raise AssertionError("runtime: a hang under a deadline returned")
+    except DeadlineExceeded as e:
+        hang_s = time.perf_counter() - t0
+        msg = str(e)
+    finally:
+        faultinj.disable()
+    if hang_s > HANG_DEADLINE_S + HANG_SLACK_S:
+        raise AssertionError(f"runtime: the hang raised after {hang_s:.3f} s, past "
+                             f"{HANG_DEADLINE_S} + {HANG_SLACK_S} s")
+    print(f"runtime: hang rule on multiply128 with deadline_s={HANG_DEADLINE_S} raised "
+          f"DeadlineExceeded after {hang_s:.3f} s ({msg})", flush=True)
+
+    free, total = torch.cuda.mem_get_info()
+
+    @op_boundary("runtime.alloc")
+    def alloc(nbytes):
+        return torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+    try:
+        alloc(free + (1 << 30))
+        raise AssertionError("runtime: an allocation past the free memory returned")
+    except RetryableError as e:
+        if not isinstance(e.__cause__, torch.OutOfMemoryError):
+            raise
+        oom = str(e).splitlines()[0][:120]
+    print(f"runtime: a wrapped allocation of {free + (1 << 30)} B (free {free}) raised "
+          f"RetryableError: {oom}", flush=True)
+    return {"hang_s": hang_s, "hang_deadline_s": HANG_DEADLINE_S, "hang_slack_s": HANG_SLACK_S,
+            "oom_bytes": free + (1 << 30), "oom": "RetryableError"}
+
+
 def _kernels_only(rate: float) -> dict:
     """B3 on the fixed path's keys and B1, B4 and B3 on the join path's
     (``--kernels-only``): the same phases and inputs as a whole run,
@@ -3909,6 +4333,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is not importable here: {e}", file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     name, smi_line = _device_phase()
     _build_phase()
     rate = _mem_rate(name)
@@ -3957,6 +4382,17 @@ def main() -> int:
     print(f"fixed path checked against the numpy oracle: rows bit-identical on the first "
           f"{ORACLE_ROWS} rows, {len(dtypes)} decoded columns bit-identical, counts exact, "
           f"sums max abs err {sum_err:.3g} vs float64", flush=True)
+    t_rt = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    rt_fixed, rt_launches = _runtime_fixed(wrappers, table, dtypes, layout, rows, dec, sums, counts)
+    rt_wall = time.perf_counter() - t_rt
+    rt_fixed["allocated_before_after"] = (mem0, torch.cuda.memory_allocated())
+    print(f"runtime fixed: device bytes allocated before / after its checks "
+          f"{rt_fixed['allocated_before_after']}", flush=True)
+    # the checks' outputs are gone by now; a retried error kept alive by a
+    # reference cycle would hold a row blob (792 MB) until the collector ran
+    if rt_fixed["allocated_before_after"][1] > mem0 + (64 << 20):
+        raise AssertionError("runtime fixed: its checks left device memory allocated")
     del rows, dec
 
     def run_fixed():
@@ -4073,6 +4509,10 @@ def main() -> int:
           f"and left gather maps exact ({jcheck['inner_rows']} / {jcheck['left_rows']} rows), "
           f"every joined column (string offsets and chars included) bit-identical, counts exact, "
           f"sums max abs err {jcheck['sum_max_abs_err']:.3g} vs float64", flush=True)
+    t_rt = time.perf_counter()
+    rt_join, rt_jlaunches = _runtime_join(wrappers, fact, dim, part, offsets, joined, sums, counts)
+    rt_wall += time.perf_counter() - t_rt
+    rt_launches = {k: v + rt_jlaunches[k] for k, v in rt_launches.items()}
     del part, joined
 
     def run_join():
@@ -4324,6 +4764,29 @@ def main() -> int:
     paths["io"], iolaunches = _io_phase(wrappers)
     torch.cuda.empty_cache()
 
+    # -- the runtime path: the op boundary around the paths ------------------
+    # (its armed runs, profiler ranges, retry, fatal and split checks ran on
+    # the fixed and join paths' tables, its exchange check on the
+    # distributed path's mesh; the boundary's cost and the rest of the chaos
+    # here)
+    t_rt = time.perf_counter()
+    cost = _boundary_cost()
+    print(f"runtime boundary cost (host us a call, median of {RUNTIME_CALLS}): bare "
+          f"{cost['bare_us']:.3f}, wrapped disarmed {cost['disarmed_us']:.3f}, wrapped armed "
+          f"(metrics and tracing) {cost['armed_us']:.3f}", flush=True)
+    chaos = _runtime_chaos()
+    rt_wall += time.perf_counter() - t_rt
+    paths["runtime"] = {
+        "boundary_cost": cost, "fixed": rt_fixed, "join": rt_join, "chaos": chaos,
+        "exchange": paths["distributed"].pop("runtime_exchange"),
+        "warm_end_to_end_ms_with_boundary": {"fixed": warm["end_to_end_ms"],
+                                             "join": jwarm["end_to_end_ms"]},
+        "phase_wall_s": rt_wall, "launches": rt_launches}
+    print(f"runtime path: the fixed and join paths warm with the boundary in place (disarmed): "
+          f"{warm['end_to_end_ms']:.2f} / {jwarm['end_to_end_ms']:.2f} ms; armed runs "
+          f"{rt_fixed['armed_ms']:.2f} / {rt_join['armed_ms']:.2f} ms; launches of the armed runs "
+          f"{rt_launches}; phase {rt_wall:.1f} s wall", flush=True)
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -4363,7 +4826,7 @@ def main() -> int:
                               "onehot": olaunches[k], "tpch": tlaunches[k],
                               "tpcds": dlaunches[k], "distributed": mlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
-                              "io": iolaunches[k]},
+                              "io": iolaunches[k], "runtime": rt_launches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
@@ -4373,6 +4836,9 @@ def main() -> int:
                               "one_call_activities", "join_keys", "string_ops") if x in r}}
         for k, r in {**kernels, **skernels, **jkernels, **okernels}.items()
     ], "paths": paths, "card": smi_line}
+    script_s = time.perf_counter() - t_script
+    paths["runtime"]["script_wall_s"] = script_s
+    print(f"chip_smoke: the whole script took {script_s:.1f} s wall", flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

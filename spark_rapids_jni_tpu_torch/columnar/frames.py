@@ -199,6 +199,12 @@ def decode_parts(
         except (TypeError, ValueError) as e:
             raise integrity.raise_corruption(where, f"undecodable part ({e})")
         parts.append(FramePart(arr, type_id, scale, role, col, null_count))
+    if checked:
+        from ..utils import metrics
+
+        metrics.registry().counter(
+            "sidecar.integrity.frame_decodes_checked"
+        ).inc()
     return parts, pos
 
 

@@ -43,6 +43,7 @@ from ..columnar import Column, Table
 from ..columnar import dtype as dt
 from ..columnar.column import resolve_device, upload
 from . import codecs
+from ..utils.dispatch import op_boundary
 
 __all__ = ["read_table", "OrcReadError"]
 
@@ -746,6 +747,7 @@ def _assemble_nested(
     return _to_column_normalized(pieces, present_all, tnode, dev)
 
 
+@op_boundary("orc_read_table")
 def read_table(file_bytes: bytes, columns: Optional[List[str]] = None, device=None) -> Table:
     """Read an ORC file (flat or nested schema) into a Table on ``device``
     (None means the card)."""

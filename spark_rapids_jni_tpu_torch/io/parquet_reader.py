@@ -36,6 +36,7 @@ from ..columnar.column import resolve_device, upload
 from ..ops.bitutils import ragged_positions
 from . import codecs
 from . import thrift_compact as tc
+from ..utils.dispatch import op_boundary
 
 __all__ = ["read_table", "ParquetReadError"]
 
@@ -853,6 +854,7 @@ def _assemble(lnode, streams: Dict[int, Tuple[np.ndarray, Optional[np.ndarray], 
 # ---------------------------------------------------------------------------
 
 
+@op_boundary("read_table")
 def read_table(file_bytes: bytes, columns: Optional[List[str]] = None, device=None) -> Table:
     """Read a parquet file into a Table on ``device`` (None means the
     card). ``columns`` selects TOP-LEVEL fields by name; nested fields

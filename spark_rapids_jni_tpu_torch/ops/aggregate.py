@@ -30,6 +30,7 @@ from .copying import gather
 from .hopper_kernels import MAX_KEYS, groupby_sum_outer
 from .sort import _string_prefix_keys, sorted_order
 from .uword import MASK32, to_signed_bits
+from ..utils.dispatch import op_boundary
 
 __all__ = ["groupby_aggregate", "groupby_sum_bounded"]
 
@@ -262,6 +263,7 @@ def _from_total_order(key: torch.Tensor, d) -> torch.Tensor:
     return to_signed_bits(key, width)
 
 
+@op_boundary("groupby_aggregate")
 def groupby_aggregate(keys: Table, values: Table, aggs: Sequence[Tuple[str, str]]) -> Table:
     """GROUP BY ``keys``, computing ``aggs`` = [(value column name, how),
     ...]. Returns a Table of the unique keys followed by one column per

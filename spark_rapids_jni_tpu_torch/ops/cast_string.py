@@ -36,6 +36,7 @@ from ..columnar import Column
 from ..columnar.dtype import DType, TypeId
 from .strings import to_padded
 from .uword import SIGN64, to_signed_bits, u64_bits, ucmp64
+from ..utils.dispatch import op_boundary
 
 __all__ = ["CastError", "string_to_integer", "string_to_decimal"]
 
@@ -166,6 +167,7 @@ def _store_integer(signed_bits: torch.Tensor, out_dtype: DType) -> torch.Tensor:
     return to_signed_bits(signed_bits, width)
 
 
+@op_boundary("string_to_integer")
 def string_to_integer(col: Column, ansi_mode: bool, out_dtype: DType) -> Column:
     """String column -> integral column. Parity: cast_string.cu
     string_to_integer :763."""
@@ -205,6 +207,7 @@ def _validate_ansi(valid: torch.Tensor, source: Column) -> None:
         raise CastError(row, s)
 
 
+@op_boundary("string_to_decimal")
 def string_to_decimal(col: Column, ansi_mode: bool, precision: int, scale: int) -> Column:
     """String column -> decimal column (``cast_decimal``); here so that the
     public surface matches CastStrings.java (toInteger/toDecimal)."""

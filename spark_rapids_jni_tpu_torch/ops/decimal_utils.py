@@ -31,6 +31,7 @@ from ..columnar import dtype as dt
 from ..columnar.dtype import TypeId, decimal128
 from . import limbs as L
 from .uword import to_signed_bits, u32_to_i64
+from ..utils.dispatch import op_boundary
 
 __all__ = ["multiply128", "divide128"]
 
@@ -108,6 +109,7 @@ def _multiply(a: Column, b: Column, a_scale: int, b_scale: int, prod_scale: int)
     return L.to_twos_complement(product[..., :4], negative), overflow
 
 
+@op_boundary("multiply128")
 def multiply128(a: Column, b: Column, product_scale: int) -> Table:
     """Parity: DecimalUtils.multiply128 (DecimalUtils.java:40) ->
     cudf::jni::multiply_decimal128 (decimal_utils.cu:690-711)."""
@@ -172,6 +174,7 @@ def _divide(a: Column, b: Column, a_scale: int, b_scale: int, quot_scale: int):
     return quotient, overflow
 
 
+@op_boundary("divide128")
 def divide128(a: Column, b: Column, quotient_scale: int) -> Table:
     """Parity: DecimalUtils.divide128 (DecimalUtils.java:55) ->
     cudf::jni::divide_decimal128 (decimal_utils.cu:713-733)."""

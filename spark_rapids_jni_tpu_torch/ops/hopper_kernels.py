@@ -51,6 +51,7 @@ from .paged_join import (PAGE, PagedHashTable, bucket_of, compare_form, key_word
 from .ragged_bytes import build_pool32
 from .ragged_bytes import ragged_compact as ragged_compact_plain
 from .uword import split_u64, u32_to_i64
+from ..utils.dispatch import note_tier
 
 __all__ = [
     "MAX_KEYS",
@@ -484,10 +485,14 @@ def ragged_compact(
     offs[r]; uint8 [total]. ``offs`` [N+1] dense from 0, ``base`` [N],
     as ``ragged_bytes.ragged_compact`` documents. Kernel on CUDA tensors
     (it reads the byte pool itself and ignores ``pool32``), plain version
-    on CPU tensors (``pool32``: its word view, shared across columns)."""
+    on CPU tensors (``pool32``: its word view, shared across columns).
+    The reference's eager tier dispatcher (``ragged_compact_tiered``)
+    notes its tier here: ``dispatch.tier.cuda`` or ``dispatch.tier.torch``."""
     _check_compact(pool, [(base, offs, total)])
     if pool.device.type == "cpu":
+        note_tier("torch", "ragged_compact")
         return ragged_compact_plain(pool, base, offs, total, pool32=pool32)
+    note_tier("cuda", "ragged_compact")
     return _compact_launch(pool, [(base, None, offs, total)], ragged_compact)[0]
 
 

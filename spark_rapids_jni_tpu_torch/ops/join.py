@@ -20,7 +20,9 @@ match: inner joins drop such rows, left joins keep them with a null right
 side.
 
 Only the shape and size gates above choose the sort-probe; a failure to
-build or launch B4 on the card propagates.
+build or launch B4 on the card propagates. Each call notes its tier
+(``utils/dispatch.note_tier``): ``cuda`` when B4 served it, ``torch``
+otherwise.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .copying import concatenate, gather, gather_column
 from .hopper_kernels import probe_paged
 from .paged_join import build_paged_table
 from .sort import sorted_order
+from ..utils.dispatch import note_tier, op_boundary
 
 __all__ = [
     "join_gather_maps",
@@ -152,7 +155,10 @@ def join_gather_maps(
     if _paged_join_usable(left_keys, right_keys, how):
         maps = _paged_join_maps(left_keys, right_keys, how)
         if maps is not None:
+            # B4 on the card; its plain version on a CPU tensor
+            note_tier("cuda" if maps[0].is_cuda else "torch", "join_gather_maps")
             return maps
+    note_tier("torch", "join_gather_maps")
     nr = right_keys.num_rows
     probe_id, rid, rnull = _probe_ids(left_keys, right_keys)
     r_order = torch.argsort(rid, stable=True)
@@ -214,11 +220,13 @@ def _joined_table(left: Table, right: Table, lmap, rmap, on: Sequence[str]) -> T
     return Table(cols, names)
 
 
+@op_boundary("inner_join")
 def inner_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     lmap, rmap = join_gather_maps(left.select(on), right.select(on), "inner")
     return _joined_table(left, right, lmap, rmap, list(on))
 
 
+@op_boundary("left_join")
 def left_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     lmap, rmap = join_gather_maps(left.select(on), right.select(on), "left")
     return _joined_table(left, right, lmap, rmap, list(on))
@@ -240,6 +248,7 @@ def _coalesce(a: Column, b: Column, use_a: torch.Tensor) -> Column:
     return Column(a.dtype, data=torch.where(sel, a.data, b.data), validity=merged_valid)
 
 
+@op_boundary("full_join")
 def full_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     """Full outer join: every left row (null-extended right) plus every
     unmatched right row (null-extended left, key columns coalesced from
@@ -262,11 +271,13 @@ def full_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     return Table(cols, names)
 
 
+@op_boundary("left_semi_join")
 def left_semi_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     """Left rows with at least one right match (Spark's IN-subquery plan)."""
     return gather(left, semi_anti_gather_map(left.select(on), right.select(on), "semi"))
 
 
+@op_boundary("left_anti_join")
 def left_anti_join(left: Table, right: Table, on: Sequence[str]) -> Table:
     """Left rows with no right match (Spark's NOT EXISTS plan)."""
     return gather(left, semi_anti_gather_map(left.select(on), right.select(on), "anti"))

@@ -51,6 +51,7 @@ from ..columnar import dtype as dt
 from ..columnar.dtype import TypeId
 from . import strings
 from .utf8 import MAX_CODEPOINT, decode_padded
+from ..utils.dispatch import op_boundary
 
 __all__ = [
     "compile_pattern",
@@ -649,6 +650,7 @@ def _all_starts(prog: CompiledPattern, cp, cp_lens, endmask, want: str):
     return matched.t(), ends.t()
 
 
+@op_boundary("strings.contains_re")
 def contains_re(col: Column, pattern: str) -> Column:
     """Spark RLIKE: true iff the pattern matches anywhere in the string."""
     _check_string(col)
@@ -660,6 +662,7 @@ def contains_re(col: Column, pattern: str) -> Column:
     return Column(dt.BOOL8, data=hit.to(torch.uint8), validity=col.validity)
 
 
+@op_boundary("strings.matches_re")
 def matches_re(col: Column, pattern: str) -> Column:
     """Full-string match (cudf matches_re; Spark LIKE-via-regex path)."""
     _check_string(col)
@@ -711,6 +714,7 @@ def _greedy(ast) -> bool:
     return not (ast[0] == "rep" and ast[4] is False)
 
 
+@op_boundary("strings.extract_re")
 def extract_re(col: Column, pattern: str, group: int = 1) -> Column:
     """Spark regexp_extract(col, pattern, group): the capture group's
     text for the LEFTMOST match; '' when the pattern does not match
@@ -768,6 +772,7 @@ def extract_re(col: Column, pattern: str, group: int = 1) -> Column:
 _SPLIT_CHECK = 4
 
 
+@op_boundary("strings.split_re")
 def split_re(col: Column, pattern: str, limit: int = -1) -> List[Column]:
     """Spark split(str, regex, limit) — Java String.split semantics:
     limit > 0: at most `limit` tokens, last token = unsplit remainder;
@@ -850,6 +855,7 @@ def split_re(col: Column, pattern: str, limit: int = -1) -> List[Column]:
     return cols
 
 
+@op_boundary("strings.replace_re")
 def replace_re(col: Column, pattern: str, replacement: bytes) -> Column:
     """Spark regexp_replace(col, pattern, replacement) for patterns that
     cannot match the empty string (zero-width matches change Java's

@@ -60,6 +60,7 @@ from .ragged_bytes import (
     rows_to_planes_plain,
     var_accumulate,
 )
+from ..utils.dispatch import note_tier, op_boundary
 
 __all__ = [
     "RowLayout",
@@ -441,6 +442,7 @@ def _wrap_batch_as_list_column(
     return col
 
 
+@op_boundary("convert_to_rows")
 def convert_to_rows(table: Table) -> List[Column]:
     """Table -> one or more LIST<INT8> columns of JCUDF rows, at most
     2 GiB each (RowConversion.convertToRows)."""
@@ -630,6 +632,8 @@ def _assemble_from_rows(dtypes: Sequence[DType], datas, valids, blob, starts) ->
     str_idx = [i for i, d in enumerate(dtypes) if d.id == TypeId.STRING]
     built = {}
     if str_idx:
+        # the reference's tier note (pallas / xla) under the port's names
+        note_tier("cuda" if blob.is_cuda else "torch", "string_decode")
         offs = [_string_offsets(datas[i][1]) for i in str_idx]
         totals = torch.stack([o[-1] for o in offs]).tolist()
         chars = hopper_kernels.ragged_compact_many(
@@ -641,6 +645,7 @@ def _assemble_from_rows(dtypes: Sequence[DType], datas, valids, blob, starts) ->
                   for i, d in enumerate(dtypes)])
 
 
+@op_boundary("convert_from_rows")
 def convert_from_rows(rows: Column, dtypes: Sequence[DType]) -> Table:
     """LIST<INT8> column of JCUDF rows + schema -> Table
     (RowConversion.convertFromRows). The fixed sections go to word planes
@@ -691,6 +696,7 @@ class GroupedRows:
                                    self.blob, self.starts)
 
 
+@op_boundary("convert_from_rows_grouped")
 def convert_from_rows_grouped(rows: Column, dtypes: Sequence[DType]) -> GroupedRows:
     """LIST<INT8> rows + schema -> GroupedRows (no per-column buffers)."""
     dtypes = tuple(dtypes)
@@ -724,6 +730,7 @@ def _check_optimized(dtypes: Sequence[DType]) -> RowLayout:
     return layout
 
 
+@op_boundary("convert_to_rows_fixed_width_optimized")
 def convert_to_rows_fixed_width_optimized(table: Table) -> List[Column]:
     """Legacy <100-column fixed-width entry (RowConversion.java:118): the
     same JCUDF layout as convert_to_rows, after the limit checks."""
@@ -731,6 +738,7 @@ def convert_to_rows_fixed_width_optimized(table: Table) -> List[Column]:
     return convert_to_rows(table)
 
 
+@op_boundary("convert_from_rows_fixed_width_optimized")
 def convert_from_rows_fixed_width_optimized(rows: Column, dtypes: Sequence[DType]) -> Table:
     """Legacy fixed-width decode entry (RowConversion.java:158)."""
     _check_optimized(dtypes)

@@ -25,6 +25,7 @@ from ..columnar.dtype import TypeId
 from . import bitutils
 from .copying import gather
 from .uword import join_u64
+from ..utils.dispatch import op_boundary
 
 __all__ = ["sorted_order", "sort_by_key"]
 
@@ -96,6 +97,7 @@ def sorted_order(
     return order.to(torch.int32)
 
 
+@op_boundary("sort_by_key")
 def sort_by_key(values: Table, keys: Table, ascending=None, nulls_first=None) -> Table:
     order = sorted_order(keys, ascending, nulls_first)
     return gather(values, order)

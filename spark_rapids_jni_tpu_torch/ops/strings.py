@@ -31,6 +31,7 @@ from ..columnar.dtype import TypeId
 from . import hopper_kernels, ragged_bytes
 from .rowscan import cumsum_rows
 from .utf8 import _take_right, case_table, decode_padded, encode_padded
+from ..utils.dispatch import op_boundary
 
 __all__ = [
     "length",
@@ -104,6 +105,7 @@ def from_padded(padded: torch.Tensor, lens: torch.Tensor, validity=None) -> Colu
     return Column(dt.STRING, validity=validity, offsets=offs, chars=chars)
 
 
+@op_boundary("strings.length")
 def length(col: Column) -> Column:
     """Byte length per row (Spark length() on binary semantics)."""
     _check_string(col)
@@ -136,6 +138,7 @@ def _is_ascii(col: Column) -> bool:
     return bool((col.chars < 0x80).all())
 
 
+@op_boundary("strings.upper")
 def upper(col: Column) -> Column:
     """Spark upper(): Unicode 1:1 case map; a pure-ASCII batch takes the
     byte path (one host check, the same class of sync as the padded
@@ -146,6 +149,7 @@ def upper(col: Column) -> Column:
     return _case_map_unicode(col, to_upper=True)
 
 
+@op_boundary("strings.lower")
 def lower(col: Column) -> Column:
     _check_string(col)
     if _is_ascii(col):
@@ -167,6 +171,7 @@ def _take_cols(padded: torch.Tensor, begin: torch.Tensor, out_lens: torch.Tensor
     return torch.where(j < out_lens[:, None], torch.gather(padded, 1, src), 0)
 
 
+@op_boundary("strings.substring")
 def substring(col: Column, start: int, slen: Optional[int] = None) -> Column:
     """Spark SUBSTRING semantics: 1-based start; 0 treated as 1; negative
     start counts from the end; slen None -> to end of string."""
@@ -190,6 +195,7 @@ def substring(col: Column, start: int, slen: Optional[int] = None) -> Column:
     return from_padded(_take_cols(padded, begin, out_lens), out_lens, col.validity)
 
 
+@op_boundary("strings.concat")
 def concat(cols: Sequence[Column], separator: bytes = b"", null_policy: str = "propagate"
            ) -> Column:
     """Row-wise concatenation with a scalar separator.
@@ -264,6 +270,7 @@ def concat(cols: Sequence[Column], separator: bytes = b"", null_policy: str = "p
     return from_padded(out.to(torch.uint8), out_lens, validity)
 
 
+@op_boundary("strings.concat_ws")
 def concat_ws(cols: Sequence[Column], separator: bytes) -> Column:
     """Spark ``concat_ws``: null inputs skipped, never-null output."""
     return concat(cols, separator, null_policy="skip")
@@ -299,6 +306,7 @@ def _bool_col(data: torch.Tensor, validity) -> Column:
     return Column(dt.BOOL8, data=data.to(torch.uint8), validity=validity)
 
 
+@op_boundary("strings.contains")
 def contains(col: Column, pattern: bytes) -> Column:
     """Literal substring search (Spark Contains)."""
     _check_string(col)
@@ -306,12 +314,14 @@ def contains(col: Column, pattern: bytes) -> Column:
     return _bool_col(_match_every(padded, lens, pattern).any(dim=1), col.validity)
 
 
+@op_boundary("strings.startswith")
 def startswith(col: Column, pattern: bytes) -> Column:
     _check_string(col)
     padded, lens = to_padded(col)
     return _bool_col(_match_at(padded, lens, pattern, torch.zeros_like(lens)), col.validity)
 
 
+@op_boundary("strings.endswith")
 def endswith(col: Column, pattern: bytes) -> Column:
     _check_string(col)
     padded, lens = to_padded(col)
@@ -325,6 +335,7 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=1)
 
 
+@op_boundary("strings.strip")
 def strip(col: Column) -> Column:
     """Trim ASCII spaces both sides (Spark trim)."""
     _check_string(col)
@@ -340,6 +351,7 @@ def strip(col: Column) -> Column:
     return from_padded(_take_cols(padded, begin, out_lens), out_lens, col.validity)
 
 
+@op_boundary("strings.instr")
 def instr(col: Column, pattern: bytes) -> Column:
     """Spark instr/locate: 1-based CHARACTER position of the first literal
     occurrence, 0 when absent (empty pattern -> 1). A valid UTF-8 needle

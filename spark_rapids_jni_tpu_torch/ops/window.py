@@ -38,6 +38,7 @@ from ..columnar.dtype import TypeId
 from . import bitutils
 from .aggregate import _agg_column, _keys_equal_neighbor, _segment_ids
 from .sort import sorted_order
+from ..utils.dispatch import op_boundary
 
 __all__ = ["window_aggregate"]
 
@@ -72,6 +73,7 @@ def _segmented_cumsum(x: torch.Tensor, seg: torch.Tensor, starts: torch.Tensor) 
     return c - prev[starts][seg]
 
 
+@op_boundary("window_aggregate")
 def window_aggregate(
     table: Table,
     partition_by: Sequence[str],

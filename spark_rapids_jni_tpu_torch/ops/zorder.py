@@ -28,6 +28,7 @@ from ..columnar import dtype as dt
 from ..columnar.column import resolve_device
 from ..columnar.dtype import TypeId
 from .uword import split_u64, u32_to_i64
+from ..utils.dispatch import op_boundary
 
 __all__ = ["interleave_bits", "interleave_bits_table"]
 
@@ -71,6 +72,7 @@ def _column_as_bit_limbs(col: Column) -> torch.Tensor:
     return limbs
 
 
+@op_boundary("interleave_bits")
 def interleave_bits(num_rows: int, *columns: Column, device=None) -> Column:
     """Parity: ZOrder.interleaveBits (ZOrder.java:41) ->
     spark_rapids_jni::interleave_bits (zorder.cu:32).

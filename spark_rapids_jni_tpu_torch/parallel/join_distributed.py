@@ -21,6 +21,7 @@ import torch
 from . import mesh as mesh_mod
 from .distributed import _hash_dest, _lexsort_present_first
 from .shuffle import _exchange_shards
+from ..utils.dispatch import op_boundary
 
 __all__ = ["shard_join_pairs", "distributed_inner_join"]
 
@@ -71,6 +72,7 @@ def shard_join_pairs(
     return left_row.to(torch.int32), right_row, pair_valid, overflow
 
 
+@op_boundary("distributed_inner_join")
 def distributed_inner_join(
     left_key: torch.Tensor,  # [NL_global] row-sharded
     left_val: torch.Tensor,  # [NL_global]

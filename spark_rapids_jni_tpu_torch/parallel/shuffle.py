@@ -17,10 +17,18 @@ completed exchange verifies an order-independent checksum, the
 wraparound u64 sum of every lane's bit pattern (each value zero-extended
 from its width, a bool as one byte), and the occupied slots against the
 rows sent; a mismatch raises retryable ``DataCorruption``.
+
+Runtime: the three ops cross ``op_boundary``. With metrics armed, an
+exchange counts ``shuffle.bytes_exchanged`` (the capacity-padded bytes
+every attempt moved), ``shuffle.exchanges`` and the ``shuffle.exchange_us``
+histogram; a capacity doubling is a deadline cancel point and counts in
+``retry.record_capacity_retry`` (``shuffle.capacity_retries``). The
+reference's memory-governor check of a doubled capacity is not ported.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -30,15 +38,17 @@ from ..columnar.dtype import TypeId
 from ..ops.copying import gather
 from ..ops.hashing import hash_partition_map
 from ..ops.uword import MASK32, split_u64
-from ..utils import integrity
+from ..utils import deadline, integrity, metrics, retry
 from ..utils.errors import RetryableError
 from . import mesh as mesh_mod
+from ..utils.dispatch import op_boundary
 
 __all__ = ["hash_partition", "all_to_all_exchange", "exchange_by_key"]
 
 _ON_OVERFLOW = ("raise", "flag", "retry")
 
 
+@op_boundary("hash_partition")
 def hash_partition(table: Table, num_partitions: int,
                    key_cols: Sequence[str]) -> Tuple[Table, List[int]]:
     """Single-device cudf-style hash_partition: rows reordered so that
@@ -161,6 +171,7 @@ def _check_on_overflow(on_overflow: str) -> None:
         )
 
 
+@op_boundary("all_to_all_exchange")
 def all_to_all_exchange(
     arrays: Sequence[torch.Tensor],
     dest: torch.Tensor,
@@ -186,17 +197,35 @@ def all_to_all_exchange(
     per_shard = n_global // n_parts
     if capacity is None:
         capacity = per_shard  # safe: one shard can absorb everything
+    armed = metrics.is_enabled()
     checked = integrity.is_enabled()
     sent_sum = _exchange_checksum(arrays) if checked else None
+    # per-GLOBAL-ROW wire cost: the exchange moves capacity-padded
+    # [P, capacity] buckets a shard for each array (not the dense rows)
+    # plus the 1-byte occupancy mask a slot; it changes every time the
+    # escalation doubles the capacity
+    row_bytes = (
+        sum(a.element_size() * a.numel() // max(a.shape[0], 1) for a in arrays) + 1
+        if armed else 0
+    )
+    t0 = time.perf_counter() if armed else 0.0
+    wire_bytes = 0
     while True:
         received, recv_mask, overflow = _exchange_once(
             arrays, dest, mesh, axis, int(capacity), n_parts
         )
+        if armed:
+            # bytes THIS execution moved (an overflowed attempt moved its
+            # buckets too)
+            attempt_bytes = n_parts * n_parts * int(capacity) * row_bytes
+            wire_bytes += attempt_bytes
+            metrics.counter("shuffle.bytes_exchanged").inc(attempt_bytes)
         overflowed = bool(overflow.any())
         if not overflowed or on_overflow == "flag":
             if checked and not overflowed:
                 # a flagged overflow dropped rows on purpose (the caller's
                 # recompute contract); only complete exchanges are verified
+                metrics.registry().counter("sidecar.integrity.exchanges_checked").inc()
                 recv_sum = _exchange_checksum(received)
                 recv_rows = int(recv_mask.sum())
                 if recv_sum != sent_sum or recv_rows != int(n_global):
@@ -205,11 +234,29 @@ def all_to_all_exchange(
                         f"sent 0x{sent_sum:016x}/{int(n_global)} rows != "
                         f"recv 0x{recv_sum:016x}/{recv_rows} rows",
                     )
+            if armed:
+                elapsed = time.perf_counter() - t0
+                metrics.counter("shuffle.exchanges").inc()
+                metrics.histogram("shuffle.exchange_us").record(elapsed * 1e6)
+                metrics.event(
+                    "shuffle.exchange", axis=axis, n_parts=n_parts,
+                    capacity=int(capacity), wire_bytes=wire_bytes,
+                    wall_us=round(elapsed * 1e6, 1), overflow=overflowed,
+                )
             return received, recv_mask, overflow
         if on_overflow == "retry" and capacity < per_shard:
+            # a cancel point between attempts: no escalated re-execution
+            # starts once the query's budget is gone
+            deadline.check("all_to_all_exchange.capacity_retry")
             # geometric escalation: at most ceil(log2(per_shard / cap0))
             # re-executions before the capacity that cannot overflow
-            capacity = min(2 * int(capacity), per_shard)
+            new_capacity = min(2 * int(capacity), per_shard)
+            metrics.event(
+                "shuffle.capacity_escalation", axis=axis,
+                capacity=int(capacity), new_capacity=int(new_capacity),
+            )
+            capacity = new_capacity
+            retry.record_capacity_retry()
             continue
         raise RetryableError(
             f"all_to_all_exchange: a destination shard received more than "
@@ -218,6 +265,7 @@ def all_to_all_exchange(
         )
 
 
+@op_boundary("exchange_by_key")
 def exchange_by_key(
     table: Table,
     key_cols: Sequence[str],

@@ -26,10 +26,12 @@ import torch
 from . import mesh as mesh_mod
 from .distributed import _lexsort_present_first
 from .shuffle import _exchange_shards
+from ..utils.dispatch import op_boundary
 
 __all__ = ["distributed_sort"]
 
 
+@op_boundary("distributed_sort")
 def distributed_sort(
     keys: torch.Tensor,  # [N_global] integer keys, row-sharded
     mesh,

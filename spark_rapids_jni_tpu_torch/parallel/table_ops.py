@@ -54,6 +54,7 @@ from . import mesh as mesh_mod
 from .distributed import _lexsort_present_first, _scatter_keys, _segments
 from .join_distributed import shard_join_pairs
 from .shuffle import _exchange_shards
+from ..utils.dispatch import op_boundary
 
 __all__ = [
     "dict_encode",
@@ -186,6 +187,7 @@ def _fits(row_bytes: int, n_parts: int, capacity: int, device) -> bool:
             <= memory.device_memory_budget(device))
 
 
+@op_boundary("exchange_table")
 def exchange_table(
     table: Table,
     key_cols: Sequence[str],
@@ -349,6 +351,7 @@ def _shard_groupby_aggs(key_arrays, val_arrays, hows, present, val_present, capa
     return _scatter_keys(ks, seg, capacity), aggs, agg_valid, group_valid, overflow
 
 
+@op_boundary("distributed_groupby_table")
 def distributed_groupby_table(
     table: Table,
     key_cols: Sequence[str],
@@ -597,6 +600,7 @@ def _hash64(key_arrays) -> torch.Tensor:
     return join_u64(h1, h2)
 
 
+@op_boundary("distributed_join_table")
 def distributed_join_table(
     left: Table,
     right: Table,

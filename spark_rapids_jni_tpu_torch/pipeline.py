@@ -22,10 +22,10 @@ contract (a plan bound once, called per batch). What the body does:
   the bounded group-by (B3 on the card).
 
 Host syncs, as in the reference: the join mis-declaration counts, the
-out-of-domain count, and the group counts for the compaction. The
-reference's runtime services around the call (metrics counters, deadline
-scopes, op_boundary) and its spillable build tables (memgov) are not
-ported.
+out-of-domain count, and the group counts for the compaction. The call
+crosses ``op_boundary("compiled_pipeline")`` and counts
+``pipeline.compiles`` / ``batches`` / ``rows`` as the reference does; its
+spillable build tables (memgov) are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ from .ops.aggregate import _from_total_order, _int_values, groupby_sum_bounded
 from .ops.expressions import Expression
 from .ops.f64acc import (i64_to_f64bits, mean_i64_div, segment_mean_f64bits, segment_rows,
                          segment_sum_f64bits, u64_to_f64bits)
+from .utils import deadline, metrics
+from .utils.dispatch import op_boundary
 
 __all__ = ["Agg", "GroupKey", "JoinSpec", "PlanSpec", "CompiledPipeline", "compile_plan"]
 
@@ -129,6 +131,7 @@ class CompiledPipeline:
 
     def __init__(self, plan: PlanSpec):
         self.plan = plan
+        metrics.counter("pipeline.compiles").inc()
 
     def register_build(self, name: str, table: Table) -> None:
         raise NotImplementedError(
@@ -218,14 +221,23 @@ class CompiledPipeline:
             aggs[agg.out_name] = _grouped_agg(col, col.validity, gid, num, agg.how, counts_all)
         return aggs, counts_all, num, n_out_of_domain, n_dup, n_bad_build
 
+    @op_boundary("compiled_pipeline")
     def __call__(self, table: Table, builds: Optional[Dict[str, Table]] = None) -> Table:
-        """One batch through the plan."""
+        """One batch through the plan. ``op_boundary`` makes this a
+        deadline-scoped dispatch (``deadline_s=`` or the ambient knob),
+        with a cancel point between the body and the host-side result
+        materialization."""
         plan = self.plan
+        metrics.counter("pipeline.batches").inc()
+        metrics.counter("pipeline.rows").inc(table.num_rows)
         want = {js.build for js in plan.joins}
         have = set(builds or {})
         if want != have:
             raise ValueError(f"plan needs build tables {sorted(want)}, got {sorted(have)}")
         aggs, counts_all, num, n_oob, n_dup, n_bad_build = self._run(table, builds or {})
+        # cancel point: a query whose budget died in the body stops here,
+        # before the host syncs and the compaction
+        deadline.check("compiled_pipeline")
         if plan.joins:
             dups, bad_build = int(n_dup), int(n_bad_build)
             if dups:

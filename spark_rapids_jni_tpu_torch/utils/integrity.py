@@ -10,10 +10,14 @@ so the producer and the consumer of a frame must resolve the same one:
 ``checksum_name()`` says which.
 
 The gate (``enable`` / ``disable`` / ``is_enabled`` and the ``enabled()``
-/ ``disabled()`` context managers) is on by default, as the reference's
-is. While it is off, frames go out without CRCs and decodes verify
-nothing. The reference's environment switch and its mismatch counters
-come with the port's runtime services.
+/ ``disabled()`` context managers) starts from the knob
+``SRJTORCH_INTEGRITY_CHECKS`` (on by default, as the reference's is).
+While it is off, frames go out without CRCs, decodes verify nothing and
+exchanges skip their checksum. Every mismatch counts registry-direct
+under ``sidecar.integrity.crc_mismatch`` and
+``sidecar.integrity.crc_mismatch.<where>`` (the reference's names);
+``stats_section()`` reports them with the checked-decode and
+checked-exchange tallies.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import contextlib
 import struct
 import zlib
 
+from . import knobs
 from .errors import DataCorruption
 
 __all__ = [
@@ -37,6 +42,7 @@ __all__ = [
     "CRC_LEN",
     "pack_crc",
     "unpack_crc",
+    "stats_section",
 ]
 
 CRC_LEN = 4  # the trailer is one little-endian u32, whatever the implementation
@@ -74,12 +80,12 @@ def unpack_crc(raw: bytes, offset: int = 0) -> int:
     return struct.unpack_from("<I", raw, offset)[0]
 
 
-_enabled = True
+_enabled = knobs.get_bool("SRJTORCH_INTEGRITY_CHECKS")
 
 
 def enable() -> None:
     global _enabled
-    _enabled = True
+    _enabled = knobs.get_bool("SRJTORCH_INTEGRITY_CHECKS")
 
 
 def disable() -> None:
@@ -95,7 +101,7 @@ def is_enabled() -> bool:
 def enabled():
     global _enabled
     prev = _enabled
-    _enabled = True
+    _enabled = knobs.get_bool("SRJTORCH_INTEGRITY_CHECKS")
     try:
         yield
     finally:
@@ -114,8 +120,15 @@ def disabled():
 
 
 def raise_corruption(where: str, detail: str = "") -> DataCorruption:
-    """The DataCorruption to raise for a mismatch in ``where``
-    (``raise raise_corruption(...)``), with the reference's message."""
+    """Count a CRC mismatch (total + per-surface) and return the
+    DataCorruption to raise (``raise raise_corruption(...)``, so the
+    counter cannot drift from the error), with the reference's message."""
+    from . import metrics
+
+    reg = metrics.registry()
+    reg.counter("sidecar.integrity.crc_mismatch").inc()
+    reg.counter(f"sidecar.integrity.crc_mismatch.{where}").inc()
+    metrics.event("integrity.crc_mismatch", where=where, detail=detail)
     return DataCorruption(
         f"CRC mismatch in {where}{f' ({detail})' if detail else ''} — "
         "payload corrupted in flight or at rest; re-fetch required"
@@ -132,3 +145,21 @@ def verify(data, expected_crc: int, where: str) -> None:
         raise raise_corruption(
             where, f"expected 0x{expected_crc & 0xFFFFFFFF:08x}, got 0x{got:08x}"
         )
+
+
+def stats_section() -> dict:
+    """The ``integrity`` section of a stats report."""
+    from . import metrics
+
+    reg = metrics.registry()
+    return {
+        "enabled": _enabled,
+        "algorithm": _CRC_NAME,
+        "crc_mismatch": reg.value("sidecar.integrity.crc_mismatch"),
+        "frames_checked": reg.value("sidecar.integrity.frames_checked"),
+        "spills_checked": reg.value("sidecar.integrity.spills_checked"),
+        "exchanges_checked": reg.value("sidecar.integrity.exchanges_checked"),
+        "frame_decodes_checked": reg.value(
+            "sidecar.integrity.frame_decodes_checked"
+        ),
+    }

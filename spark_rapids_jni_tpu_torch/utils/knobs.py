@@ -1,0 +1,301 @@
+"""The port's environment knob registry and typed accessors (port of the
+JAX package's ``utils/knobs.py``).
+
+Every knob the port reads is declared here once (name, type, default,
+validation, one-line doc) and read through the typed ``get_*``
+accessors; no other module of the port reads ``os.environ`` for a knob.
+The names carry the port's own prefix, ``SRJTORCH_``, followed by the
+reference knob's suffix (``SRJTORCH_RETRY_ENABLED`` is the counterpart of
+the reference's ``RETRY_ENABLED`` knob), so that the reference's knob
+linter, which scans for its own prefix, never sees a port knob.
+
+Parsing posture, as the reference's: a malformed value WARNS and falls
+back to the declared default (a bad knob degrades the feature, never an
+import or a query); ``positive=True`` knobs also reject values <= 0 and
+``minimum`` clamps an int from below. The accessors read the environment
+live on every call; modules that latch a value at import (the metrics,
+tracing, retry and integrity gates) do so at their own import site.
+
+Only the knobs of the modules the port has are declared: retry, deadline
+and breaker, metrics (with the adaptive-timeout reader), tracing and the
+flight recorder, integrity, fault injection and the device-memory
+budget. ``markdown_table()`` renders them for the README.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, Optional
+
+__all__ = [
+    "PREFIX",
+    "Knob",
+    "declare",
+    "knob",
+    "all_knobs",
+    "names",
+    "is_declared",
+    "is_set",
+    "get_raw",
+    "get_str",
+    "get_bool",
+    "get_int",
+    "get_float",
+    "env_float",
+    "markdown_table",
+]
+
+PREFIX = "SRJTORCH_"
+
+_TRUE = ("1", "true", "yes")
+_FALSE = ("0", "false", "no")
+
+
+class Knob:
+    """One declared knob: the registry row and its validation spec."""
+
+    __slots__ = ("name", "type", "default", "doc", "positive", "minimum",
+                 "choices", "scope")
+
+    def __init__(self, name, type, default, doc, positive=False,
+                 minimum=None, choices=None, scope="python"):
+        self.name = name
+        self.type = type  # "bool" | "int" | "float" | "str"
+        self.default = default
+        self.doc = doc
+        self.positive = positive  # floats/ints: value must be > 0
+        self.minimum = minimum  # ints: clamp floor
+        self.choices = choices  # strs: allowed values (warn + default)
+        self.scope = scope
+
+
+_REGISTRY: Dict[str, Knob] = {}
+
+
+def declare(name: str, type: str, default, doc: str, **kw) -> Knob:
+    if name in _REGISTRY:
+        raise ValueError(f"knob {name} declared twice")
+    if not name.startswith(PREFIX):
+        raise ValueError(f"knob {name} must carry the {PREFIX} prefix")
+    k = Knob(name, type, default, doc, **kw)
+    _REGISTRY[name] = k
+    return k
+
+
+def knob(name: str) -> Knob:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"undeclared knob {name!r}: declare it in "
+            "spark_rapids_jni_tpu_torch/utils/knobs.py"
+        ) from None
+
+
+def all_knobs() -> Iterable[Knob]:
+    return [_REGISTRY[n] for n in sorted(_REGISTRY)]
+
+
+def names() -> frozenset:
+    return frozenset(_REGISTRY)
+
+
+def is_declared(name: str) -> bool:
+    return name in _REGISTRY
+
+
+def _warn(msg: str) -> None:
+    import warnings
+
+    warnings.warn(f"knobs: {msg}", stacklevel=3)
+
+
+def get_raw(name: str, env=None) -> Optional[str]:
+    """The raw environment string for a declared knob, or None when
+    unset. The untyped escape hatch: prefer the typed accessors."""
+    knob(name)  # undeclared reads fail loudly, even through the API
+    return (os.environ if env is None else env).get(name)
+
+
+def is_set(name: str, env=None) -> bool:
+    """True when the knob is present AND non-empty in the environment."""
+    return bool(get_raw(name, env))
+
+
+def get_str(name: str, env=None, default=...) -> Optional[str]:
+    k = knob(name)
+    if default is ...:
+        default = k.default
+    raw = get_raw(name, env)
+    if raw is None or raw == "":
+        return default
+    if k.choices and raw.lower() not in k.choices:
+        _warn(f"unknown {name}={raw!r}; using {default!r}")
+        return default
+    return raw.lower() if k.choices else raw
+
+
+def get_bool(name: str, env=None, default=...) -> bool:
+    """Tri-state text -> bool: explicit true/false spellings win, any
+    other spelling warns and keeps the default, unset or empty keeps it
+    silently."""
+    k = knob(name)
+    if default is ...:
+        default = k.default
+    raw = get_raw(name, env)
+    if raw is None or raw == "":
+        return bool(default)
+    low = raw.lower()
+    if low in _TRUE:
+        return True
+    if low in _FALSE:
+        return False
+    _warn(f"ignoring malformed {name}={raw!r}; using {bool(default)!r}")
+    return bool(default)
+
+
+def get_int(name: str, env=None, default=...) -> Optional[int]:
+    k = knob(name)
+    if default is ...:
+        default = k.default
+    raw = get_raw(name, env)
+    if raw is None or raw == "":
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        _warn(f"ignoring malformed {name}={raw!r}; using {default!r}")
+        return default
+    if k.positive and v <= 0:
+        _warn(f"{name}={raw!r} must be > 0; keeping default {default!r}")
+        return default
+    if k.minimum is not None:
+        v = max(v, k.minimum)
+    return v
+
+
+def get_float(name: str, env=None, default=...) -> Optional[float]:
+    k = knob(name)
+    if default is ...:
+        default = k.default
+    return env_float(os.environ if env is None else env, name, default,
+                     positive=k.positive)
+
+
+def env_float(env, key: str, default, positive: bool = False):
+    """Parse a float knob out of a mapping, warning and falling back to
+    ``default`` on malformed input and, with ``positive=True``, on
+    values <= 0."""
+    raw = env.get(key)
+    if raw is None or raw == "":
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        _warn(f"ignoring malformed {key}={raw!r}")
+        return default
+    if positive and v <= 0:
+        _warn(f"{key}={raw!r} must be > 0; keeping default {default}")
+        return default
+    return v
+
+
+def markdown_table(scope: Optional[str] = None) -> str:
+    """The registry as the markdown knob table the README embeds."""
+    rows = ["| knob | type | default | description |",
+            "|---|---|---|---|"]
+    for k in all_knobs():
+        if scope is not None and k.scope != scope:
+            continue
+        d = "—" if k.default is None else repr(k.default).strip("'\"")
+        rows.append(f"| `{k.name}` | {k.type} | `{d}` | {k.doc} |")
+    return "\n".join(rows)
+
+
+# ---------------------------------------------------------------------------
+# the registry, grouped by subsystem; types, defaults and validation are
+# the reference's
+# ---------------------------------------------------------------------------
+
+# retry orchestrator (utils/retry.py)
+declare("SRJTORCH_RETRY_ENABLED", "bool", False,
+        "arm op-boundary retry (bounded backoff + retry-with-split)")
+declare("SRJTORCH_RETRY_MAX_ATTEMPTS", "int", 4,
+        "total attempts incl. the first", positive=True)
+declare("SRJTORCH_RETRY_BASE_DELAY_MS", "float", 25.0, "first backoff delay")
+declare("SRJTORCH_RETRY_MAX_DELAY_MS", "float", 1000.0, "backoff ceiling")
+declare("SRJTORCH_RETRY_JITTER", "float", 0.25,
+        "multiplicative jitter fraction in [0,1)")
+declare("SRJTORCH_RETRY_SPLIT_DEPTH", "int", 3,
+        "max halvings in retry_with_split")
+declare("SRJTORCH_RETRY_SEED", "int", None,
+        "jitter RNG seed (deterministic chaos runs)")
+
+# deadlines + circuit breaker (utils/deadline.py)
+declare("SRJTORCH_DEADLINE_SEC", "float", None,
+        "ambient per-query wall-clock budget in seconds (unset: "
+        "unbounded)", positive=True)
+declare("SRJTORCH_BREAKER_THRESHOLD", "int", 5,
+        "consecutive failures before a circuit breaker opens",
+        positive=True)
+declare("SRJTORCH_BREAKER_COOLDOWN_SEC", "float", 30.0,
+        "breaker open -> half-open probe delay", positive=True)
+
+# metrics (utils/metrics.py)
+declare("SRJTORCH_METRICS_ENABLED", "bool", False,
+        "arm hot-path instrumentation (per-op wall time, shuffle "
+        "bytes, retry/backoff counters per error class)")
+declare("SRJTORCH_METRICS_LOG", "str", None,
+        "append one JSON object per runtime event to this path "
+        "(line-atomic, shareable across processes)")
+declare("SRJTORCH_ADAPTIVE_TIMEOUT_ENABLED", "bool", True,
+        "derive deadlines from observed latency quantiles (q99 x "
+        "multiplier) once enough samples exist")
+declare("SRJTORCH_ADAPTIVE_TIMEOUT_MULT", "float", 4.0,
+        "adaptive deadline = observed op q99 x this multiplier",
+        positive=True)
+declare("SRJTORCH_ADAPTIVE_TIMEOUT_FLOOR_S", "float", 10.0,
+        "adaptive deadlines never shrink below this floor", positive=True)
+declare("SRJTORCH_ADAPTIVE_TIMEOUT_MIN_SAMPLES", "int", 40,
+        "samples required before the adaptive deadline replaces the "
+        "static one", minimum=1)
+
+# tracing + flight recorder (utils/tracing.py / utils/trace_sink.py)
+declare("SRJTORCH_TRACE_ENABLED", "bool", False,
+        "arm per-query tracing (spans, the flight recorder) plus the "
+        "torch.profiler record_function and NVTX ranges on every op "
+        "boundary")
+declare("SRJTORCH_TRACE_LOG", "str", None,
+        "span-log base path: each process appends its finished spans "
+        "(and flushed trace trees) to <base>.<pid>.jsonl")
+declare("SRJTORCH_TRACE_SAMPLE", "float", 1.0,
+        "fraction of root traces sampled (0 disables roots entirely)")
+declare("SRJTORCH_SLOW_QUERY_SEC", "float", None,
+        "flight recorder: a completed query slower than this flushes "
+        "its span tree + metrics delta to the span log (failed queries "
+        "always flush)", positive=True)
+declare("SRJTORCH_TRACE_RING", "int", 64,
+        "flight recorder ring capacity: completed query traces kept "
+        "in memory", minimum=1)
+declare("SRJTORCH_TRACE_MAX_SPANS", "int", 4096,
+        "per-trace in-memory span cap (overflow counted; the span log "
+        "is never capped)", minimum=16)
+
+# integrity + fault injection (utils/integrity.py / utils/faultinj.py)
+declare("SRJTORCH_INTEGRITY_CHECKS", "bool", True,
+        "0 disables every CRC check (frames ship without CRCs, "
+        "exchanges skip the checksum)")
+declare("SRJTORCH_FAULTINJ_CONFIG", "str", None,
+        "JSON chaos profile path (hot-reloaded on mtime change); a "
+        "malformed config degrades the injector, never the process")
+declare("SRJTORCH_FAULTINJ_WORKER", "str", None,
+        "this process's worker tag (w0, w1, ...) for fault rule keys "
+        "like op@w1")
+declare("SRJTORCH_FAULTINJ_RANK", "str", None,
+        "this process's rank tag (r0, r1, ...) for fault rule keys "
+        "like op@r2")
+
+# device memory (utils/memory.py)
+declare("SRJTORCH_DEVICE_MEMORY_BUDGET", "int", None,
+        "device byte budget for one op's working buffers (read live; "
+        "unset: half the card's memory less its live allocated bytes)")

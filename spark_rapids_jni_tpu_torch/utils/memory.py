@@ -11,10 +11,13 @@ The budget of a CUDA device is half of ``torch.cuda.mem_get_info``'s
 total, less the bytes the caching allocator holds live
 (``torch.cuda.memory_allocated``), floored at 64 MiB: the reference's
 ``bytes_limit * 0.5`` less its live ``bytes_in_use``. A CPU device keeps
-the reference's 4 GiB. ``budget`` overrides it inside a ``with`` block
-(the reference reads an environment variable there; the port reads
-none). The count of forced splits is a module counter
-(``split_retry_count``) until the port has a metrics registry.
+the reference's 4 GiB. The knob ``SRJTORCH_DEVICE_MEMORY_BUDGET`` (bytes,
+read live) overrides the probe, as the reference's budget knob does, and
+the ``budget`` context manager overrides both inside a ``with`` block.
+The count of forced splits is the registry counter
+``memory.split_retries`` (``utils/metrics``, registry-direct, so it
+counts whether or not the metrics gate is armed); ``split_retry_count()``
+reads it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional
 import torch
 
 from ..columnar.column import resolve_device
+from . import knobs, metrics
 from .errors import RetryableError
 
 __all__ = [
@@ -46,23 +50,24 @@ _MIN_BUDGET = 64 << 20  # floor after the live bytes are taken off
 _CPU_BUDGET = 4 << 30  # the reference's CPU-tier default
 _OVERRIDE: Optional[int] = None
 _TOTAL = {}  # CUDA device index -> total bytes (probed once)
-_splits = 0
+_SPLIT_COUNTER = "memory.split_retries"
 
 
 def split_retry_count() -> int:
-    """How many batch splits the memory tier has forced in this process."""
-    return _splits
+    """How many batch splits the memory tier has forced in this process
+    (the registry counter ``memory.split_retries``)."""
+    return metrics.registry().counter(_SPLIT_COUNTER).value
 
 
 def _note_split() -> None:
-    global _splits
-    _splits += 1
+    metrics.registry().counter(_SPLIT_COUNTER).inc()
+    metrics.event("memory.split_retry")
 
 
 @contextlib.contextmanager
 def budget(nbytes: Optional[int]):
     """Override the budget of every device for the duration of a ``with``
-    block (bytes; ``None`` restores the probe). An explicit 0 is a real
+    block (bytes; ``None`` restores the knob or the probe). An explicit 0 is a real
     budget: everything is over it."""
     global _OVERRIDE
     prev = _OVERRIDE
@@ -77,9 +82,13 @@ def device_memory_budget(device=None) -> int:
     """Usable bytes of ``device`` for one op's working buffers (``None``
     means the card, and raises without one). The override wins; else a
     CUDA device's half total less its live allocated bytes (floored at
-    64 MiB), or 4 GiB for the CPU."""
+    64 MiB), or 4 GiB for the CPU. ``SRJTORCH_DEVICE_MEMORY_BUDGET``
+    replaces the probe; an explicit 0 is a real budget."""
     if _OVERRIDE is not None:
         return _OVERRIDE
+    env = knobs.get_int("SRJTORCH_DEVICE_MEMORY_BUDGET")
+    if env is not None:
+        return env
     dev = resolve_device(device)
     if dev.type != "cuda":
         return _CPU_BUDGET

@@ -1743,3 +1743,67 @@ def test_mesh_and_executor_raise_without_a_card(monkeypatch):
         mesh.make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.device_for_executor(0)
+
+
+# -- the runtime core around the ops (op_boundary) ------------------------------------
+
+
+def test_an_oom_inside_a_wrapped_op_is_retryable():
+    from spark_rapids_jni_tpu_torch.utils.dispatch import op_boundary
+    from spark_rapids_jni_tpu_torch.utils.errors import RetryableError
+
+    free, total = torch.cuda.mem_get_info()
+
+    @op_boundary("t.alloc")
+    def alloc(nbytes):
+        return torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+    with pytest.raises(RetryableError, match="CUDA out of memory") as ei:
+        alloc(total + (1 << 30))
+    assert isinstance(ei.value.__cause__, torch.OutOfMemoryError)
+    assert alloc(1 << 20).numel() == 1 << 20
+
+
+def test_a_refused_launch_in_a_wrapped_op_is_fatal_and_not_retried(rng, monkeypatch):
+    from spark_rapids_jni_tpu_torch import _build
+    from spark_rapids_jni_tpu_torch.utils import retry
+    from spark_rapids_jni_tpu_torch.utils.errors import FatalDeviceError
+
+    calls = []
+
+    class _Refused:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.append(name)
+                return 9  # cudaErrorInvalidConfiguration
+            return launch
+
+    table = Table.from_numpy([rng.integers(0, 100, 1000).astype(np.int64)], [pdt.INT64],
+                             device="cuda")
+    monkeypatch.setattr(_build, "library", lambda name: _Refused())
+    rb.expand_u32_planes.launches = 0
+    retry.reset_stats()
+    with retry.enabled(max_attempts=4, base_delay_ms=0):
+        with pytest.raises(FatalDeviceError, match="CUDA launch of expand_u32_planes failed: "
+                                                   "cudaError 9"):
+            rc.convert_to_rows(table)
+    assert calls == ["expand_u32_planes_launch"]  # attempted exactly once
+    assert rb.expand_u32_planes.launches == 0
+    assert retry.stats()["fatal"] == 1 and retry.stats()["retries"] == 0
+
+
+def test_the_profiler_sees_the_op_range_around_its_kernel(rng):
+    import chip_smoke
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+
+    table = Table.from_numpy([rng.integers(0, 100, 100_000).astype(np.int64)], [pdt.INT64],
+                             names=["k"], device="cuda")
+    dim = Table.from_numpy([np.arange(100, dtype=np.int64)], [pdt.INT64], names=["k"],
+                           device="cuda")
+    # the helper retakes a trace that misses a launch, and raises when a
+    # range holds no kernel of the expected name
+    got = chip_smoke._ranges_enclose(
+        lambda: (rc.convert_to_rows(table), pjoin.inner_join(table, dim, ["k"])),
+        {"convert_to_rows": "expand", "inner_join": "probe"})
+    assert any("expand" in n for n in got["ranges"]["convert_to_rows"])
+    assert any("probe" in n for n in got["ranges"]["inner_join"])

@@ -83,6 +83,13 @@ def test_io_modules_are_walked(mod):
     assert f"{PKG}.{mod}" in _port_modules()
 
 
+@pytest.mark.parametrize("mod", ["utils.knobs", "utils.metrics", "utils.deadline",
+                                 "utils.trace_sink", "utils.tracing", "utils.faultinj",
+                                 "utils.retry", "utils.dispatch", "utils.memory"])
+def test_runtime_core_modules_are_walked(mod):
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
 def test_port_adds_no_knob_literal():
     # the reference's knobs are SRJT_*: the port reads no environment knob
     # of that prefix, in its Python or its C++
