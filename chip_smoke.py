@@ -208,7 +208,33 @@ checkout (one nvcc per source, all at once), then on one card:
    ``multiply128`` against ``deadline_s=0.2`` and a real out-of-memory in
    a wrapped op (``RetryableError``); the fixed and join paths' warm times
    with the boundary in place, the phase's and the script's wall seconds;
-13. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+13. the EXCHANGE path, the cross-process TCP exchange
+   (``parallel/shuffle.TcpExchange``, its worker harness and
+   ``parallel/cluster.ClusterView``) at world 4 on the one card. (a) In
+   this process: the join path's fact batch with an INT64 row id cut into
+   4 row shards, each held by a loopback ``TcpExchange`` whose
+   ``exchange_table(shard, ["item_sk"], peers)`` runs in its own thread,
+   once under ``all_to_all`` and once under ``tree``; every rank's rows,
+   their order, every column's bits and validity held against numpy plans
+   (source rank order for the direct plan, a simulation of the hypercube
+   rounds for the tree); wire bytes against the dense bytes moved, H2D
+   copies, peak memory, first and warm ms, a profile, and one rank's
+   encode / wire / decode split beside the host CRC's rate. (b) Across
+   processes: ranks 1-3 started by ``spawn_exchange_fleet`` on the same
+   card, this process rank 0, over the harness's demo table of 16,777,216
+   rows (4,194,304 INT64 k, v rows a rank): 4 rounds without a cluster
+   (the tree plan), 4 rounds with ``--cluster`` (the direct plan and
+   heartbeats), and the chaos run with ci/chaos_cluster.json armed in the
+   children (rank 2 killed on its first payload serve: exactly one death,
+   generation 2, a recovery, rank 2's share rebuilt from lineage). Every
+   run's group-by bit for bit the single-host one; worker start-up
+   seconds apart from the rounds, steady-state round ms, the seconds from
+   the kill to the confirmed death and to the answer. The counted run
+   records every B1 call of this process ((a) and rank 0 in (b)), each
+   held bit for bit against ``partition_map_plain``, their number the
+   plans' prediction, and no other kernel launched; the phase's wall
+   seconds;
+14. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -4285,6 +4311,485 @@ def _runtime_chaos() -> dict:
             "oom_bytes": free + (1 << 30), "oom": "RetryableError"}
 
 
+# ---------------------------------------------------------------------------
+# the exchange path: the cross-process TCP exchange (parallel/shuffle's
+# TcpExchange and its worker harness, parallel/cluster.ClusterView)
+# ---------------------------------------------------------------------------
+
+EXCHANGE_WORLD = 4
+# (b)'s demo table: 4,194,304 rows of INT64 k and v a rank (64 MB), the
+# shuffle output of one Spark map task at the default 128 MB split
+EXCHANGE_ROWS = 16_777_216
+EXCHANGE_ROUNDS = 4  # (b)'s rounds without chaos; the last two are the steady state
+EXCHANGE_WARM = 3  # (a)'s warm runs of each plan
+EXCHANGE_RETRY = dict(max_attempts=40, base_delay_ms=25, max_delay_ms=250)  # the worker's
+EXCHANGE_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+# (b)'s runs: (label, cluster, rounds, chaos). Without a cluster a world of
+# 4 takes the tree plan; a cluster pins the direct plan; the chaos run
+# arms ci/chaos_cluster.json in the children (rank 2 is killed)
+EXCHANGE_FLEETS = (("tree", False, EXCHANGE_ROUNDS, False), ("cluster", True, EXCHANGE_ROUNDS, False),
+                   ("chaos", True, 1, True))
+
+
+def _exchange_inputs(seed: int, device):
+    """(a)'s input: the join path's fact batch (``_join_inputs``) with an
+    INT64 ``row_id``, as host arrays and as a table on ``device``."""
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    (fa, fv), _ = _join_inputs(seed)
+    fa, fv = fa + [np.arange(FACT_ROWS, dtype=np.int64)], fv + [None]
+    names = [n for n, _ in FACT_COLS] + ["row_id"]
+    dtypes = [_pdtype(pdt, t) for _, t in FACT_COLS] + [pdt.INT64]
+    return fa, fv, Table(carry_table(fa, dtypes, fv, device=device).columns, names)
+
+
+def _np_exchange_plans(dest: np.ndarray, world: int):
+    """Each rank's received row ids under both plans, from every row's
+    destination rank, and the rows each plan moves between ranks. The
+    direct plan: source rank order, then row order. The tree plan: the
+    hypercube rounds simulated, each round's held rows the kept partitions
+    in rank order followed by the partner's frame."""
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import _shard_bounds
+
+    n = dest.shape[0]
+    shards = [np.arange(*_shard_bounds(n, world, r)) for r in range(world)]
+    direct = [np.concatenate([s[dest[s] == d] for s in shards]) for d in range(world)]
+    moved_direct = sum(int((dest[s] != r).sum()) for r, s in enumerate(shards))
+    held, moved_tree = shards, 0
+    for j in range(world.bit_length() - 1):
+        keep, send = [], []
+        for r in range(world):
+            by = [held[r][dest[held[r]] == p] for p in range(world)]
+            keep.append([seg for p, seg in enumerate(by) if (p >> j) & 1 == (r >> j) & 1])
+            send.append(np.concatenate([seg for p, seg in enumerate(by)
+                                        if (p >> j) & 1 != (r >> j) & 1]))
+            moved_tree += send[-1].shape[0]
+        held = [np.concatenate(keep[r] + [send[r ^ (1 << j)]]) for r in range(world)]
+    return {"all_to_all": direct, "tree": held}, {"all_to_all": moved_direct, "tree": moved_tree}
+
+
+def _check_exchanged(table, fa, fv, row_ids, names, what: str) -> None:
+    """A rank's received table against the numpy gather of the input by
+    the row ids the plan predicts: order, every column's bits (DECIMAL128
+    limbs included) and validity."""
+    if table.names != names or table.num_rows != row_ids.shape[0]:
+        raise AssertionError(f"{what}: received {table.names} x {table.num_rows}, expected "
+                             f"{row_ids.shape[0]} rows")
+    got_ids = table.column("row_id").data.cpu().numpy()
+    if not np.array_equal(np.sort(got_ids), np.sort(row_ids)):
+        raise AssertionError(f"{what}: the received rows are not the rows routed here")
+    if not np.array_equal(got_ids, row_ids):
+        raise AssertionError(f"{what}: the received rows are in another order than the plan's")
+    for name, col, a, v in zip(names, table.columns, fa, fv):
+        data, valid = _np_gather(a, v, row_ids)
+        if not np.array_equal(col.to_numpy().view(np.uint8), np.ascontiguousarray(data).view(np.uint8)):
+            raise AssertionError(f"{what}: column {name} differs from the numpy gather")
+        if not np.array_equal(col.valid_mask().cpu().numpy(), valid):
+            raise AssertionError(f"{what}: validity of {name} differs from the numpy gather")
+
+
+def _b1_recorder():
+    """A recorder in front of B1's wrapper (``hashing.partition_map``, which
+    ``hash_partition`` reaches) that keeps every call under a lock, from
+    any thread. Returns (install, restore, check): ``check`` holds every
+    recorded call against ``partition_map_plain``, forgets them and
+    returns how many there were."""
+    import threading
+
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    real, calls, lock = hashing.partition_map, [], threading.Lock()
+
+    def rec(keys, num_partitions, valid=None):
+        out = real(keys, num_partitions, valid)
+        if keys.shape[0]:  # an empty call launches nothing
+            with lock:
+                calls.append((keys, num_partitions, valid, out))
+        return out
+
+    def install():
+        hashing.partition_map = rec
+
+    def restore():
+        hashing.partition_map = real
+
+    def check(what: str) -> int:
+        for keys, p, valid, got in calls:
+            if not torch.equal(got, hk.partition_map_plain(keys, p, valid)):
+                raise AssertionError(f"{what}: B1 differs from its plain version on "
+                                     f"[{keys.shape[0]}] {keys.dtype} keys")
+        n = len(calls)
+        calls.clear()
+        return n
+
+    return install, restore, check
+
+
+def _exchange_world(exs, shards, key: str, epoch: int, topology):
+    """Every rank's ``exchange_table`` in its own thread, then the rounds'
+    frames dropped. Returns ({rank: table}, host ms to the last join)."""
+    import threading
+
+    import torch
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import _TREE_EPOCH_STRIDE
+
+    addrs = {r: ex.address for r, ex in enumerate(exs)}
+    out, errs = {}, []
+
+    def run(r):
+        try:
+            out[r] = exs[r].exchange_table(shards[r], [key],
+                                           {q: a for q, a in addrs.items() if q != r},
+                                           epoch=epoch, topology=topology)
+        except BaseException as e:  # re-raised below, after every join
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(len(exs))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"exchange: a rank never finished its {topology} round")
+    if errs:
+        raise errs[0]
+    for ex in exs:
+        for e in (epoch, epoch + _TREE_EPOCH_STRIDE, epoch + 2 * _TREE_EPOCH_STRIDE):
+            ex.drop_epoch(e)
+    return out, ms
+
+
+def _exchange_split(ex_src, ex_dst, shard, world: int) -> dict:
+    """One rank's frames alone, median of 3: the encode of its world - 1
+    outgoing partitions, one fetch of each over loopback by a second
+    exchange (no other traffic) and their decode onto the device; the wire
+    time is the fetch less the decode. Beside it, the host CRC's rate over
+    the same bytes."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import frames
+    from spark_rapids_jni_tpu_torch.ops.copying import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils import integrity
+
+    part, offsets = shuffle.hash_partition(shard, world, ["item_sk"])
+    bounds = list(offsets) + [part.num_rows]
+    parts = {p: slice_table(part, bounds[p], bounds[p + 1]) for p in range(1, world)}
+    runs = []
+    for i in range(3):  # epochs 900+ lie above every run's
+        t0 = time.perf_counter()
+        blobs = {p: frames.encode_table(t) for p, t in parts.items()}
+        t1 = time.perf_counter()
+        for b in blobs.values():
+            frames.decode_table(b, where="shuffle.exchange", device=ex_dst.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ex_src.publish(900 + i, parts)
+        t3 = time.perf_counter()
+        for p in parts:
+            ex_dst.fetch(ex_src.address, 900 + i, p)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        ex_src.drop_epoch(900 + i)
+        c0 = time.perf_counter()
+        for b in blobs.values():
+            integrity.checksum(b)
+        c1 = time.perf_counter()
+        runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t4 - t3) * 1e3, (c1 - c0) * 1e3))
+    enc, dec, fetch, crc = (float(np.median([r[k] for r in runs])) for k in range(4))
+    nbytes = sum(len(b) for b in blobs.values())
+    wire = fetch - dec
+    return {"frames": len(blobs), "frame_bytes": nbytes, "encode_ms": enc, "decode_ms": dec,
+            "fetch_ms": fetch, "wire_ms": wire,
+            "loopback_gbs": nbytes / (wire * 1e6) if wire > 0 else None,
+            "crc_ms": crc, "crc_gbs": nbytes / (crc * 1e6) if crc > 0 else None,
+            "crc": integrity.checksum_name()}
+
+
+def _exchange_first(run, topology: str, fa, fv, names, want, moved, row_bytes) -> dict:
+    """(a)'s counted run of one plan: B1 recorded (each call held bit for
+    bit against its plain version), metrics armed for the wire bytes, and
+    every rank's table checked against the numpy plan."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import column
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    install, restore, check = _b1_recorder()
+    reg = metrics.registry()
+    b0, h0 = reg.value("shuffle.tcp.bytes_in"), dict(column.H2D)
+    torch.cuda.reset_peak_memory_stats()
+    install()
+    try:
+        with metrics.enabled():
+            got, first_ms = run(topology)
+    finally:
+        restore()
+    b1 = check(f"exchange (a) {topology}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wire = reg.value("shuffle.tcp.bytes_in") - b0
+    h2d = {k: column.H2D[k] - h0[k] for k in h0}
+    for r in range(EXCHANGE_WORLD):
+        _check_exchanged(got[r], fa, fv, want[topology][r], names,
+                         f"exchange (a) {topology} rank {r}")
+    dense = moved[topology] * row_bytes
+    print(f"exchange (a) {topology}: every rank's rows, order, columns and validity the numpy "
+          f"plan's; {b1} B1 calls bit for bit their plain version; first run {first_ms:.2f} ms "
+          f"(host clock); wire {wire} B against {dense} dense B of the {moved[topology]} rows "
+          f"moved; H2D {h2d['copies']} copies, {h2d['bytes']} B; peak {peak:.2f} GiB", flush=True)
+    return {"first_ms": first_ms, "b1_calls": b1, "wire_bytes": wire,
+            "rows_moved": moved[topology], "dense_bytes_moved": dense, "h2d": h2d,
+            "peak_gib": peak}
+
+
+def _exchange_warm(run, topology: str) -> dict:
+    """(a)'s warm runs of one plan (host clock) and one profiled run."""
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    warm = [run(topology)[1] for _ in range(EXCHANGE_WARM)]
+    print(f"exchange (a) {topology}: warm median of {EXCHANGE_WARM} "
+          f"{float(np.median(warm)):.2f} ms (host clock, runs {[round(x, 2) for x in warm]})",
+          flush=True)
+    print(f"exchange (a) profile of {topology}:", flush=True)
+    prof = _profile_phase(lambda: run(topology), top=8,
+                          watch={"partition_map_kernel": hk.partition_map})
+    return {"warm_ms": float(np.median(warm)), "warm_runs_ms": warm, "profile": prof}
+
+
+def _close_fleet(procs) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            try:
+                p.stdin.close()
+                p.wait(timeout=30)
+            except Exception:  # a child that will not stop is killed
+                p.kill()
+                p.wait()
+
+
+def _exchange_fleet(full, oracle, dev, label: str, *, cluster: bool, rounds: int,
+                    chaos: bool) -> dict:
+    """(b): ranks 1-3 spawned through ``spawn_exchange_fleet`` on the same
+    device, this process rank 0. ``rounds`` rounds of the demo group-by
+    (round i at epoch 2i), then every rank's ``_local_groupby_sum`` held
+    bit for bit to the single-host one. ``chaos`` arms
+    ci/chaos_cluster.json in the children and follows the reference's
+    four-rank chaos acceptance step for step."""
+    import os
+    import threading
+
+    import torch
+    from spark_rapids_jni_tpu_torch.ops.copying import concatenate, slice_table
+    from spark_rapids_jni_tpu_torch.parallel import cluster as cluster_mod
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils import deadline, metrics, retry
+
+    world = EXCHANGE_WORLD
+    names = ("cluster.deaths", "cluster.transitions", "cluster.recoveries")
+    c0 = {n: metrics.registry().value(n) for n in names}
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ci", "chaos_cluster.json")
+    env = {r: {"SRJTORCH_FAULTINJ_CONFIG": cfg} for r in range(1, world)} if chaos else None
+    shard_of = lambda r: slice_table(full, *shuffle._shard_bounds(EXCHANGE_ROWS, world, r))  # noqa: E731
+    ex0 = shuffle.TcpExchange(0, device=dev)
+    procs, view, stop = {}, None, threading.Event()
+    seen = {}
+    try:
+        t0 = time.perf_counter()
+        procs, peers = shuffle.spawn_exchange_fleet(
+            ex0.address, EXCHANGE_ROWS, SEED + 15, world=world, cluster=cluster, rounds=rounds,
+            extra_env_by_rank=env, device=EXCHANGE_DEVICE, ready_timeout_s=300)
+        startup_s = time.perf_counter() - t0
+        others = {r: a for r, a in peers.items() if r != 0}
+        if chaos:
+            def watch_kill():  # when rank 2 exits, within a few ms
+                while procs[2].poll() is None and not stop.is_set():
+                    time.sleep(0.005)
+                seen.setdefault("exit", time.monotonic())
+
+            threading.Thread(target=watch_kill, daemon=True).start()
+        if cluster:
+            def on_transition(r, old, new):
+                seen.setdefault((r, new), time.monotonic())
+
+            view = cluster_mod.ClusterView(0, dict(peers), ex0, lineage=shard_of,
+                                           on_transition=on_transition)
+            view.start()
+        shard0 = shard_of(0)
+        round_ms = []
+        res = {}
+        with deadline.scope(300), retry.enabled(**EXCHANGE_RETRY):
+            for rnd in range(rounds):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                local = ex0.exchange_table(shard0, ["k"], others, epoch=2 * rnd, cluster=view)
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t) * 1e3)
+            res[0] = shuffle._local_groupby_sum(local)
+            del local
+            live = [r for r in range(1, world) if not (chaos and r == 2)]
+            if chaos:
+                if not view.await_dead(2, 120):
+                    raise AssertionError("exchange (b) chaos: rank 2 was never declared dead")
+                rc2 = procs[2].wait(timeout=120)
+                if rc2 == 0:
+                    raise AssertionError("exchange (b) chaos: rank 2 exited cleanly, not killed")
+            for r in live:
+                got = ex0.fetch(peers[r], 2 * rounds - 1, r)
+                res[r] = type(got)(got.columns, ["k", "s", "c"])
+            if chaos:
+                res[2] = shuffle._local_groupby_sum(view.recompute_dead_partition(2, ["k"], world))
+        t_answer = time.monotonic()
+        got = concatenate([res[r] for r in range(world)])
+        order = np.argsort(got.column("k").data.cpu().numpy(), kind="stable")
+        for name in ("k", "s", "c"):
+            if not np.array_equal(got.column(name).data.cpu().numpy()[order], oracle[name]):
+                raise AssertionError(f"exchange (b) {label}: {name} differs from the single-host "
+                                     "group-by")
+        deltas = {n: metrics.registry().value(n) - c0[n] for n in names}
+        entry = {"startup_s": startup_s, "round_ms": round_ms, "rounds": rounds,
+                 "steady_ms": float(np.mean(round_ms[-2:])) if rounds >= 2 else None,
+                 "counters": deltas, "cluster": cluster}
+        if chaos:
+            want = {"cluster.deaths": 1, "cluster.transitions": 2}
+            if (view.dead_ranks() != [2] or view.generation() != 2 or ex0.generation() != 2
+                    or any(deltas[k] != v for k, v in want.items())
+                    or deltas["cluster.recoveries"] < 1):
+                raise AssertionError(f"exchange (b) chaos: dead {view.dead_ranks()}, generation "
+                                     f"{view.generation()} / {ex0.generation()}, counters {deltas}")
+            entry.update({"rank2_rc": rc2, "generation": view.generation(),
+                          "kill_to_dead_s": seen[(2, "dead")] - seen["exit"],
+                          "kill_to_suspect_s": seen[(2, "suspect")] - seen["exit"],
+                          "kill_to_answer_s": t_answer - seen["exit"]})
+        elif cluster and (deltas["cluster.deaths"] or deltas["cluster.transitions"]):
+            raise AssertionError(f"exchange (b) {label}: transitions without a fault: {deltas}")
+        return entry
+    finally:
+        stop.set()
+        if view is not None:
+            view.stop()
+        _close_fleet(procs)
+        ex0.close()
+        shuffle.exchange_breaker().reset()
+
+
+def _exchange_phase(wrappers) -> tuple:
+    """The exchange path: (a) four ranks in one process, one thread each,
+    each holding one row shard of the fact batch, under both plans; (b) four
+    processes. The counted run holds (a)'s first runs and all of (b): every
+    B1 call of this process is recorded and held against its plain
+    version, their number must be the plans' prediction, and no other
+    kernel may launch. (a)'s warm runs, profiles and one rank's
+    encode / wire / decode split follow. Returns (paths entry, launches)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops.copying import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils import retry
+
+    t_phase = time.perf_counter()
+    world = EXCHANGE_WORLD
+    dev = torch.device(EXCHANGE_DEVICE, 0) if EXCHANGE_DEVICE == "cuda" else torch.device("cpu")
+    fa, fv, table = _exchange_inputs(SEED + 14, dev)
+    names = list(table.names)
+    shards = [slice_table(table, *shuffle._shard_bounds(table.num_rows, world, r))
+              for r in range(world)]
+    want, moved = _np_exchange_plans(_np_partition(fa[1], fv[1], world), world)
+    row_bytes = sum(np.ascontiguousarray(a[:1]).nbytes + (v is not None) for a, v in zip(fa, fv))
+    torch.cuda.synchronize()
+    print(f"exchange input (a): the fact batch {FACT_ROWS} x {len(FACT_COLS)} and a row id "
+          f"({row_bytes} B a row with its validity bytes), {world} row shards on {dev}, made and "
+          f"uploaded in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    exs = [shuffle.TcpExchange(r, device=dev) for r in range(world)]
+    epoch = [0]
+
+    def run(topology):
+        epoch[0] += 1
+        return _exchange_world(exs, shards, "item_sk", epoch[0], topology)
+
+    def counted():
+        a = {t: _exchange_first(run, t, fa, fv, names, want, moved, row_bytes)
+             for t in ("all_to_all", "tree")}
+        t0 = time.perf_counter()
+        full = shuffle._demo_table(EXCHANGE_ROWS, SEED + 15, device=dev)
+        host = shuffle._local_groupby_sum(full)
+        oracle = {n: host.column(n).data.cpu().numpy() for n in ("k", "s", "c")}
+        print(f"exchange input (b): the demo table, {EXCHANGE_ROWS} rows (k in [0, 64), v), "
+              f"{EXCHANGE_ROWS // world} a rank, and its single-host group-by in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        install, restore, check = _b1_recorder()
+        b = {}
+        for label, cluster, rounds, chaos in EXCHANGE_FLEETS:
+            torch.cuda.reset_peak_memory_stats()
+            install()
+            try:
+                e = _exchange_fleet(full, oracle, dev, label, cluster=cluster, rounds=rounds,
+                                    chaos=chaos)
+            finally:
+                restore()
+            e["b1_calls"] = check(f"exchange (b) {label}")
+            e["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            extra = "" if not chaos else (
+                f"; rank 2 killed (rc {e['rank2_rc']}), suspect {e['kill_to_suspect_s']:.3f} s "
+                f"and dead {e['kill_to_dead_s']:.3f} s after its exit, the answer "
+                f"{e['kill_to_answer_s']:.3f} s after it, generation {e['generation']}")
+            print(f"exchange (b) {label}: the {world} ranks' group-bys bit for bit the "
+                  f"single-host one; workers started in {e['startup_s']:.1f} s; rank 0's rounds "
+                  f"(host ms) {[round(x, 2) for x in e['round_ms']]}, steady (mean of the last "
+                  f"two) {e['steady_ms']}; {e['b1_calls']} B1 calls at rank 0, each bit for bit "
+                  f"its plain version; counters {e['counters']}; peak {e['peak_gib']:.2f} GiB"
+                  + extra, flush=True)
+            b[label] = e
+        return a, b
+
+    try:
+        with retry.enabled(max_attempts=40, base_delay_ms=5, max_delay_ms=50):
+            (a, b), launches = _run_counted(wrappers, counted)
+            log2 = world.bit_length() - 1
+            tree_b = world >= 4 and world & (world - 1) == 0  # auto's choice without a cluster
+            # (a): one hash_partition a rank for the direct plan, one a rank
+            # and round for the tree; (b) at rank 0: one a round (log2 a tree
+            # round), and in the chaos round rank 0's recovery of rank 2's
+            # partitions and the recompute of rank 2's share
+            predicted = {"a_all_to_all": world, "a_tree": world * log2,
+                         **{f"b_{label}": rounds * (log2 if tree_b and not cluster else 1)
+                            + 2 * chaos for label, cluster, rounds, chaos in EXCHANGE_FLEETS}}
+            got = {"a_all_to_all": a["all_to_all"]["b1_calls"], "a_tree": a["tree"]["b1_calls"],
+                   **{f"b_{k}": v["b1_calls"] for k, v in b.items()}}
+            print(f"exchange path launches: {launches}; B1 calls {got}, predicted {predicted}",
+                  flush=True)
+            if got != predicted:
+                raise AssertionError(f"exchange: B1 calls {got} differ from the prediction "
+                                     f"{predicted}")
+            others = {k: v for k, v in launches.items() if k != "partition_map" and v}
+            if others:
+                raise AssertionError(f"the exchange path launched kernels it does not run: {others}")
+            if EXCHANGE_DEVICE == "cuda" and launches["partition_map"] != sum(got.values()):
+                raise AssertionError(f"the exchange path launched B1 {launches['partition_map']} "
+                                     f"times, {sum(got.values())} calls recorded")
+            for t in a:
+                a[t].update(_exchange_warm(run, t))
+            split = _exchange_split(exs[0], exs[1], shards[0], world)
+    finally:
+        for ex in exs:
+            ex.close()
+    print(f"exchange (a) one rank's {split['frames']} frames ({split['frame_bytes']} B), median "
+          f"of 3: encode {split['encode_ms']:.2f} ms, fetch {split['fetch_ms']:.2f} ms of which "
+          f"decode {split['decode_ms']:.2f} ms and wire {split['wire_ms']:.2f} ms "
+          f"({split['loopback_gbs']} GB/s loopback); host CRC ({split['crc']}) "
+          f"{split['crc_ms']:.2f} ms ({split['crc_gbs']} GB/s)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"exchange phase: {wall:.1f} s wall (inputs, the counted run with its checks, (a) warm "
+          f"and profiled, the split)", flush=True)
+    return ({"world": world, "rows_a": FACT_ROWS, "rows_b": EXCHANGE_ROWS, "row_bytes_a": row_bytes,
+             "in_process": a, "split": split, "cross_process": b, "b1_calls": got,
+             "b1_predicted": predicted, "phase_wall_s": wall, "launches": launches}, launches)
+
+
 def _kernels_only(rate: float) -> dict:
     """B3 on the fixed path's keys and B1, B4 and B3 on the join path's
     (``--kernels-only``): the same phases and inputs as a whole run,
@@ -4787,6 +5292,10 @@ def main() -> int:
           f"{rt_fixed['armed_ms']:.2f} / {rt_join['armed_ms']:.2f} ms; launches of the armed runs "
           f"{rt_launches}; phase {rt_wall:.1f} s wall", flush=True)
 
+    # -- the exchange path: the cross-process TCP exchange --------------------
+    paths["exchange"], exlaunches = _exchange_phase(wrappers)
+    torch.cuda.empty_cache()
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -4826,7 +5335,8 @@ def main() -> int:
                               "onehot": olaunches[k], "tpch": tlaunches[k],
                               "tpcds": dlaunches[k], "distributed": mlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
-                              "io": iolaunches[k], "runtime": rt_launches[k]},
+                              "io": iolaunches[k], "runtime": rt_launches[k],
+                              "exchange": exlaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

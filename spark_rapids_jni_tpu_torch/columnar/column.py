@@ -20,6 +20,7 @@ Entry points that build device data take ``device=None``, which means
 from __future__ import annotations
 
 import decimal
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -43,6 +44,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 H2D = {"copies": 0, "bytes": 0}  # host -> CUDA uploads made through ``upload``
+_H2D_LOCK = threading.Lock()  # the exchange's pull threads upload concurrently
 
 
 def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -50,8 +52,9 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     ``device``; copies to a CUDA device count in ``H2D``."""
     t = torch.from_numpy(np.array(host, copy=True, order="C"))
     if device.type == "cuda":
-        H2D["copies"] += 1
-        H2D["bytes"] += t.numel() * t.element_size()
+        with _H2D_LOCK:
+            H2D["copies"] += 1
+            H2D["bytes"] += t.numel() * t.element_size()
     return t.to(device)
 
 

@@ -40,6 +40,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -134,11 +135,13 @@ def partition_map(keys: torch.Tensor, num_partitions: int,
             _row_grid(n, keys.device), _build.raw_stream(keys.device),
         )
         _build.check(rc, "partition_map")
-        partition_map.launches += 1
+        with _PARTITION_COUNT_LOCK:  # the exchange's ranks partition in threads
+            partition_map.launches += 1
     return out
 
 
 partition_map.launches = 0
+_PARTITION_COUNT_LOCK = threading.Lock()
 
 
 def _check_probe(keys: torch.Tensor, table: PagedHashTable) -> None:

@@ -18,8 +18,12 @@ tracing, retry and integrity gates) do so at their own import site.
 
 Only the knobs of the modules the port has are declared: retry, deadline
 and breaker, metrics (with the adaptive-timeout reader), tracing and the
-flight recorder, integrity, fault injection and the device-memory
-budget. ``markdown_table()`` renders them for the README.
+flight recorder, integrity, fault injection, the cross-process exchange,
+cluster membership and the device-memory budget. ``markdown_table()``
+renders them for the README.
+
+``SENTINELS`` are not knobs: they are the handshake lines that spawn
+harnesses poll a child's stdout for.
 """
 
 from __future__ import annotations
@@ -43,9 +47,15 @@ __all__ = [
     "get_float",
     "env_float",
     "markdown_table",
+    "SENTINELS",
+    "EXCHANGE_READY",
 ]
 
 PREFIX = "SRJTORCH_"
+
+# the exchange worker's READY line (parallel/shuffle.py)
+EXCHANGE_READY = PREFIX + "EXCHANGE_READY"
+SENTINELS = frozenset({EXCHANGE_READY})
 
 _TRUE = ("1", "true", "yes")
 _FALSE = ("0", "false", "no")
@@ -294,6 +304,41 @@ declare("SRJTORCH_FAULTINJ_WORKER", "str", None,
 declare("SRJTORCH_FAULTINJ_RANK", "str", None,
         "this process's rank tag (r0, r1, ...) for fault rule keys "
         "like op@r2")
+
+# cross-process exchange (parallel/shuffle.py)
+declare("SRJTORCH_EXCHANGE_MODE", "str", "mesh",
+        "mesh (in-process collective) or tcp (cross-process frames); "
+        "the --exchange-worker harness defaults to tcp and refuses "
+        "mesh", choices=("mesh", "tcp"))
+declare("SRJTORCH_EXCHANGE_TIMEOUT_SEC", "float", 30.0,
+        "per-fetch deadline on the TCP exchange (always clamped by an "
+        "active query deadline)", positive=True)
+declare("SRJTORCH_EXCHANGE_RETAIN_EPOCHS", "int", 4,
+        "published exchange rounds kept servable; older epochs are "
+        "evicted on publish", minimum=1)
+
+# cluster membership and liveness (parallel/cluster.py)
+declare("SRJTORCH_CLUSTER_HEARTBEAT_SEC", "float", 0.5,
+        "heartbeat cadence: each rank PINGs every peer this often; "
+        "misses drive the alive -> suspect -> dead transitions",
+        positive=True)
+declare("SRJTORCH_CLUSTER_HEARTBEAT_TIMEOUT_SEC", "float", 2.0,
+        "per-PING deadline; a PING slower than this counts as a miss",
+        positive=True)
+declare("SRJTORCH_CLUSTER_SUSPECT_MISSES", "int", 2,
+        "consecutive heartbeat misses before an ALIVE peer is marked "
+        "SUSPECT (still routable, health-degraded)", minimum=1)
+declare("SRJTORCH_CLUSTER_DEAD_MISSES", "int", 4,
+        "consecutive heartbeat misses before a SUSPECT peer is marked "
+        "DEAD: the generation bumps and recovery engages", minimum=1)
+declare("SRJTORCH_CLUSTER_QUORUM_FRACTION", "float", 0.5,
+        "alive fraction (self included) at or below which the cluster "
+        "is degraded", positive=True)
+declare("SRJTORCH_CLUSTER_TOPOLOGY", "str", "auto",
+        "exchange plan: all_to_all (direct pulls from every peer), "
+        "tree (hypercube rounds, power-of-two worlds), or auto (tree "
+        "iff the world is a power of two >= 4 and no cluster is "
+        "attached)", choices=("auto", "all_to_all", "tree"))
 
 # device memory (utils/memory.py)
 declare("SRJTORCH_DEVICE_MEMORY_BUDGET", "int", None,

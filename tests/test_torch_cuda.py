@@ -1807,3 +1807,68 @@ def test_the_profiler_sees_the_op_range_around_its_kernel(rng):
         {"convert_to_rows": "expand", "inner_join": "probe"})
     assert any("expand" in n for n in got["ranges"]["convert_to_rows"])
     assert any("probe" in n for n in got["ranges"]["inner_join"])
+
+
+def test_tcp_exchange_pair_lands_partitions_on_the_card(rng):
+    """An in-process TcpExchange pair on cuda:0: each rank's hash_partition
+    launches B1 (bit for bit its plain version), every fetched partition is
+    decoded onto cuda:0, and each rank receives what a CPU pair receives."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.ops import hashing
+    from spark_rapids_jni_tpu_torch.ops.copying import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+
+    rows = 50_000
+    keys = rng.integers(-2**40, 2**40, rows).astype(np.int64)
+    valid = rng.random(rows) > 0.1
+    vals = rng.integers(-1000, 1000, rows).astype(np.int64)
+    calls, lock = [], threading.Lock()
+    real = hashing.partition_map
+
+    def rec(k, p, v=None):
+        out = real(k, p, v)
+        with lock:
+            calls.append((k, p, v, out))
+        return out
+
+    def world(device):
+        full = Table.from_numpy([keys, vals], [pdt.INT64, pdt.INT64], [valid, None],
+                                names=["k", "v"], device=device)
+        exs = [shuffle.TcpExchange(r, device=device) for r in (0, 1)]
+        out = {}
+        try:
+            def run(r):
+                lo, hi = shuffle._shard_bounds(rows, 2, r)
+                out[r] = exs[r].exchange_table(slice_table(full, lo, hi), ["k"],
+                                               {1 - r: exs[1 - r].address})
+
+            threads = [threading.Thread(target=run, args=(r,)) for r in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert set(out) == {0, 1}
+        finally:
+            for ex in exs:
+                ex.close()
+        return out
+
+    hk.partition_map.launches = 0
+    hashing.partition_map = rec
+    try:
+        card = world("cuda")
+    finally:
+        hashing.partition_map = real
+    assert len(calls) == 2 and hk.partition_map.launches == 2
+    for k, p, v, got in calls:
+        assert k.is_cuda and torch.equal(got, hk.partition_map_plain(k, p, v))
+    cpu = world("cpu")
+    for r in (0, 1):
+        for a, b in zip(card[r].columns, cpu[r].columns):
+            assert a.data.device == torch.device("cuda", torch.cuda.current_device())
+            assert torch.equal(a.data.cpu(), b.data)
+            assert (a.validity is None) == (b.validity is None)
+            if a.validity is not None:
+                assert torch.equal(a.validity.cpu(), b.validity)
+

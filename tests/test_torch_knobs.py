@@ -30,7 +30,8 @@ def test_prefix_is_not_the_references():
 def test_the_port_declares_its_modules_knobs():
     groups = {"RETRY_": 7, "DEADLINE_SEC": 1, "BREAKER_": 2, "METRICS_": 2,
               "TRACE_": 5, "SLOW_QUERY_SEC": 1, "INTEGRITY_CHECKS": 1,
-              "FAULTINJ_": 3, "DEVICE_MEMORY_BUDGET": 1, "ADAPTIVE_TIMEOUT_": 4}
+              "FAULTINJ_": 3, "DEVICE_MEMORY_BUDGET": 1, "ADAPTIVE_TIMEOUT_": 4,
+              "EXCHANGE_": 3, "CLUSTER_": 6}
     for stem, n in groups.items():
         assert sum(1 for k in PORT_NAMES if k[len(pk.PREFIX):].startswith(stem)) == n, stem
     assert len(PORT_NAMES) == sum(groups.values())
@@ -99,3 +100,10 @@ def test_markdown_table_lists_every_knob():
     for name in PORT_NAMES:
         assert f"| `{name}` |" in table
     assert "SRJT_" not in table
+
+
+def test_exchange_ready_sentinel_is_the_references_under_the_port_prefix():
+    # the worker's READY line is a sentinel, not a knob
+    assert pk.SENTINELS == {pk.EXCHANGE_READY}
+    assert _ref_name(pk.EXCHANGE_READY) in rk.SENTINELS
+    assert not pk.is_declared(pk.EXCHANGE_READY)
