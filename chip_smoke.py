@@ -234,7 +234,31 @@ checkout (one nvcc per source, all at once), then on one card:
    held bit for bit against ``partition_map_plain``, their number the
    plans' prediction, and no other kernel launched; the phase's wall
    seconds;
-14. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+14. the PLAN path, the plan tier (``plan/``: rewrites, statistics, the
+   cost-based optimizer, ``compile_ir`` onto the fused pipeline and the
+   operator tier) over ``models/tpcds_plans``, run after the distributed
+   path: each generator's tables at the TPC-DS specification's SF1 fact
+   cardinalities (store_sales 2,880,404 rows for ``gen_store_wide`` and
+   ``gen_store``, catalog_sales 1,441,548, web_sales 719,384,
+   store_returns 287,514; ``gen_channels`` at 2,880,404 store_sales rows,
+   half as many web and catalog rows), made on the host and uploaded. The
+   25 registry queries and ``q3_plan`` / ``q55_plan`` are compiled (the
+   rewrite, the sketches, the CBO and the lowering timed apart) and run
+   once on the card with the launch counts at 0; every B1, B4 and B3 call
+   is recorded and held against its plain version (B1 and B4 bit for bit,
+   B3's sums within its bound), and no other kernel may launch. Each
+   result is held bit for bit against the port's CPU run of the same plan
+   on the same tables copied to the CPU; ``q3_plan`` / ``q55_plan``
+   against the hand-built ``models/tpcds.q3`` / ``q55``; q1
+   (decorrelated), q38 (INTERSECT), q10 (EXISTS) and q9 (CASE over global
+   aggregates) against numpy oracles, every float the nearest float64 of
+   the exact rational; each inferred schema against the executed dtypes,
+   each report's peak blowup at most 2.5. One ``ppart`` projection over
+   store_sales puts B1 on the path at the fact's full size. Then each
+   query's compile split, first-run and warm median-of-3 host ms, peak
+   memory, fused against operator-tier stages, rewrites fired, launches
+   and a profile; the phase's wall seconds;
+15. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -247,7 +271,8 @@ the fixed and join paths' inputs (copy the script into another
 checkout's root to time that checkout's wrappers the same way, as for a
 checkout whose own script does not time their host work). It drives no
 path, so it is a partial run: it prints its numbers, never the ``ok``
-line, and exits 4.
+line, and exits 4. ``python3 chip_smoke.py --plan-only`` runs the plan
+path alone (the kernels built, no other path): also a partial run, exit 4.
 """
 
 from __future__ import annotations
@@ -4790,6 +4815,436 @@ def _exchange_phase(wrappers) -> tuple:
              "b1_predicted": predicted, "phase_wall_s": wall, "launches": launches}, launches)
 
 
+# ---------------------------------------------------------------------------
+# the plan path: the plan tier's TPC-DS queries through compile_ir
+# ---------------------------------------------------------------------------
+
+# the TPC-DS specification's SF1 fact cardinalities; gen_channels takes
+# store_sales' rows and gives web_sales and catalog_sales half as many each
+PLAN_ROWS = {"gen_store_wide": 2_880_404, "gen_store": 2_880_404, "gen_catalog": 1_441_548,
+             "gen_web": 719_384, "gen_store_returns": 287_514, "gen_channels": 2_880_404}
+PLAN_HAND_BUILT = ("q3", "q55")  # q3_plan / q55_plan against models/tpcds' hand-built queries
+PLAN_ORACLES = ("q1", "q38", "q10", "q9")  # one a class: decorrelated, INTERSECT, EXISTS, CASE
+PLAN_PPART = 200  # the ppart projection's partitions (spark.sql.shuffle.partitions)
+PLAN_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
+PLAN_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+
+
+def _plan_queries():
+    """(name, plan builder, generator name, generator, seed) of every
+    query the path runs: the registry's 25 and q3_plan / q55_plan."""
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans as tp
+
+    out = [(name, d.plan, d.gen.generator.__name__, d.gen.generator, d.gen.seed)
+           for name, d in sorted(tp.PLAN_QUERIES.items(), key=lambda kv: int(kv[0][1:]))]
+    out += [(f"{q}_plan", getattr(tp, f"{q}_plan"), "gen_store", ptpcds.gen_store, 42 + i)
+            for i, q in enumerate(PLAN_HAND_BUILT)]
+    return out
+
+
+def _plan_inputs(device):
+    """One table set a generator (at ``PLAN_ROWS``, the registry's seed)
+    on ``device``, and a CPU copy of each: gen name -> (tables, cpu)."""
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+
+    def cpu(t):
+        return Table([Column(c.dtype, data=c.data.cpu(),
+                             validity=None if c.validity is None else c.validity.cpu())
+                      for c in t.columns], list(t.names))
+
+    out = {}
+    for _, _, gname, gen, seed in _plan_queries():
+        if gname not in out:
+            tabs = gen(PLAN_ROWS[gname], seed=seed, device=device)
+            out[gname] = (tabs, {k: cpu(t) for k, t in tabs.items()})
+    return out
+
+
+def _plan_compile(plan, tables, name: str):
+    """``compile_ir`` with its three parts timed by the host clock:
+    (CompiledPlan, {rewrite_ms, stats_ms (the sketches), cbo_ms,
+    lower_ms (the rest: schema inference, lowering, the bounded-domain
+    scans), compile_ms})."""
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.plan import compiler, optimizer, stats
+
+    spent = {"rewrite_ms": 0.0, "stats_ms": 0.0, "cbo_ms": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    saved = compiler.rewrite, stats.make_estimator, optimizer.optimize
+    compiler.rewrite = timed("rewrite_ms", saved[0])
+    stats.make_estimator = timed("stats_ms", saved[1])
+    optimizer.optimize = timed("cbo_ms", saved[2])
+    try:
+        t0 = time.perf_counter()
+        cp = P.compile_ir(plan(), tables, name=name)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        compiler.rewrite, stats.make_estimator, optimizer.optimize = saved
+    spent["lower_ms"] = total - sum(spent.values())
+    spent["compile_ms"] = total
+    return cp, spent
+
+
+def _plan_capture(cps):
+    """Run every compiled plan once, timed by the host clock to a
+    synchronize, with recorders in front of B1 (``hashing.partition_map``),
+    B4 (``join.probe_paged``) and B3 (``aggregate.groupby_sum_outer``):
+    each non-empty call is kept with its output, to be held against the
+    plain version after the run. Returns (results, first-run ms by query,
+    calls by query and kernel, the recorded calls)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import aggregate, hashing, join
+
+    saved = hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer
+    seen = []
+
+    def rec(kernel, fn, rows):
+        def run(*args):
+            out = fn(*args)
+            if rows(args):  # an empty call launches nothing
+                seen.append((kernel, args, out))
+            return out
+        return run
+
+    hashing.partition_map = rec("partition_map", saved[0], lambda a: a[0].shape[0])
+    join.probe_paged = rec("probe_paged", saved[1], lambda a: a[0].shape[0])
+    aggregate.groupby_sum_outer = rec("groupby_sum_outer", saved[2], lambda a: a[0].shape[0])
+    out, stage, calls, recorded = {}, {}, {}, {}
+    try:
+        for name, cp in cps.items():
+            seen.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = cp()
+            torch.cuda.synchronize()
+            stage[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            calls[name] = {k: sum(s[0] == k for s in seen) for k in PLAN_KERNELS}
+            recorded[name] = list(seen)
+    finally:
+        hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer = saved
+    stage["end_to_end_ms"] = sum(stage.values())
+    return out, stage, calls, recorded
+
+
+def _check_plan_kernel_calls(recorded) -> dict:
+    """Every recorded B1 / B4 call bit for bit against its plain version,
+    every B3 call's counts exact and its sums within B3's bound (rtol
+    2e-6, atol 1e-3, ``tests/test_pallas_kernels.py:65-66``). Returns the
+    checked calls by kernel and B3's largest sum error."""
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    checked = {k: 0 for k in PLAN_KERNELS}
+    b3_err = 0.0
+    for name, seen in recorded.items():
+        for kernel, args, got in seen:
+            if kernel == "partition_map":
+                same = torch.equal(got, hk.partition_map_plain(*args))
+            elif kernel == "probe_paged":
+                want = hk.probe_paged_plain(*args)
+                same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            else:
+                want = hk.groupby_sum_outer_plain(*args)
+                b3_err = max(b3_err, float((got[0].double() - want[0].double()).abs().max())
+                             if got[0].numel() else 0.0)
+                same = torch.equal(got[1], want[1]) and torch.allclose(
+                    got[0].double(), want[0].double(), rtol=2e-6, atol=1e-3)
+            if not same:
+                raise AssertionError(f"plan {name}: {kernel} differs from its plain version "
+                                     f"on [{args[0].shape[0]}] {args[0].dtype} keys")
+            checked[kernel] += 1
+    return {"checked": checked, "b3_max_abs_err": b3_err}
+
+
+# var / std's two-pass M2 sums float64 with index_add_ (the atomics of
+# the card, in another order than the CPU's): the one FLOAT64 result
+# outside the exact accumulator, held to this relative tolerance
+PLAN_FLOAT_SUM_RTOL = 1e-9
+
+
+def _plan_float_sum_columns(cp) -> set:
+    """The names of a compiled plan's var / std outputs, and of every
+    projected column computed from one: the columns whose float64 sums
+    are not the exact accumulator's."""
+    from spark_rapids_jni_tpu_torch.plan import nodes as N
+
+    nodes = _plan_nodes(cp.optimized)
+    names = {a.name for n in nodes if isinstance(n, N.Aggregate) for a in n.aggs
+             if a.how in ("var", "std", "var_pop", "stddev_pop")}
+    grew = True
+    while grew:
+        grew = False
+        for n in [x for x in nodes if isinstance(x, N.Project)]:
+            for name, e in n.exprs:
+                if name not in names and e.refs() & names:
+                    names.add(name)
+                    grew = True
+    return names
+
+
+def _plan_nodes(root) -> list:
+    out, seen, todo = [], set(), [root]
+    while todo:
+        n = todo.pop()
+        if id(n) not in seen:
+            seen.add(id(n))
+            out.append(n)
+            todo.extend(n.inputs())
+    return out
+
+
+def _same_plan_result(got, want, what: str, float_sums=()) -> float:
+    """Two result tables bit for bit (names, types, data bits, which
+    columns carry a validity mask, and the masks), wherever they live;
+    the FLOAT64 columns named in ``float_sums`` within
+    ``PLAN_FLOAT_SUM_RTOL`` instead. Returns their largest relative
+    error (0.0 when there are none)."""
+    if got.names != want.names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.names} x {got.num_rows} differs from "
+                             f"{want.names} x {want.num_rows}")
+    worst = 0.0
+    for name, g, w in zip(want.names, got.columns, want.columns):
+        gd, wd = g.data.cpu().numpy(), w.data.cpu().numpy()
+        gv, wv = g.valid_mask().cpu().numpy(), w.valid_mask().cpu().numpy()
+        if (g.dtype != w.dtype or (g.validity is None) != (w.validity is None)
+                or not np.array_equal(gv, wv)):
+            raise AssertionError(f"{what}: column {name} differs")
+        if name in float_sums and g.dtype.id.name == "FLOAT64":
+            a, b = gd.view(np.float64)[gv], wd.view(np.float64)[wv]
+            rel = np.abs(a - b) / np.maximum(np.abs(b), np.finfo(np.float64).tiny)
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+            if not np.allclose(a, b, rtol=PLAN_FLOAT_SUM_RTOL, atol=0.0):
+                raise AssertionError(f"{what}: column {name} differs beyond rtol "
+                                     f"{PLAN_FLOAT_SUM_RTOL}")
+        elif not np.array_equal(gd.view(np.uint8), wd.view(np.uint8)):
+            raise AssertionError(f"{what}: column {name} differs")
+    return worst
+
+
+def _plan_oracle(q: str, h) -> dict:
+    """The numpy oracle of registry query ``q`` at its default parameters
+    over the host arrays ``h``: result columns, every float the nearest
+    float64 of the exact rational."""
+    dd = h["date_dim"]
+    if q == "q1":  # decorrelated: returns above 1.2x their store's average
+        sr = h["store_returns"]
+        keep = dd["d_year"][sr["sr_returned_date_sk"]] == 1998
+        (gc, gs), nums, e0, _ = _exact_groups(
+            sr["sr_return_amt"][keep], [sr["sr_customer_sk"][keep], sr["sr_store_sk"][keep]])
+        total = _rounded(nums, e0)
+        (us,), snums, se0, scnt = _exact_groups(total, [gs])
+        avg = dict(zip(us.tolist(), _rounded(snums, se0, scnt).tolist()))
+        sel = (total > np.array([avg[s] for s in gs.tolist()]) * 1.2)
+        sel &= h["store"]["s_state"][gs] == 3
+        return {"c_customer_id": np.sort(h["customer"]["c_customer_id"][gc[sel]])[:100]}
+    window = {"q38": (1999, 1, 7), "q10": (1999, 1, 4)}.get(q)
+    if window is not None:
+        ok = (dd["d_year"] == window[0]) & (dd["d_moy"] >= window[1]) & (dd["d_moy"] <= window[2])
+
+        def active(fact, ccol, dcol):
+            f = h[fact]
+            return np.unique(f[ccol][ok[f[dcol]]])
+
+        store = active("store_sales", "ss_customer_sk", "ss_sold_date_sk")
+        cat = active("catalog_sales", "cs_ship_customer_sk", "cs_sold_date_sk")
+        web = active("web_sales", "ws_bill_customer_sk", "ws_sold_date_sk")
+        cu = h["customer"]
+        if q == "q38":  # INTERSECT of the three channels' customer ids
+            ids = [set(cu["c_customer_id"][a].tolist()) for a in (store, cat, web)]
+            return {"cnt": np.array([len(ids[0] & ids[1] & ids[2])], np.int64)}
+        # q10: in-state customers with store AND (web OR catalog) activity
+        sk = cu["c_customer_sk"]
+        keep = (np.isin(h["customer_address"]["ca_state"][cu["c_current_addr_sk"]], (1, 4, 7))
+                & np.isin(sk, store) & np.isin(sk, np.union1d(web, cat)))
+        demo = cu["c_current_cdemo_sk"][keep]
+        cd = h["customer_demographics"]
+        names = ("cd_gender", "cd_marital_status", "cd_education_status")
+        keys = np.stack([cd[n][demo] for n in names], axis=1)
+        uniq, cnt = np.unique(keys, axis=0, return_counts=True)
+        return {**{n: uniq[:, i] for i, n in enumerate(names)}, "cnt": cnt.astype(np.int64)}
+    if q == "q9":  # CASE over each quantity band's global count and averages
+        ss = h["store_sales"]
+        vals = []
+        for i, th in enumerate((2100, 2100, 2100, 2100, 1800)):
+            band = (ss["ss_quantity"] >= 1 + 20 * i) & (ss["ss_quantity"] <= 20 + 20 * i)
+            n = int(band.sum())
+            src = ss["ss_ext_sales_price"] if n > th else ss["ss_coupon_amt"]
+            nums, e0 = _exact_sums(src[band], np.zeros(n, np.int64), 1)
+            vals.append(_frac_float(nums[0], e0, n))
+        return {"bucket": np.arange(5, dtype=np.int64), "val": np.array(vals, np.float64)}
+    raise ValueError(f"no oracle for {q}")
+
+
+def _check_plan_oracle(q: str, out, h) -> int:
+    """The query's result against its numpy oracle: every column exact
+    (floats by their bits). Returns the result's rows."""
+    want = _plan_oracle(q, h)
+    if list(want) != out.names:
+        raise AssertionError(f"plan {q}: columns {out.names}, the oracle's {list(want)}")
+    for name, w in want.items():
+        c = out.column(name)
+        got = c.to_numpy()
+        got = got.view(np.float64) if c.dtype.id.name == "FLOAT64" else got.astype(np.int64)
+        if c.validity is not None and not bool(c.valid_mask().all()):
+            raise AssertionError(f"plan {q}: column {name} has nulls the oracle does not")
+        if w.dtype == np.float64:  # floats by their bits
+            got, w = got.view(np.uint64), w.view(np.uint64)
+        if got.shape != w.shape or not np.array_equal(got, w):
+            raise AssertionError(f"plan {q}: column {name} differs from the numpy oracle "
+                                 f"({got[:8]} against {w[:8]})")
+    return out.num_rows
+
+
+def _plan_ppart(tabs):
+    """One ``ppart`` projection over store_sales: B1 at the fact's full
+    size, through the plan tier. Returns (compiled plan, the projection's
+    numpy oracle)."""
+    from spark_rapids_jni_tpu_torch import plan as P
+
+    ss = tabs["store_sales"]
+    ir = P.Project(P.Scan("store_sales"), (("p", P.ppart(("ss_item_sk",), PLAN_PPART)),))
+    keys = ss.column("ss_item_sk").to_numpy()
+    return (P.compile_ir(ir, {"store_sales": ss}, name="ppart"),
+            _np_pmod(_np_murmur([keys]), PLAN_PPART).astype(np.int32))
+
+
+def _plan_phase(wrappers) -> tuple:
+    """The plan path: inputs, each query compiled (its parts timed), the
+    counted run with every B1 / B4 / B3 call recorded and held against its
+    plain version, every check (the CPU run of the same plan on the same
+    tables, the hand-built q3 / q55, four numpy oracles, the inferred
+    schema, the peak blowup), the ppart projection, then each query warm
+    and profiled. Returns (paths entry, launches)."""
+    import torch
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+
+    t_phase = time.perf_counter()
+    inputs = _plan_inputs(PLAN_DEVICE)
+    torch.cuda.synchronize()
+    print("plan input: " + "; ".join(
+        f"{g} ({PLAN_ROWS[g]} rows: " + ", ".join(f"{t} {tb.num_rows}" for t, tb in tabs.items())
+        + ")" for g, (tabs, _) in inputs.items())
+        + f"; made on the host, uploaded, and copied to the CPU in "
+        f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    queries = _plan_queries()
+    cps, compile_ms = {}, {}
+    for name, plan, gname, _, _ in queries:
+        cps[name], compile_ms[name] = _plan_compile(plan, inputs[gname][0], name)
+    (out, stage, calls, recorded), launches = _run_counted(wrappers, lambda: _plan_capture(cps))
+    total = {k: sum(c[k] for c in calls.values()) for k in PLAN_KERNELS}
+    print(f"plan path launches: {launches}; calls recorded by kernel {total}", flush=True)
+    others = {k: v for k, v in launches.items() if k not in PLAN_KERNELS and v}
+    if others:
+        raise AssertionError(f"the plan path launched kernels it does not run: {others}")
+    if PLAN_DEVICE == "cuda" and any(launches[k] != total[k] for k in PLAN_KERNELS):
+        raise AssertionError(f"the plan path launched {launches}, recorded {total}")
+    t0 = time.perf_counter()
+    kcheck = _check_plan_kernel_calls(recorded)
+    del recorded
+    print(f"plan: every recorded call held against its plain version ({kcheck['checked']}, B1 "
+          f"and B4 bit for bit; B3's sums within rtol 2e-6 / atol 1e-3, max abs err "
+          f"{kcheck['b3_max_abs_err']:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cpu_ms, rows, reports, float_sums = {}, {}, {}, {}
+    for name, plan, gname, _, _ in queries:
+        got = out[name]
+        cp = cps[name]
+        executed = {n: c.dtype for n, c in zip(got.names, got.columns)}
+        if executed != cp.schema:
+            raise AssertionError(f"plan {name}: executed dtypes {executed} differ from the "
+                                 f"inferred schema {cp.schema}")
+        rep = cp.last_report
+        if rep["peak_blowup"] is not None and rep["peak_blowup"] > 2.5:
+            raise AssertionError(f"plan {name}: peak blowup {rep['peak_blowup']} above 2.5")
+        t1 = time.perf_counter()
+        ccp = P.compile_ir(plan(), inputs[gname][1], name=name)
+        if P.structure(ccp.optimized) != P.structure(cp.optimized) or [
+                (s.kind, s.est_rows, s.est_bytes) for s in ccp.stages] != [
+                (s.kind, s.est_rows, s.est_bytes) for s in cp.stages]:
+            raise AssertionError(f"plan {name}: the CPU tables compile to another plan")
+        fs = _plan_float_sum_columns(cp) & set(got.names)
+        err = _same_plan_result(got, ccp(), f"plan {name} on the card against the CPU", fs)
+        if fs:
+            float_sums[name] = {"columns": sorted(fs), "max_rel_err": err}
+        cpu_ms[name] = (time.perf_counter() - t1) * 1e3
+        rows[name] = got.num_rows
+        reports[name] = {k: rep[k] for k in ("nodes_raw", "nodes_optimized", "fused_stages",
+                                             "est_peak_bytes", "actual_peak_bytes",
+                                             "peak_blowup", "memgov_admitted_bytes")}
+        reports[name]["stages"] = [s["kind"] for s in rep["stages"]]
+    print(f"plan path checked against the port's CPU run of the same plans on the same tables "
+          f"(names, types, data bits and masks identical; the same optimized plans and "
+          f"estimates) in {time.perf_counter() - t0:.1f} s; held to rtol {PLAN_FLOAT_SUM_RTOL} "
+          f"instead, the var / std columns (float64 index_add_ sums): {float_sums}; inferred "
+          f"schemas equal the executed dtypes; peak blowup at most 2.5", flush=True)
+    for q in PLAN_HAND_BUILT:
+        tabs = inputs["gen_store"][0]
+        _same_plan_result(out[f"{q}_plan"], getattr(ptpcds, q)(tabs),
+                          f"plan {q}_plan against the hand-built {q}")
+    oracle_rows = {}
+    for q in PLAN_ORACLES:
+        gname = next(g for n, _, g, _, _ in queries if n == q)
+        oracle_rows[q] = _check_plan_oracle(q, out[q], _host_star(inputs[gname][0]))
+    print(f"plan: q3_plan / q55_plan bit for bit the hand-built q3 / q55; {', '.join(PLAN_ORACLES)} "
+          f"equal their numpy oracles (rows {oracle_rows})", flush=True)
+    del out
+    # B1 at the fact's full size, through a ppart projection
+    pcp, want = _plan_ppart(inputs["gen_store_wide"][0])
+    (pout, ppart_launches) = _run_counted(wrappers, pcp)
+    if PLAN_DEVICE == "cuda" and (ppart_launches["partition_map"] != 1 or any(
+            v for k, v in ppart_launches.items() if k != "partition_map")):
+        raise AssertionError(f"the ppart projection launched {ppart_launches}, not B1 once")
+    got = pout.column("p").data
+    keys = inputs["gen_store_wide"][0]["store_sales"].column("ss_item_sk")
+    if not (np.array_equal(got.cpu().numpy(), want)
+            and torch.equal(got, hk.partition_map_plain(keys.data, PLAN_PPART, keys.validity))):
+        raise AssertionError("plan ppart: the partition ids differ from the numpy murmur3 / "
+                             "the plain version")
+    pms = _time_ms(pcp, reps=5, warm=1) if PLAN_DEVICE == "cuda" else None
+    print(f"plan ppart projection over store_sales ({keys.data.shape[0]} INT32 keys, "
+          f"{PLAN_PPART} partitions): B1 launched {ppart_launches['partition_map']} time(s), ids "
+          f"equal to the numpy murmur3 and the plain version; {pms} ms a call", flush=True)
+    del pout, pcp, want
+    launches = {k: v + (ppart_launches[k] if k == "partition_map" else 0)
+                for k, v in launches.items()}
+    # each query warm, then profiled
+    warm, peak, profiles = _warm_and_profile(
+        "plan", cps, stage, {"partition_map_kernel": hk.partition_map,
+                             "probe_fenced_kernel": hk.probe_paged,
+                             "groupby_outer_kernel": hk.groupby_sum_outer})
+    for name in cps:
+        c = compile_ms[name]
+        kinds = reports[name]["stages"]
+        print(f"plan {name}: compile {c['compile_ms']:.2f} ms (rewrite {c['rewrite_ms']:.2f}, "
+              f"sketches {c['stats_ms']:.2f}, CBO {c['cbo_ms']:.2f}, lowering {c['lower_ms']:.2f}); "
+              f"first run {stage[name + '_ms']:.2f}, warm {warm[name + '_ms']:.2f} ms; peak "
+              f"{peak.get(name, float('nan')):.2f} GiB; stages fused {kinds.count('fused_aggregate')}"
+              f" / operator tier {len(kinds) - kinds.count('fused_aggregate')}; rewrites "
+              f"{cps[name].rewrites_fired}; launches {calls[name]}; rows {rows[name]}; CPU run "
+              f"{cpu_ms[name]:.0f} ms", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"plan phase: {wall:.1f} s wall (input, compiles, counted run, checks, CPU runs, "
+          f"warm runs, profiles)", flush=True)
+    return ({**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"],
+             "rows": PLAN_ROWS, "result_rows": rows, "compile_ms": compile_ms,
+             "cpu_run_ms": cpu_ms, "reports": reports, "calls": calls, **kcheck,
+             "float_sum_columns": float_sums,
+             "oracle_rows": oracle_rows, "ppart_ms": pms, "peak_gib": peak,
+             "phase_wall_s": wall, "launches": launches, "profile": profiles}, launches)
+
+
 def _kernels_only(rate: float) -> dict:
     """B3 on the fixed path's keys and B1, B4 and B3 on the join path's
     (``--kernels-only``): the same phases and inputs as a whole run,
@@ -4858,6 +5313,12 @@ def main() -> int:
                 "pack_u8_planes": rb.pack_u8_planes, "rotl_take": rb.rotl_take,
                 "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
     paths = {}
+    if "--plan-only" in sys.argv[1:]:
+        entry, _ = _plan_phase(wrappers)
+        print(json.dumps({"plan_only": {k: entry[k] for k in ("launches", "calls", "result_rows",
+                                                              "phase_wall_s")},
+                          "card": smi_line}), flush=True)
+        return 4  # a partial run: one path driven
 
     # -- the fixed path ------------------------------------------------------
     dtypes = _schema(pdt)
@@ -5163,6 +5624,10 @@ def main() -> int:
     del stars
     torch.cuda.empty_cache()
 
+    # -- the plan path: the plan tier's TPC-DS queries ------------------------
+    paths["plan"], planlaunches = _plan_phase(wrappers)
+    torch.cuda.empty_cache()
+
     # -- the spark_exact path: the reference's Spark-exact operators ---------
     t_phase = time.perf_counter()
     xh, xt = _spark_exact_inputs(SEED + 10)
@@ -5334,6 +5799,7 @@ def main() -> int:
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
                               "tpcds": dlaunches[k], "distributed": mlaunches[k],
+                              "plan": planlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
                               "io": iolaunches[k], "runtime": rt_launches[k],
                               "exchange": exlaunches[k]},

@@ -18,5 +18,7 @@ the sort-based GROUP BY (``ops.aggregate.groupby_aggregate``), the
 compiled-plan mechanism (``pipeline``) and the models (``models.datagen``,
 ``models.tpch``, ``models.compiled``). All ten TPU kernels of the
 reference have a hand-written counterpart (``ops.hopper_kernels``,
-``ops.ragged_bytes``).
+``ops.ragged_bytes``). The plan tier (``plan``: logical plans, rewrites,
+statistics, the cost-based optimizer and the compiler onto ``pipeline``
+and the operators) runs the TPC-DS plan queries (``models.tpcds_plans``).
 """

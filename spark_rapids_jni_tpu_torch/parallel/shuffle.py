@@ -1064,6 +1064,40 @@ def _kill(proc) -> None:
     proc.wait()
 
 
+def _drain_stderr(proc, keep: int = 200):
+    """Copy the child's stderr to ours line by line from a daemon thread,
+    keeping its last ``keep`` lines on ``proc.stderr_tail``, so that a
+    failure in the parent can name what the child said."""
+    import collections
+    import sys
+
+    tail = collections.deque(maxlen=keep)
+
+    def pump():
+        for line in proc.stderr:
+            tail.append(line)
+            try:
+                sys.stderr.write(line)
+            except Exception:  # our stderr closed: keep the tail only
+                pass
+
+    t = threading.Thread(target=pump, name="exchange-peer-stderr", daemon=True)
+    t.start()
+    proc.stderr_tail = tail
+    proc.stderr_thread = t
+
+
+def peer_stderr(proc, wait_s: float = 5.0) -> str:
+    """The last lines a spawned peer wrote to stderr; after its exit, all
+    of them (waits up to ``wait_s`` for the copy to reach EOF)."""
+    t = getattr(proc, "stderr_thread", None)
+    if t is None:
+        return ""
+    if proc.poll() is not None:
+        t.join(wait_s)
+    return "".join(proc.stderr_tail)
+
+
 def spawn_exchange_peer(parent_addr: str, rows: int, seed: int, *,
                         rank: int = 1, world: int = 2,
                         extra_env: Optional[dict] = None,
@@ -1107,8 +1141,13 @@ def spawn_exchange_peer(parent_addr: str, rows: int, seed: int, *,
         argv.append("--cluster")
     if device is not None:
         argv += ["--device", str(device)]
-    proc = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env,
-                            text=True)
+    proc = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, env=env, text=True)
+    _drain_stderr(proc)
+
+    def exited():
+        return FatalDeviceError(f"exchange peer exited during startup rc={proc.returncode}; "
+                                f"its stderr:\n{peer_stderr(proc)}")
     # select() on the raw fd and a line buffer of our own, so that the
     # timeout holds while the child prints nothing, an EOF fails at once,
     # and a READY line sharing a pipe chunk with an earlier line is seen
@@ -1130,19 +1169,24 @@ def spawn_exchange_peer(parent_addr: str, rows: int, seed: int, *,
             remaining = t_end - time.monotonic()
             if remaining <= 0:
                 raise FatalDeviceError(
-                    f"exchange peer never reported ready within {ready_timeout_s:g}s")
+                    f"exchange peer never reported ready within {ready_timeout_s:g}s; "
+                    f"its stderr:\n{peer_stderr(proc)}")
             readable, _, _ = select.select([fd], [], [], min(remaining, 0.5))
             if not readable:
                 if proc.poll() is not None:
-                    raise FatalDeviceError(
-                        f"exchange peer exited during startup rc={proc.returncode}")
+                    raise exited()
                 continue
             chunk = os.read(fd, 65536)
             if not chunk:
-                if proc.poll() is not None:
+                # a dying child's pipes close before it can be reaped: at
+                # EOF wait for the exit instead of polling once
+                try:
+                    proc.wait(timeout=max(t_end - time.monotonic(), 0.0))
+                except subprocess.TimeoutExpired:
                     raise FatalDeviceError(
-                        f"exchange peer exited during startup rc={proc.returncode}")
-                raise FatalDeviceError("exchange peer closed stdout before reporting ready")
+                        "exchange peer closed stdout before reporting ready; "
+                        f"its stderr:\n{peer_stderr(proc, 0.0)}") from None
+                raise exited()
             buf += chunk
     except BaseException:
         _kill(proc)
@@ -1220,8 +1264,8 @@ def _exchange_worker_main(args) -> int:
               f"(got {mode!r})", file=sys.stderr)
         return 2
     if args.query != "demo":
-        print(f"exchange worker: --query {args.query} needs the plan tier, which the port does "
-              "not have yet (ROADMAP item 11)", file=sys.stderr)
+        print(f"exchange worker: --query {args.query} needs the plan tier's distributed run, "
+              "which the port does not have yet (ROADMAP item 11b)", file=sys.stderr)
         return 2
     try:
         dev = resolve_device(args.device)
@@ -1293,7 +1337,8 @@ def _main(argv=None) -> int:
     ap.add_argument("--cluster", action="store_true",
                     help="arm ClusterView membership + heartbeats")
     ap.add_argument("--query", default="demo", choices=("demo", "q55"),
-                    help="workload: the demo group-by (q55 needs the plan tier, not ported yet)")
+                    help="workload: the demo group-by (q55 needs the plan tier's distributed "
+                         "run, not ported yet)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="demo exchange rounds (round i at epoch + 2i; result published at "
                          "epoch + 2*rounds - 1)")

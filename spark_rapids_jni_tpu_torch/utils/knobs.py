@@ -19,7 +19,8 @@ tracing, retry and integrity gates) do so at their own import site.
 Only the knobs of the modules the port has are declared: retry, deadline
 and breaker, metrics (with the adaptive-timeout reader), tracing and the
 flight recorder, integrity, fault injection, the cross-process exchange,
-cluster membership and the device-memory budget. ``markdown_table()``
+cluster membership, the plan tier (its report, statistics and cost-based
+optimizer) and the device-memory budget. ``markdown_table()``
 renders them for the README.
 
 ``SENTINELS`` are not knobs: they are the handshake lines that spawn
@@ -339,6 +340,42 @@ declare("SRJTORCH_CLUSTER_TOPOLOGY", "str", "auto",
         "tree (hypercube rounds, power-of-two worlds), or auto (tree "
         "iff the world is a power of two >= 4 and no cluster is "
         "attached)", choices=("auto", "all_to_all", "tree"))
+
+# the plan tier (plan/compiler.py, plan/stats/, plan/optimizer.py)
+declare("SRJTORCH_PLAN_REPORT", "str", None,
+        "append one JSON line per compiled-plan execution (node counts, "
+        "rewrites fired, per-stage estimate-vs-actual bytes) to this "
+        "path", scope="harness")
+declare("SRJTORCH_STATS_ENABLED", "bool", True,
+        "collect per-column sketches (row count, min/max, HLL distinct "
+        "count, equi-depth histogram, null fraction) lazily at Scan and "
+        "cache them against table generation stamps; 0 falls the "
+        "compiler back to its hand-tuned selectivity/width heuristics")
+declare("SRJTORCH_STATS_HISTOGRAM_BINS", "int", 16,
+        "equi-depth histogram bins per sketched column (more bins = "
+        "tighter range-predicate selectivity, more stats memory)",
+        minimum=2)
+declare("SRJTORCH_STATS_HLL_BITS", "int", 9,
+        "HyperLogLog register-index bits per sketched column (2^bits "
+        "registers; 9 = 512 registers ~= 3.6% standard error; read "
+        "sites clamp to at most 14)", minimum=4)
+declare("SRJTORCH_STATS_MAX_ROWS", "int", 262144,
+        "head-sample cap per column when collecting sketches (the rows "
+        "copied to the host); counts above the cap are scaled back up "
+        "by the sampling ratio", positive=True)
+declare("SRJTORCH_CBO_ENABLED", "bool", True,
+        "run the cost-based optimizer pass after the default rewrite: "
+        "join-order enumeration, build-side commutes, and physical join "
+        "strategy resolution, each fired as a verified rewrite with its "
+        "own PLAN006 obligation (requires SRJTORCH_STATS_ENABLED)")
+declare("SRJTORCH_CBO_DP_TABLES", "int", 6,
+        "join-chain length up to which the exact subset-DP order search "
+        "runs; longer chains use the greedy fanout-sorted fallback",
+        minimum=2)
+declare("SRJTORCH_CBO_CALIBRATION", "str", "artifacts/plan_compile.jsonl",
+        "plan-report JSONL the byte-estimate calibration is learned "
+        "from (per-stage-kind median actual/est, clamped to [0.5, 2x]); "
+        "missing file = neutral factors")
 
 # device memory (utils/memory.py)
 declare("SRJTORCH_DEVICE_MEMORY_BUDGET", "int", None,

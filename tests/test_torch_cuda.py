@@ -1872,3 +1872,59 @@ def test_tcp_exchange_pair_lands_partitions_on_the_card(rng):
             if a.validity is not None:
                 assert torch.equal(a.validity.cpu(), b.validity)
 
+
+
+def _plan_tables_to_cpu(tabs):
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    return {k: Table([Column(c.dtype, data=c.data.cpu(),
+                             validity=None if c.validity is None else c.validity.cpu())
+                      for c in t.columns], list(t.names)) for k, t in tabs.items()}
+
+
+@pytest.mark.parametrize("name", ["q1", "q10", "q38", "q9", "q27", "q73"])
+def test_plan_query_on_the_card_matches_the_cpu(name):
+    """A compiled registry plan over card tables equals the same plan over
+    the same tables on the CPU, bit for bit; its operator-tier single-key
+    joins launch B4 on the card (as many as the CPU run takes its plain
+    version)."""
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans as tp
+    from spark_rapids_jni_tpu_torch.ops import join
+
+    d = tp.PLAN_QUERIES[name]
+    tabs = d.gen(6000, device="cuda")
+    cpu_tabs = _plan_tables_to_cpu(tabs)
+    calls = []
+    real = join.probe_paged
+
+    def rec(*args):
+        calls.append(args[0].device.type)
+        return real(*args)
+
+    join.probe_paged = rec
+    try:
+        want = P.compile_ir(d.plan(), cpu_tabs, name=name)()
+        before = hk.probe_paged.launches
+        cp = P.compile_ir(d.plan(), tabs, name=name)
+        got = cp()
+        torch.cuda.synchronize()
+    finally:
+        join.probe_paged = real
+    _same_table(got, want)
+    assert hk.probe_paged.launches - before == calls.count("cuda") == calls.count("cpu")
+    assert cp.last_report["memgov_admitted_bytes"] == 0
+
+
+def test_plan_ppart_on_the_card_runs_b1(rng):
+    from spark_rapids_jni_tpu_torch import plan as P
+
+    keys = rng.integers(-2**31, 2**31, 100_003, dtype=np.int64).astype(np.int32)
+    t = Table.from_numpy([keys], [pdt.INT32], names=["k"], device="cuda")
+    ir = P.Filter(P.Scan("t"), P.ppart(("k",), 7) == P.plit(np.int32(3)))
+    before = hk.partition_map.launches
+    got = P.compile_ir(ir, {"t": t}, name="ppart")()
+    torch.cuda.synchronize()
+    assert hk.partition_map.launches == before + 1
+    cpu = Table.from_numpy([keys], [pdt.INT32], names=["k"], device="cpu")
+    _same_table(got, P.compile_ir(ir, {"t": cpu}, name="ppart")())

@@ -90,6 +90,26 @@ def test_runtime_core_modules_are_walked(mod):
     assert f"{PKG}.{mod}" in _port_modules()
 
 
+@pytest.mark.parametrize("mod", ["plan", "plan.exprs", "plan.nodes", "plan.rewrites",
+                                 "plan.verifier", "plan.optimizer", "plan.distribute",
+                                 "plan.compiler", "plan.stats", "plan.stats.sketches",
+                                 "plan.stats.model", "cache", "cache.tablegen",
+                                 "models.tpcds_plans"])
+def test_plan_tier_modules_are_walked(mod):
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
+def test_plan_generators_raise_without_a_card(monkeypatch):
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for gen in (tpcds_plans.gen_store_returns, tpcds_plans.gen_catalog,
+                tpcds_plans.gen_channels):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            gen(8)
+        assert all(t.columns[0].device.type == "cpu" for t in gen(8, device="cpu").values())
+
+
 def test_port_adds_no_knob_literal():
     # the reference's knobs are SRJT_*: the port reads no environment knob
     # of that prefix, in its Python or its C++

@@ -31,7 +31,7 @@ def test_the_port_declares_its_modules_knobs():
     groups = {"RETRY_": 7, "DEADLINE_SEC": 1, "BREAKER_": 2, "METRICS_": 2,
               "TRACE_": 5, "SLOW_QUERY_SEC": 1, "INTEGRITY_CHECKS": 1,
               "FAULTINJ_": 3, "DEVICE_MEMORY_BUDGET": 1, "ADAPTIVE_TIMEOUT_": 4,
-              "EXCHANGE_": 3, "CLUSTER_": 6}
+              "EXCHANGE_": 3, "CLUSTER_": 6, "PLAN_REPORT": 1, "STATS_": 4, "CBO_": 3}
     for stem, n in groups.items():
         assert sum(1 for k in PORT_NAMES if k[len(pk.PREFIX):].startswith(stem)) == n, stem
     assert len(PORT_NAMES) == sum(groups.values())

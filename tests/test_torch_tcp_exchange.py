@@ -288,12 +288,15 @@ def test_spawn_fleet_kills_started_children_when_a_spawn_fails(monkeypatch):
 
 
 def _close_children(*procs):
+    """Close each live child's stdin and wait for its exit; a child that
+    does not exit is killed, and ``killed_after_close`` says so."""
     for p in procs:
         if p is not None and p.poll() is None:
             try:
                 p.stdin.close()
                 p.wait(timeout=20)
             except Exception:  # the child is killed whatever went wrong
+                p.killed_after_close = True
                 p.kill()
                 p.wait()
 
@@ -309,7 +312,10 @@ def test_two_process_groupby_with_cpu_workers():
     proc = None
     try:
         if not torch.cuda.is_available():
-            with pytest.raises(PORT.errors.FatalDeviceError, match="exited during startup"):
+            # the child's pipes close before it can be reaped: the spawn
+            # must still report the exit, its code and the child's stderr
+            with pytest.raises(PORT.errors.FatalDeviceError,
+                               match=r"exited during startup rc=2(.|\n)*no CUDA device"):
                 PORT.shuffle.spawn_exchange_peer(ex0.address, 64, seed, ready_timeout_s=120)
         proc, addr = PORT.shuffle.spawn_exchange_peer(ex0.address, rows, seed, device="cpu",
                                                        ready_timeout_s=120)
@@ -322,7 +328,10 @@ def test_two_process_groupby_with_cpu_workers():
     finally:
         _close_children(proc)
         ex0.close()
-    assert proc.returncode == 0
+    assert proc.returncode == 0, (
+        f"worker rc={proc.returncode} killed_after_close="
+        f"{getattr(proc, 'killed_after_close', False)}; its stderr:\n"
+        f"{PORT.shuffle.peer_stderr(proc)}")
 
 
 class TestTcpExchangeTwoProcess:
