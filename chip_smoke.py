@@ -258,7 +258,25 @@ checkout (one nvcc per source, all at once), then on one card:
    query's compile split, first-run and warm median-of-3 host ms, peak
    memory, fused against operator-tier stages, rewrites fired, launches
    and a profile; the phase's wall seconds;
-15. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+15. the MEMGOV path, run after the plan path on tables and card results
+   the earlier paths leave it (the tpch path's lineitem, the plan path's
+   gen_store and gen_store_wide and its card ``q55_plan`` result, the
+   join path's fact and dimension): (a) q55 with exchange stages at world
+   4, ranks 1-3 ``--query q55`` worker processes on the same card over
+   ``gen_store`` at SF1, the merged partials bit for bit the plan path's
+   result; (b) out of core with the device budget at a quarter of the
+   plan's estimate, TPC-H q1's IR over lineitem and a one-INT32-key
+   aggregate over store_sales (B1 partitions it), each bit for bit its
+   in-core run, with spills and no partition entry left; (c) the join
+   path's dimension as a ``register_build`` table forced to host and to
+   disk, every pipeline call bit for bit, with the D2H, H2D and frame
+   rates; (d) the plan and subresult caches on a registry plan and its
+   ``rebind_literals`` variant (miss, rebind hit, exact hit with
+   subresult hits); (e) ``to_dmatrix(max_bins=256)`` over a 4,194,304-row
+   table of Criteo's shape, cuts and bins bit for bit the CPU run's, with
+   time and peak memory. Every B1, B4 and B3 call is held against its
+   plain version; the phase's wall seconds;
+16. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -273,6 +291,8 @@ checkout whose own script does not time their host work). It drives no
 path, so it is a partial run: it prints its numbers, never the ``ok``
 line, and exits 4. ``python3 chip_smoke.py --plan-only`` runs the plan
 path alone (the kernels built, no other path): also a partial run, exit 4.
+``python3 chip_smoke.py --memgov-only`` runs the memgov path alone, making
+the inputs it would otherwise reuse: a partial run, exit 4.
 """
 
 from __future__ import annotations
@@ -5118,13 +5138,21 @@ def _plan_ppart(tabs):
             _np_pmod(_np_murmur([keys]), PLAN_PPART).astype(np.int32))
 
 
-def _plan_phase(wrappers) -> tuple:
+def _plan_seed(gname: str) -> int:
+    """The seed ``_plan_inputs`` made a generator's tables with (the first
+    query's of that generator)."""
+    return next(s for _, _, g, _, s in _plan_queries() if g == gname)
+
+
+def _plan_phase(wrappers, keep=None) -> tuple:
     """The plan path: inputs, each query compiled (its parts timed), the
     counted run with every B1 / B4 / B3 call recorded and held against its
     plain version, every check (the CPU run of the same plan on the same
     tables, the hand-built q3 / q55, four numpy oracles, the inferred
     schema, the peak blowup), the ppart projection, then each query warm
-    and profiled. Returns (paths entry, launches)."""
+    and profiled. Returns (paths entry, launches). ``keep`` (a dict) gets
+    the gen_store and gen_store_wide tables with their seeds and the card
+    q55_plan result, for the memgov path."""
     import torch
     from spark_rapids_jni_tpu_torch import plan as P
     from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds
@@ -5199,6 +5227,10 @@ def _plan_phase(wrappers) -> tuple:
         oracle_rows[q] = _check_plan_oracle(q, out[q], _host_star(inputs[gname][0]))
     print(f"plan: q3_plan / q55_plan bit for bit the hand-built q3 / q55; {', '.join(PLAN_ORACLES)} "
           f"equal their numpy oracles (rows {oracle_rows})", flush=True)
+    if keep is not None:
+        for g in ("gen_store", "gen_store_wide"):
+            keep[g] = (inputs[g][0], _plan_seed(g))
+        keep["q55_plan"] = out["q55_plan"]
     del out
     # B1 at the fact's full size, through a ppart projection
     pcp, want = _plan_ppart(inputs["gen_store_wide"][0])
@@ -5243,6 +5275,479 @@ def _plan_phase(wrappers) -> tuple:
              "float_sum_columns": float_sums,
              "oracle_rows": oracle_rows, "ppart_ms": pms, "peak_gib": peak,
              "phase_wall_s": wall, "launches": launches, "profile": profiles}, launches)
+
+
+# ---------------------------------------------------------------------------
+# the memgov path: the plan tier across processes, out-of-core plans,
+# spilled build tables, the plan and subresult caches, the xgboost bridge
+# ---------------------------------------------------------------------------
+
+MEMGOV_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+MEMGOV_WORLD = 4  # (a): this process rank 0, three worker processes
+MEMGOV_CACHE_QUERY = "q96"  # (d): a registry plan over the plan path's gen_store_wide
+MEMGOV_REBIND = {("int", 20, None): 8}  # (d): q96's hour 20 -> 8
+CRITEO_ROWS = 4_194_304  # (e): 2^22 rows of Criteo's shape
+CRITEO_DENSE, CRITEO_CATS = 13, 26  # Criteo's I1-I13 and C1-C26
+CRITEO_BINS = 256  # XGBoost's default max_bin
+MEMGOV_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
+
+
+def _memgov_env(**values):
+    """Set ``SRJTORCH_<name>`` knobs for a ``with`` block (None unsets)."""
+    import contextlib
+    import os
+
+    @contextlib.contextmanager
+    def scope():
+        saved = {k: os.environ.get("SRJTORCH_" + k) for k in values}
+        try:
+            for k, v in values.items():
+                if v is None:
+                    os.environ.pop("SRJTORCH_" + k, None)
+                else:
+                    os.environ["SRJTORCH_" + k] = str(v)
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop("SRJTORCH_" + k, None)
+                else:
+                    os.environ["SRJTORCH_" + k] = v
+
+    return scope()
+
+
+def _memgov_recorders():
+    """Recorders in front of B1 (``hashing.partition_map``), B4
+    (``join.probe_paged``) and B3 (``aggregate.groupby_sum_outer``) that
+    keep every non-empty call with its output, from any thread. Returns
+    (install, restore, take): ``take`` hands the calls recorded since the
+    last take to ``_check_plan_kernel_calls`` and returns its result."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.ops import aggregate, hashing, join
+
+    saved = hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer
+    seen, lock = [], threading.Lock()
+
+    def rec(kernel, fn):
+        def run(*args):
+            out = fn(*args)
+            if args[0].shape[0]:  # an empty call launches nothing
+                with lock:
+                    seen.append((kernel, args, out))
+            return out
+        return run
+
+    def install():
+        hashing.partition_map = rec("partition_map", saved[0])
+        join.probe_paged = rec("probe_paged", saved[1])
+        aggregate.groupby_sum_outer = rec("groupby_sum_outer", saved[2])
+
+    def restore():
+        hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer = saved
+
+    def take(what: str) -> dict:
+        with lock:
+            calls = list(seen)
+            seen.clear()
+        return _check_plan_kernel_calls({what: calls})
+
+    return install, restore, take
+
+
+def _memgov_inputs(keep: dict) -> dict:
+    """The earlier paths' tables and card results this path reuses (the
+    tpch path's lineitem, the plan path's gen_store / gen_store_wide and
+    its card q55_plan result, the join path's fact and dimension); what
+    ``keep`` lacks (a ``--memgov-only`` run) is made here the same way."""
+    import torch
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds, tpch
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans as tp
+
+    got = dict(keep)
+    made = []
+    if "lineitem" not in got:
+        got["lineitem"] = tpch.gen_lineitem(LINEITEM_ROWS, seed=SEED + 4, device=MEMGOV_DEVICE)
+        made.append("lineitem")
+    for gname, gen in (("gen_store", ptpcds.gen_store), ("gen_store_wide", ptpcds.gen_store_wide)):
+        if gname not in got:
+            seed = next(s for _, _, g, _, s in _plan_queries() if g == gname)
+            got[gname] = (gen(PLAN_ROWS[gname], seed=seed, device=MEMGOV_DEVICE), seed)
+            made.append(gname)
+    if "q55_plan" not in got:
+        got["q55_plan"] = P.compile_ir(tp.q55_plan(), got["gen_store"][0], name="q55_plan")()
+        made.append("q55_plan")
+    if "join" not in got:
+        (fa, fv), (da, dv) = _join_inputs(SEED + 2)
+        fact = Table(carry_table(fa, [_pdtype(pdt, t) for _, t in FACT_COLS], fv,
+                                 device=MEMGOV_DEVICE).columns, [n for n, _ in FACT_COLS])
+        dim = Table(carry_table(da, [_pdtype(pdt, t) for _, t in DIM_COLS], dv,
+                                device=MEMGOV_DEVICE).columns, [n for n, _ in DIM_COLS])
+        got["join"] = (fact, dim)
+        made.append("join")
+    torch.cuda.synchronize()
+    got["made"] = made
+    return got
+
+
+def _memgov_q55(store, seed: int, want) -> dict:
+    """(a): q55 with exchange stages at world 4 on the one card: ranks 1-3
+    are ``--query q55`` worker processes over ``gen_store(rows, seed)``,
+    this process is rank 0 over the same tables; the merged partials equal
+    the plan path's single-process card result bit for bit."""
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans as tp
+    from spark_rapids_jni_tpu_torch.ops.copying import slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.plan.distribute import merge_partials
+    from spark_rapids_jni_tpu_torch.utils import retry
+
+    import torch
+
+    world = MEMGOV_WORLD
+    rows = store["store_sales"].num_rows
+    sales = store["store_sales"]
+
+    def shard_tables(r):
+        out = dict(store)
+        out["store_sales"] = slice_table(sales, *shuffle._shard_bounds(rows, world, r))
+        return out
+
+    plan = P.insert_exchanges(tp.q55_plan(), world)
+    ex0 = shuffle.TcpExchange(0, device=MEMGOV_DEVICE)
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        procs, peers = shuffle.spawn_exchange_fleet(
+            ex0.address, PLAN_ROWS["gen_store"], seed, world=world, query="q55",
+            device=MEMGOV_DEVICE, ready_timeout_s=300)
+        startup_s = time.perf_counter() - t0
+        others = {r: a for r, a in peers.items() if r != 0}
+        t0 = time.perf_counter()
+        with retry.enabled(max_attempts=400, base_delay_ms=25, max_delay_ms=250):
+            with P.exchange_context(ex0, others, shard_tables=shard_tables):
+                part0 = P.compile_ir(plan, shard_tables(0), name="q55@r0")()
+            parts = [part0] + [Table(ex0.fetch(others[r], 1, r).columns, list(want.names))
+                               for r in range(1, world)]
+        merged = merge_partials(parts, [("ext_price", False), ("i_brand_id", True)])
+        round_s = time.perf_counter() - t0
+    finally:
+        _close_fleet(procs)
+        ex0.close()
+    bad = {r: p.returncode for r, p in procs.items() if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"memgov (a): q55 workers exited {bad}")
+    # the exchange-stage plan's aggregate keeps an all-valid mask on its
+    # key where the plain plan has none: data bits and valid rows compared
+    if merged.names != want.names or merged.num_rows != want.num_rows or any(
+            g.dtype != w.dtype
+            or not torch.equal(g.valid_mask().cpu(), w.valid_mask().cpu())
+            or not np.array_equal(g.data.cpu().numpy().view(np.uint8),
+                                  w.data.cpu().numpy().view(np.uint8))
+            for g, w in zip(merged.columns, want.columns)):
+        raise AssertionError("memgov (a): the merged q55 partials differ from the "
+                             "single-process card q55_plan")
+    return {"world": world, "rows": rows, "seed": seed, "fleet_startup_s": startup_s,
+            "round_s": round_s, "result_rows": merged.num_rows,
+            "partial_rows": [p.num_rows for p in parts]}
+
+
+def _memgov_ooc(ir, tables, label: str) -> dict:
+    """(b): ``ir`` in core, then out of core with the device budget at its
+    estimate // 4; bit for bit, spills > 0 and no partition entry left."""
+    import torch
+    from spark_rapids_jni_tpu_torch import memgov
+    from spark_rapids_jni_tpu_torch import plan as P
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    incore_cp = P.compile_ir(ir, tables, name=f"{label}_incore")
+    want = incore_cp()
+    torch.cuda.synchronize()
+    incore_ms = (time.perf_counter() - t0) * 1e3
+    est = incore_cp.estimated_memory_bytes
+    budget = est // 4
+    with _memgov_env(OOC_ENABLED=1, DEVICE_MEMORY_BUDGET=budget, OOC_PARTITIONS=None), \
+            memgov.enabled():
+        t0 = time.perf_counter()
+        cp = P.compile_ir(ir, tables, name=f"{label}_ooc")
+        if not isinstance(cp, P.OutOfCorePlan):
+            raise AssertionError(f"memgov (b) {label}: out of core was not selected")
+        got = cp()
+        torch.cuda.synchronize()
+        ooc_ms = (time.perf_counter() - t0) * 1e3
+        kinds = memgov.catalog().kind_stats("partition")
+    _same_plan_result(got, want, f"memgov (b) {label}: out of core against in core")
+    rep = cp.last_report
+    if rep["spills"] <= 0 or kinds != (0, 0):
+        raise AssertionError(f"memgov (b) {label}: spills {rep['spills']}, partition entries "
+                             f"left {kinds}")
+    return {"rows": next(iter(tables.values())).num_rows, "keys": list(cp._target.key_cols),
+            "est_bytes": est, "budget_bytes": budget, "partitions": cp.partitions,
+            "partition_peak_bytes": cp.partition_memory_bytes, "spills": rep["spills"],
+            "resumes": rep["resumes"], "incore_ms": incore_ms, "ooc_ms": ooc_ms,
+            "result_rows": got.num_rows}
+
+
+def _memgov_builds(fact, dim) -> dict:
+    """(c): the join path's dimension registered as the build table of a
+    dense-join pipeline over its fact batch, then forced to host and to
+    disk with ``spill_until`` / ``spill``; every call's output bit for bit
+    the explicit-builds call's. Rates from the host clock."""
+    import torch
+    from spark_rapids_jni_tpu_torch import memgov
+    from spark_rapids_jni_tpu_torch import pipeline as pp
+
+    plan = pp.PlanSpec(
+        joins=(pp.JoinSpec(build="dim", probe_key="item_sk", build_key="item_sk",
+                           num_keys=ITEM_DOMAIN, payload=("i_brand_id", "i_manufact_id")),),
+        aggregates=(pp.Agg("i_manufact_id", "sum"), pp.Agg("i_brand_id", "max"),
+                    pp.Agg("ss_quantity", "sum"), pp.Agg("ss_ext_sales_price", "count")))
+    pipe = pp.compile_plan(plan)
+    want = pipe(fact, {"dim": dim})
+    memgov.reset()
+    cat = memgov.catalog()
+    pipe.register_build("dim", dim)
+    h = pipe._build_handles["dim"]
+    nbytes = h.nbytes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    outs = [pipe(fact)]
+    d2h = timed(lambda: cat.spill_until(nbytes, name="memgov.builds"))
+    tiers = [h.tier]
+    outs.append(pipe(fact))  # re-materializes host -> device, pinned
+    h.spill()
+    h2d = timed(h.get)
+    h.spill()
+    write = timed(lambda: h.spill(to_disk=True))
+    tiers.append(h.tier)
+    disk_get = timed(h.get)
+    outs.append(pipe(fact))
+    tiers.append(h.tier)
+    for i, got in enumerate(outs):
+        _same_plan_result(got, want, f"memgov (c): call {i} with the registered build")
+    pipe.unregister_builds()
+    if tiers != ["host", "disk", "device"] or cat.snapshot()["entries"] != 0:
+        raise AssertionError(f"memgov (c): tiers {tiers}, entries {cat.snapshot()['entries']}")
+    gb = nbytes / 1e9
+    read = max(disk_get - h2d, 1e-9)
+    return {"build_rows": dim.num_rows, "build_bytes": nbytes, "fact_rows": fact.num_rows,
+            "d2h_gbps": gb / d2h, "h2d_gbps": gb / h2d, "frame_write_gbps": gb / write,
+            "disk_to_device_gbps": gb / disk_get, "frame_read_gbps": gb / read,
+            "d2h_ms": d2h * 1e3, "h2d_ms": h2d * 1e3, "frame_write_ms": write * 1e3,
+            "disk_to_device_ms": disk_get * 1e3}
+
+
+def _memgov_caches(tables) -> dict:
+    """(d): a registry plan through ``cache.compile_cached``: a miss, the
+    plan re-parameterized with ``rebind_literals`` (a rebind hit, its
+    result bit for bit a fresh compile's), then the first plan again (an
+    exact hit whose stages are subresult hits)."""
+    import torch
+    from spark_rapids_jni_tpu_torch import cache, memgov
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans as tp
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    reg = metrics.registry()
+    names = ("hits", "misses", "rebinds", "sub_hits", "sub_misses", "insert_verified")
+    c0 = {n: reg.value(f"cache.{n}") for n in names}
+    plan_a = tp.PLAN_QUERIES[MEMGOV_CACHE_QUERY].plan()
+    plan_b = P.rebind_literals(plan_a, MEMGOV_REBIND)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    with _memgov_env(PLAN_CACHE=1, SUBRESULT_CACHE=1):
+        cache.reset()
+        qa, miss_ms = timed(lambda: cache.compile_cached(plan_a, tables, name="cache_a"))
+        ra, run_a_ms = timed(qa)
+        qb, rebind_ms = timed(lambda: cache.compile_cached(plan_b, tables, name="cache_b"))
+        rb, run_b_ms = timed(qb)
+        qa2, hit_ms = timed(lambda: cache.compile_cached(plan_a, tables, name="cache_a"))
+        ra2, run_hit_ms = timed(qa2)
+        governed = memgov.catalog().kind_stats("cache")
+        cache.reset()
+    d = {n: reg.value(f"cache.{n}") - c0[n] for n in names}
+    _same_plan_result(rb, P.compile_ir(plan_b, tables, name="cache_fresh")(),
+                      "memgov (d): the rebound plan against a fresh compile")
+    _same_plan_result(ra2, ra, "memgov (d): the subresult hit against the first run")
+    if d["misses"] != 1 or d["rebinds"] != 1 or d["hits"] != 2 or d["sub_hits"] < 1:
+        raise AssertionError(f"memgov (d): cache counters {d}")
+    return {"query": MEMGOV_CACHE_QUERY, "rebind": {str(k): v for k, v in MEMGOV_REBIND.items()},
+            "miss_compile_ms": miss_ms, "rebind_compile_ms": rebind_ms,
+            "exact_hit_compile_ms": hit_ms, "first_run_ms": run_a_ms,
+            "rebound_run_ms": run_b_ms, "subresult_hit_run_ms": run_hit_ms,
+            "governed_entries_bytes": governed, "counters": d,
+            "result_rows": [ra.num_rows, rb.num_rows]}
+
+
+def _criteo_table(rows: int, seed: int, device):
+    """A synthetic table of Criteo's shape: label (INT32 0/1, ~3% clicks),
+    I1-I13 (INT32 counts, heavy-tailed, I2 down to -3, 0-45% nulls) and
+    C1-C26 (INT32 hashed categorical codes from vocabularies of 10 to
+    10^7 values, log-uniform ranks so that a few codes are common, 0-40%
+    nulls)."""
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+
+    rng = np.random.default_rng(seed)
+    arrays, valids, names = [(rng.random(rows) < 0.03).astype(np.int32)], [None], ["label"]
+    null_rates = np.linspace(0.0, 0.45, CRITEO_DENSE)
+    for i in range(CRITEO_DENSE):
+        a = np.floor(rng.lognormal(1.0 + 0.3 * i, 1.5, rows)).astype(np.int32)
+        if i == 1:
+            a -= 3
+        arrays.append(a)
+        valids.append(rng.random(rows) >= null_rates[i])
+        names.append(f"I{i + 1}")
+    vocab = np.logspace(1, 7, CRITEO_CATS).astype(np.int64)
+    null_rates = np.linspace(0.0, 0.4, CRITEO_CATS)
+    for j in range(CRITEO_CATS):
+        ranks = np.exp(rng.random(rows) * np.log(vocab[j])).astype(np.int64) - 1
+        codes = ((ranks * 0x9E3779B1 + j * 0x85EBCA77) & 0x7FFFFFFF).astype(np.int32)
+        arrays.append(codes)
+        valids.append(rng.random(rows) >= null_rates[j])
+        names.append(f"C{j + 1}")
+    t = carry_table(arrays, [pdt.INT32] * len(arrays), valids, device=device)
+    return Table(t.columns, names)
+
+
+def _memgov_bridge(rows: int) -> dict:
+    """(e): ``to_dmatrix(max_bins=256)`` over the Criteo-shaped table on
+    the card; its cuts and bins bit for bit the port's CPU run of the same
+    table. Time and peak device memory from the card."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Column, Table
+    from spark_rapids_jni_tpu_torch.models import xgboost_bridge as xb
+
+    t0 = time.perf_counter()
+    table = _criteo_table(rows, SEED + 17, MEMGOV_DEVICE)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    feats = [f"I{i + 1}" for i in range(CRITEO_DENSE)] + [f"C{j + 1}" for j in range(CRITEO_CATS)]
+
+    def build():
+        return xb.to_dmatrix(table, feats, label_col="label", max_bins=CRITEO_BINS)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dm = build()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    cpu_table = Table([Column(c.dtype, data=c.data.cpu(),
+                              validity=None if c.validity is None else c.validity.cpu())
+                       for c in table.columns], list(table.names))
+    t0 = time.perf_counter()
+    cdm = xb.to_dmatrix(cpu_table, feats, label_col="label", max_bins=CRITEO_BINS)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(dm.cuts.cpu().view(torch.int32), cdm.cuts.view(torch.int32))
+            and torch.equal(dm.binned.cpu(), cdm.binned)):
+        raise AssertionError("memgov (e): the card's cuts or bins differ from the CPU run's")
+    if dm.binned.shape != (rows, len(feats)) or int(dm.binned.max()) > CRITEO_BINS:
+        raise AssertionError(f"memgov (e): binned {tuple(dm.binned.shape)}, max "
+                             f"{int(dm.binned.max())}")
+    return {"rows": rows, "features": len(feats), "max_bins": CRITEO_BINS,
+            "table_made_s": make_s, "first_ms": first_ms,
+            "warm_ms": float(np.median(warm)), "cpu_ms": cpu_ms,
+            "peak_bytes_over_inputs": peak,
+            "features_bytes": dm.features.numel() * 4, "binned_bytes": dm.binned.numel() * 4,
+            "missing_fraction": float((dm.binned == CRITEO_BINS).float().mean())}
+
+
+def _memgov_phase(wrappers, keep: dict) -> tuple:
+    """The memgov path, (a)-(e), in one counted run with every B1 / B4 /
+    B3 call recorded and held against its plain version. Returns (paths
+    entry, launches)."""
+    from spark_rapids_jni_tpu_torch import memgov
+    from spark_rapids_jni_tpu_torch import plan as P
+
+    t_phase = time.perf_counter()
+    inp = _memgov_inputs(keep)
+    print(f"memgov input: reused the earlier paths' lineitem, gen_store, gen_store_wide, card "
+          f"q55_plan result and join tables; made here: {inp['made'] or 'nothing'} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    install, restore, take = _memgov_recorders()
+    store, seed = inp["gen_store"]
+    entry = {}
+
+    def drive():
+        def part(key, fn):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            entry[key] = fn()
+            entry[key]["wall_s"] = time.perf_counter() - t0
+            entry[key]["launches"] = {k: w.launches - before[k] for k, w in wrappers.items()
+                                      if w.launches - before[k]}
+            entry[key]["held"] = take(f"memgov {key}")
+            print(f"memgov {key}: {entry[key]}", flush=True)
+
+        part("a_q55_world4", lambda: _memgov_q55(store, seed, inp["q55_plan"]))
+        q1_ir = P.Sort(
+            P.Aggregate(P.Filter(P.Scan("lineitem"), P.pcol("l_quantity") >= P.plit(0.0)),
+                        keys=("l_returnflag", "l_linestatus"),
+                        aggs=(P.AggSpec("l_quantity", "sum", "sum_qty"),
+                              P.AggSpec("l_extendedprice", "sum", "sum_price"),
+                              P.AggSpec(None, "count_all", "count_order"))),
+            keys=(("l_returnflag", True), ("l_linestatus", True)))
+        part("b_ooc_q1", lambda: _memgov_ooc(q1_ir, {"lineitem": inp["lineitem"]}, "q1"))
+        one_key = P.Sort(
+            P.Aggregate(P.Scan("store_sales"), keys=("ss_item_sk",),
+                        aggs=(P.AggSpec("ss_ext_sales_price", "sum", "revenue"),
+                              P.AggSpec(None, "count_all", "sales"))),
+            keys=(("ss_item_sk", True),))
+        part("b_ooc_one_key", lambda: _memgov_ooc(
+            one_key, {"store_sales": store["store_sales"]}, "one_key"))
+        part("c_spilled_builds", lambda: _memgov_builds(*inp["join"]))
+        part("d_caches", lambda: _memgov_caches(inp["gen_store_wide"][0]))
+        part("e_xgboost_bridge", lambda: _memgov_bridge(CRITEO_ROWS))
+
+    install()
+    try:
+        _, launches = _run_counted(wrappers, drive)
+    finally:
+        restore()
+        memgov.reset()
+    for key in ("a_q55_world4", "b_ooc_one_key"):
+        b1 = entry[key]["held"]["checked"]["partition_map"]
+        if MEMGOV_DEVICE == "cuda" and (entry[key]["launches"].get("partition_map", 0) < 1
+                                        or b1 != entry[key]["launches"]["partition_map"]):
+            raise AssertionError(f"memgov {key}: B1 launched {entry[key]['launches']}, held "
+                                 f"{b1} calls against its plain version")
+    others = {k: v for k, v in launches.items() if k not in MEMGOV_KERNELS and v}
+    if others:
+        raise AssertionError(f"the memgov path launched kernels it does not run: {others}")
+    wall = time.perf_counter() - t_phase
+    print(f"memgov phase: {wall:.1f} s wall; launches {launches}", flush=True)
+    entry.update({"phase_wall_s": wall, "launches": launches, "reused": not inp["made"],
+                  "made_here": inp["made"]})
+    return entry, launches
 
 
 def _kernels_only(rate: float) -> dict:
@@ -5313,6 +5818,11 @@ def main() -> int:
                 "pack_u8_planes": rb.pack_u8_planes, "rotl_take": rb.rotl_take,
                 "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
     paths = {}
+    if "--memgov-only" in sys.argv[1:]:
+        entry, _ = _memgov_phase(wrappers, {})
+        print(json.dumps({"memgov_only": entry, "card": smi_line}), flush=True)
+        return 4  # a partial run: one path driven
+    keep = {}  # earlier paths' tables and card results the memgov path reuses
     if "--plan-only" in sys.argv[1:]:
         entry, _ = _plan_phase(wrappers)
         print(json.dumps({"plan_only": {k: entry[k] for k in ("launches", "calls", "result_rows",
@@ -5497,6 +6007,7 @@ def main() -> int:
                      **jcheck, "table": jkernels["probe_paged"]["table"], "peak_gib": jpeak,
                      "launches": jlaunches, "profile": jprofile}
 
+    keep["join"] = (fact, dim)
     del fact, dim, side_arrays
     torch.cuda.empty_cache()
 
@@ -5576,6 +6087,7 @@ def main() -> int:
                      "q6_stages_first": q6_runs[0][1], "q6_stages_warm": q6_split,
                      "rows": LINEITEM_ROWS, "input_bytes": li_bytes, **tcheck, "peak_gib": tpeak,
                      "f64acc_reductions": reductions, "launches": tlaunches, "profile": tprofile}
+    keep["lineitem"] = li
     del li, q1_runs, q6_runs
     torch.cuda.empty_cache()
 
@@ -5625,7 +6137,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the plan path: the plan tier's TPC-DS queries ------------------------
-    paths["plan"], planlaunches = _plan_phase(wrappers)
+    paths["plan"], planlaunches = _plan_phase(wrappers, keep)
+    torch.cuda.empty_cache()
+
+    # -- the memgov path: distributed q55, out of core, spills, caches, bridge
+    paths["memgov"], memlaunches = _memgov_phase(wrappers, keep)
+    del keep
     torch.cuda.empty_cache()
 
     # -- the spark_exact path: the reference's Spark-exact operators ---------
@@ -5799,7 +6316,7 @@ def main() -> int:
          "launches_by_path": {"fixed": launches[k], "strings": slaunches[k], "join": jlaunches[k],
                               "onehot": olaunches[k], "tpch": tlaunches[k],
                               "tpcds": dlaunches[k], "distributed": mlaunches[k],
-                              "plan": planlaunches[k],
+                              "plan": planlaunches[k], "memgov": memlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
                               "io": iolaunches[k], "runtime": rt_launches[k],
                               "exchange": exlaunches[k]},

@@ -22,8 +22,10 @@ Runtime: the three ops cross ``op_boundary``. With metrics armed, an
 exchange counts ``shuffle.bytes_exchanged`` (the capacity-padded bytes
 every attempt moved), ``shuffle.exchanges`` and the ``shuffle.exchange_us``
 histogram; a capacity doubling is a deadline cancel point and counts in
-``retry.record_capacity_retry`` (``shuffle.capacity_retries``). The
-reference's memory-governor check of a doubled capacity is not ported.
+``retry.record_capacity_retry`` (``shuffle.capacity_retries``). With the
+memory governor armed, a doubled capacity's footprint passes
+``memgov.ensure_fits`` first: it spills cold catalog entries or raises
+the retryable ``MemoryBudgetExceeded`` (the split path).
 
 Cross-process exchange: ``TcpExchange`` moves hash partitions between
 runtimes in separate processes as columnar frames (``columnar/frames``)
@@ -53,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import memgov
 from ..columnar import Table
 from ..columnar import frames as frames_mod
 from ..columnar.dtype import TypeId
@@ -61,6 +64,7 @@ from ..ops.hashing import hash_partition_map
 from ..ops.uword import MASK32, split_u64
 from ..utils import deadline, faultinj, integrity, knobs, metrics, retry, tracing
 from ..utils.errors import RetryableError
+from ..utils.memory import exchange_bytes_estimate
 from . import mesh as mesh_mod
 from ..utils.dispatch import op_boundary
 
@@ -227,15 +231,17 @@ def all_to_all_exchange(
     if capacity is None:
         capacity = per_shard  # safe: one shard can absorb everything
     armed = metrics.is_enabled()
+    governed = on_overflow == "retry" and memgov.is_enabled()
     checked = integrity.is_enabled()
     sent_sum = _exchange_checksum(arrays) if checked else None
     # per-GLOBAL-ROW wire cost: the exchange moves capacity-padded
     # [P, capacity] buckets a shard for each array (not the dense rows)
     # plus the 1-byte occupancy mask a slot; it changes every time the
-    # escalation doubles the capacity
+    # escalation doubles the capacity. One cost model: the wire
+    # accounting and the governor's escalation estimate read it
     row_bytes = (
         sum(a.element_size() * a.numel() // max(a.shape[0], 1) for a in arrays) + 1
-        if armed else 0
+        if armed or governed else 0
     )
     t0 = time.perf_counter() if armed else 0.0
     wire_bytes = 0
@@ -280,6 +286,14 @@ def all_to_all_exchange(
             # geometric escalation: at most ceil(log2(per_shard / cap0))
             # re-executions before the capacity that cannot overflow
             new_capacity = min(2 * int(capacity), per_shard)
+            # the doubled bucket matrices are a footprint the op's
+            # admission never covered: the governor grows the held
+            # admission, spills cold catalog entries, or refuses
+            if governed:
+                memgov.ensure_fits(
+                    exchange_bytes_estimate(row_bytes, n_parts, int(new_capacity)),
+                    "all_to_all_exchange.capacity_retry",
+                )
             metrics.event(
                 "shuffle.capacity_escalation", axis=axis,
                 capacity=int(capacity), new_capacity=int(new_capacity),
@@ -1242,11 +1256,44 @@ def _await_peer_map(peers: Dict[int, str], world: int) -> bool:
     return True
 
 
+def _worker_run_q55(ex: "TcpExchange", peers: Dict[int, str], cluster, args,
+                    dev) -> Table:
+    """The distributed TPC-DS leg of the worker: compile q55 with exchange
+    stages, run it over this rank's store_sales shard (dimensions
+    replicated), and return the rank's partial. Concatenating every rank's
+    partial and re-sorting (``plan.distribute.merge_partials``) gives the
+    single-host answer bit for bit: the FLOAT64 sums are exact, and the
+    sort keys are a total order."""
+    from ..models import tpcds
+    from ..models.tpcds_plans import q55_plan
+    from ..ops.copying import slice_table
+    from ..plan import compile_ir
+    from ..plan.distribute import exchange_context, insert_exchanges
+
+    tables = tpcds.gen_store(args.rows, seed=args.seed, device=dev)
+    world = args.world
+    sales = tables["store_sales"]
+
+    def shard_tables(r: int) -> Dict[str, Table]:
+        lo, hi = _shard_bounds(sales.num_rows, world, r)
+        shards = dict(tables)
+        shards["store_sales"] = slice_table(sales, lo, hi)
+        return shards
+
+    plan = insert_exchanges(q55_plan(), world)
+    compiled = compile_ir(plan, shard_tables(args.rank), name=f"q55@r{args.rank}")
+    with exchange_context(ex, peers, cluster=cluster, shard_tables=shard_tables,
+                          base_epoch=args.epoch):
+        return compiled()
+
+
 def _exchange_worker_main(args) -> int:
     """One peer rank: build the seeded shard on ``args.device``, exchange
     hash partitions with the rest of the world, aggregate, publish the
     result (epoch ``args.epoch + 2 * rounds - 1``, part = this rank), then
-    serve until stdin closes. Prints ``SRJTORCH_EXCHANGE_READY
+    serve until stdin closes. ``--query q55`` swaps the demo group-by for
+    the plan-compiled distributed TPC-DS q55 over ``gen_store(rows)``,
+    published at ``args.epoch + 1``. Prints ``SRJTORCH_EXCHANGE_READY
     addr=<host:port>`` once the server is up; for ``world > 2`` it then
     waits for the spawner's peer map. ``--cluster`` arms a ClusterView
     (fence, heartbeats, lineage recovery). The worker is the cross-process
@@ -1263,27 +1310,25 @@ def _exchange_worker_main(args) -> int:
         print(f"exchange worker: SRJTORCH_EXCHANGE_MODE must be 'tcp' for a cross-process peer "
               f"(got {mode!r})", file=sys.stderr)
         return 2
-    if args.query != "demo":
-        print(f"exchange worker: --query {args.query} needs the plan tier's distributed run, "
-              "which the port does not have yet (ROADMAP item 11b)", file=sys.stderr)
-        return 2
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         print(f"exchange worker: {e}", file=sys.stderr)
         return 2
     peers = parse_peers(args.peers)
-    # warm before READY: the spawner's measurement window opens at the
-    # handshake, and loading the kernels is not exchange throughput
-    table = _demo_table(args.rows, args.seed, device=dev)
-    shard = slice_table(table, *_shard_bounds(args.rows, args.world, args.rank))
-    parts_w, offs_w = hash_partition(shard, args.world, ["k"])
-    bounds_w = list(offs_w) + [parts_w.num_rows]
-    for p in range(args.world):
-        if p != args.rank:  # the frames publish() will encode
-            frames_mod.encode_table(slice_table(parts_w, bounds_w[p], bounds_w[p + 1]))
-    _local_groupby_sum(slice_table(shard, 0, min(shard.num_rows, 1024)))
-    del parts_w
+    table = shard = None
+    if args.query == "demo":
+        # warm before READY: the spawner's measurement window opens at the
+        # handshake, and loading the kernels is not exchange throughput
+        table = _demo_table(args.rows, args.seed, device=dev)
+        shard = slice_table(table, *_shard_bounds(args.rows, args.world, args.rank))
+        parts_w, offs_w = hash_partition(shard, args.world, ["k"])
+        bounds_w = list(offs_w) + [parts_w.num_rows]
+        for p in range(args.world):
+            if p != args.rank:  # the frames publish() will encode
+                frames_mod.encode_table(slice_table(parts_w, bounds_w[p], bounds_w[p + 1]))
+        _local_groupby_sum(slice_table(shard, 0, min(shard.num_rows, 1024)))
+        del parts_w
     ex = TcpExchange(args.rank, bind=args.bind, device=dev)
     print(f"{knobs.EXCHANGE_READY} addr={ex.address}", flush=True)
     if not _await_peer_map(peers, args.world):
@@ -1301,18 +1346,24 @@ def _exchange_worker_main(args) -> int:
         cluster.start()
     try:
         with retry.enabled(max_attempts=40, base_delay_ms=25, max_delay_ms=250):
-            if cluster is not None:
-                cluster.set_lineage(lambda r: slice_table(
-                    table, *_shard_bounds(args.rows, args.world, r)))
-            # round i at epoch + 2i, so that a steady-state round can be
-            # timed with every first-call cost paid; a rank is at most one
-            # round ahead of another, which retain_epochs=4 outlives
-            rounds = max(args.rounds, 1)
-            for rnd in range(rounds):
-                local = ex.exchange_table(shard, ["k"], peers, epoch=args.epoch + 2 * rnd,
-                                          cluster=cluster)
-            result = _local_groupby_sum(local)
-            ex.publish(args.epoch + 2 * rounds - 1, {args.rank: result})
+            if args.query == "q55":
+                result = _worker_run_q55(ex, peers, cluster, args, dev)
+                result_epoch = args.epoch + 1
+            else:
+                if cluster is not None:
+                    cluster.set_lineage(lambda r: slice_table(
+                        table, *_shard_bounds(args.rows, args.world, r)))
+                # round i at epoch + 2i, so that a steady-state round can
+                # be timed with every first-call cost paid; a rank is at
+                # most one round ahead of another, which retain_epochs=4
+                # outlives
+                rounds = max(args.rounds, 1)
+                for rnd in range(rounds):
+                    local = ex.exchange_table(shard, ["k"], peers,
+                                              epoch=args.epoch + 2 * rnd, cluster=cluster)
+                result = _local_groupby_sum(local)
+                result_epoch = args.epoch + 2 * rounds - 1
+            ex.publish(result_epoch, {args.rank: result})
             # serve until the supervisor closes our stdin
             sys.stdin.read()
     finally:
@@ -1337,8 +1388,8 @@ def _main(argv=None) -> int:
     ap.add_argument("--cluster", action="store_true",
                     help="arm ClusterView membership + heartbeats")
     ap.add_argument("--query", default="demo", choices=("demo", "q55"),
-                    help="workload: the demo group-by (q55 needs the plan tier's distributed "
-                         "run, not ported yet)")
+                    help="workload: the demo group-by or the plan-compiled q55 (result "
+                         "published at epoch + 1)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="demo exchange rounds (round i at epoch + 2i; result published at "
                          "epoch + 2*rounds - 1)")

@@ -24,8 +24,10 @@ contract (a plan bound once, called per batch). What the body does:
 Host syncs, as in the reference: the join mis-declaration counts, the
 out-of-domain count, and the group counts for the compaction. The call
 crosses ``op_boundary("compiled_pipeline")`` and counts
-``pipeline.compiles`` / ``batches`` / ``rows`` as the reference does; its
-spillable build tables (memgov) are not ported.
+``pipeline.compiles`` / ``batches`` / ``rows`` as the reference does.
+Build tables may also be registered once (``register_build``) through the
+memory governor's spillable catalog: between calls they may demote to
+host or disk, and a call re-materializes them on their device, pinned.
 """
 
 from __future__ import annotations
@@ -131,17 +133,36 @@ class CompiledPipeline:
 
     def __init__(self, plan: PlanSpec):
         self.plan = plan
+        self._build_handles: Dict[str, object] = {}
+        self._build_finalizer = None
         metrics.counter("pipeline.compiles").inc()
 
+    # -- spillable build tables (memgov/) ------------------------------------
     def register_build(self, name: str, table: Table) -> None:
-        raise NotImplementedError(
-            "spillable build tables need the memory governor, not ported yet "
-            "(ROADMAP.md, Open items, section 1, item 12); pass builds= to the call")
+        """Attach a BUILD table through the memory governor's spillable
+        catalog: ``__call__`` supplies it (no ``builds`` entry needed), and
+        between calls it may demote device->host(->disk) under pressure
+        and re-materialize, bit for bit, on the next batch. During a call
+        the handle is pinned. A dropped pipeline closes its entries (a
+        weakref finalizer), so catalog entries and their spill files never
+        outlive it."""
+        import weakref
+
+        from . import memgov
+
+        cat = memgov.catalog()
+        key = f"pipeline.build.{id(self)}.{name}"
+        self._build_handles[name] = cat.register(key, table, kind="build")
+        if self._build_finalizer is None:
+            # the callback holds the handle DICT, never self
+            self._build_finalizer = weakref.finalize(
+                self, _drop_build_handles, self._build_handles
+            )
 
     def unregister_builds(self) -> None:
-        raise NotImplementedError(
-            "spillable build tables need the memory governor, not ported yet "
-            "(ROADMAP.md, Open items, section 1, item 12)")
+        """Drop this pipeline's registered build tables from the catalog
+        (and any spill files backing them)."""
+        _drop_build_handles(self._build_handles)
 
     def _run(self, table: Table, builds: Dict[str, Table]):
         """The stage's body: (aggregates, counts_all, num, out-of-domain
@@ -230,11 +251,24 @@ class CompiledPipeline:
         plan = self.plan
         metrics.counter("pipeline.batches").inc()
         metrics.counter("pipeline.rows").inc(table.num_rows)
-        want = {js.build for js in plan.joins}
-        have = set(builds or {})
-        if want != have:
-            raise ValueError(f"plan needs build tables {sorted(want)}, got {sorted(have)}")
-        aggs, counts_all, num, n_oob, n_dup, n_bad_build = self._run(table, builds or {})
+        # registered build tables fill in (re-materializing if demoted);
+        # an explicit `builds` entry of the same name wins
+        pinned = []
+        if self._build_handles:
+            builds = dict(builds or {})
+            for name, h in self._build_handles.items():
+                if name not in builds:
+                    pinned.append(h.pin())
+                    builds[name] = h.get()
+        try:
+            want = {js.build for js in plan.joins}
+            have = set(builds or {})
+            if want != have:
+                raise ValueError(f"plan needs build tables {sorted(want)}, got {sorted(have)}")
+            aggs, counts_all, num, n_oob, n_dup, n_bad_build = self._run(table, builds or {})
+        finally:
+            for h in pinned:
+                h.unpin()
         # cancel point: a query whose budget died in the body stops here,
         # before the host syncs and the compaction
         deadline.check("compiled_pipeline")
@@ -479,6 +513,14 @@ def _wrap_result(data, valid, how: str) -> Column:
         return Column(dt.FLOAT64, data=data, validity=valid)
     # float32 aggregates store into the FLOAT64 bit format
     return Column(dt.FLOAT64, data=bitutils.float_store(data, dt.FLOAT64), validity=valid)
+
+
+def _drop_build_handles(handles: Dict[str, object]) -> None:
+    """Close a pipeline's registered build handles (module level, so that
+    the weakref finalizer keeps no reference to the pipeline)."""
+    for h in handles.values():
+        h.close()
+    handles.clear()
 
 
 def compile_plan(plan: PlanSpec) -> CompiledPipeline:

@@ -11,11 +11,11 @@ EXISTS, HAVING, predicate/projection pushdown); the compiler
 ``ops/`` operators elsewhere, carrying per-stage ``memory_bytes``
 estimates for admission and the serve scheduler.
 
-The port leaves out the out-of-core half (``plan/ooc.py``:
-``OutOfCorePlan``, ``maybe_out_of_core``) and the memory governor's
-admission of a compiled plan until the governor is ported (ROADMAP.md,
-Open items, section 1, item 12b): ``compile_ir`` returns the
-``CompiledPlan`` itself, as the reference does with out-of-core off.
+A compiled plan is admitted through the memory governor when it is
+armed, and a plan whose estimated peak exceeds the armed device budget
+degrades to out-of-core partitioned execution (``ooc``:
+``OutOfCorePlan``, ``maybe_out_of_core``) when ``SRJTORCH_OOC_ENABLED``
+is set.
 
 Quick shape::
 
@@ -48,6 +48,10 @@ from .exprs import (  # noqa: F401
     ppart,
     prlike,
     pwhen,
+)
+from .ooc import (  # noqa: F401
+    OutOfCorePlan,
+    maybe_out_of_core,
 )
 from .nodes import (  # noqa: F401
     Aggregate,
@@ -89,6 +93,7 @@ from .verifier import (  # noqa: F401
 
 __all__ = [
     "CompiledPlan", "compile_ir", "lower_ir",
+    "OutOfCorePlan", "maybe_out_of_core",
     "PExpr", "PlanError", "pcol", "plit", "pwhen", "plike", "prlike", "ppart",
     "Node", "Scan", "Filter", "Project", "Join", "Aggregate", "AggSpec",
     "Window", "Sort", "Limit", "UnionAll", "SetOp", "Exists", "Having",

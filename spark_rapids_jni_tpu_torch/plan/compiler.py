@@ -26,13 +26,10 @@ and after every run the per-stage estimate-vs-actual pairs are recorded
 (``last_report``; appended to the ``SRJTORCH_PLAN_REPORT`` JSONL when set)
 so CI can gate estimate blowups.
 
-What the port leaves out until the memory governor is ported (ROADMAP.md,
-Open items, section 1, item 12b): ``CompiledPlan.__call__`` admits
-nothing (the reference's ``memgov.admit``; ``memgov_admitted_bytes``
-reads 0, as it does in the reference when the governor is not armed),
-and ``compile_ir`` / ``lower_ir`` return the ``CompiledPlan`` itself, the
-reference's result with out-of-core execution off (``plan/ooc.py``,
-``maybe_out_of_core``).
+Out of core: ``compile_ir`` and ``lower_ir`` end in
+``ooc.maybe_out_of_core``, which returns the ``CompiledPlan`` itself
+unless ``SRJTORCH_OOC_ENABLED`` is set, the governor is armed and the
+plan's peak exceeds the device budget.
 
 Where a stage runs is where its tables are: the plan binds to the tables
 it is given, and a plan over card tables launches the ported kernels of
@@ -912,13 +909,21 @@ class CompiledPlan:
         return dict(self._rewrites)
 
     def __call__(self) -> Table:
-        # the memory governor's admission (the reference's memgov.admit)
-        # waits for its port: nothing is admitted, as in the reference
-        # with the governor unarmed
+        from .. import memgov
+
         _durable("plan.executions").inc()
         admitted = 0
-        ctx = _RunContext(self._tables, subcache=self.subcache)
-        out = self._root.run(ctx)
+        adm = memgov.admit(f"plan.{self.name}", nbytes=self.estimated_memory_bytes)
+        if adm is not None:
+            admitted = self.estimated_memory_bytes
+            _durable("plan.admit_bytes").inc(admitted)
+            metrics.event("plan.admit", query=self.name, nbytes=admitted)
+        try:
+            ctx = _RunContext(self._tables, subcache=self.subcache)
+            out = self._root.run(ctx)
+        finally:
+            if adm is not None:
+                adm.release()
         # the report is built from THIS run's context and published as
         # one fresh dict — concurrent runs each see a coherent report
         # (last writer wins on the attribute)
@@ -1003,10 +1008,11 @@ def compile_ir(plan: Node, tables: Dict[str, Table],
                       _count_nodes(opt_plan), fired, opt_plan,
                       obligations=obligations, node_execs=low._execs,
                       modeled=modeled)
-    # the reference's out-of-core hook (plan/ooc.py, maybe_out_of_core)
-    # waits for the memory governor's port; with out-of-core off it
-    # returns cp itself
-    return cp
+    # a plan whose peak exceeds the armed device budget degrades to
+    # streamed partitioned execution; a no-op unless SRJTORCH_OOC_ENABLED
+    from .ooc import maybe_out_of_core
+
+    return maybe_out_of_core(cp, tables)
 
 
 def lower_ir(opt_plan: Node, tables: Dict[str, Table], name: str = "plan", *,
@@ -1037,6 +1043,8 @@ def lower_ir(opt_plan: Node, tables: Dict[str, Table], name: str = "plan", *,
                       raw_nodes if raw_nodes is not None else opt_nodes,
                       opt_nodes, dict(rewrites_fired or {}), opt_plan,
                       obligations=obligations, node_execs=low._execs)
-    # out-of-core re-selection per binding waits for the memory
-    # governor's port, as in compile_ir
-    return cp
+    # the cache-hit path re-selects out-of-core per binding: the cached
+    # entry stores the UN-partitioned plan
+    from .ooc import maybe_out_of_core
+
+    return maybe_out_of_core(cp, tables)

@@ -18,10 +18,11 @@ a CPU tensor, or a shape the kernel does not take). ``degrade`` never
 occurs: the port has no fallback, and a kernel's failure is the op's
 error. ``TIER_NAMES`` holds the map.
 
-Memory governance. The reference's boundary also admits the outermost op
-through its memory governor (``memgov``); the port has no governor yet,
-so its boundary has no such branch. The reserved ``memory_bytes=``
-keyword is popped and ignored, so that callers stay source-compatible.
+Memory governance. With the memory governor armed (``memgov``), the
+OUTERMOST boundary of a thread acquires its byte-weighted admission with
+the op's footprint estimate before the body runs and releases it after;
+the reserved ``memory_bytes=`` keyword overrides the default estimate.
+Disarmed, the branch is one boolean read.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from .. import memgov
 from . import deadline, faultinj, metrics, tracing
 from .errors import DeviceError, classify
 
@@ -108,8 +110,12 @@ def op_boundary(name: str):
     - METRICS: armed, each dispatch records ``op.<name>.calls`` and the
       host wall time ``op.<name>.wall_us`` over the whole boundary,
       retries included; nothing here synchronizes the card;
-    - the reserved ``memory_bytes=`` keyword is popped and ignored (the
-      reference's memory-governor admission is not ported yet).
+    - MEMORY GOVERNOR: armed (``SRJTORCH_SPILL_ENABLED``, or a declared
+      ``SRJTORCH_DEVICE_MEMORY_BUDGET``), the outermost boundary of a
+      thread acquires the admission semaphore with the op's footprint
+      (``memory_bytes=``, else input bytes x ``SRJTORCH_MEMGOV_HEADROOM``)
+      inside the retry attempt, so a retryable denial
+      (``MemoryBudgetExceeded``) rides the retry and split machinery.
 
     Disarmed, the boundary pops two keywords and reads the gates'
     booleans, the ambient budget and a context variable: no clock, no
@@ -120,23 +126,32 @@ def op_boundary(name: str):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             budget_s = kwargs.pop("deadline_s", None)
-            kwargs.pop("memory_bytes", None)
+            mem_bytes = kwargs.pop("memory_bytes", None)
 
             def attempt():
                 faultinj.maybe_inject(name)
-                with tracing.func_range(name):
-                    try:
-                        return fn(*args, **kwargs)
-                    except DeviceError:
-                        raise
-                    except (ValueError, TypeError, KeyError, IndexError):
-                        raise
-                    except Exception as e:  # backend / runtime failures
-                        if type(e).__module__.startswith("spark_rapids_jni_tpu"):
-                            # the op's own documented API errors (CastError,
-                            # ParquetReadError, ...) are results, not failures
+                adm = (
+                    memgov.admit(name, args, kwargs, mem_bytes)
+                    if memgov.is_enabled()
+                    else None
+                )
+                try:
+                    with tracing.func_range(name):
+                        try:
+                            return fn(*args, **kwargs)
+                        except DeviceError:
                             raise
-                        raise classify(e) from e
+                        except (ValueError, TypeError, KeyError, IndexError):
+                            raise
+                        except Exception as e:  # backend / runtime failures
+                            if type(e).__module__.startswith("spark_rapids_jni_tpu"):
+                                # the op's own documented API errors (CastError,
+                                # ParquetReadError, ...) are results, not failures
+                                raise
+                            raise classify(e) from e
+                finally:
+                    if adm is not None:
+                        adm.release()
 
             # one deadline scope a query, owned by the boundary that
             # opened it (the retry nesting guard's discipline)

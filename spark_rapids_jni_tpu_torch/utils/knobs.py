@@ -20,7 +20,8 @@ Only the knobs of the modules the port has are declared: retry, deadline
 and breaker, metrics (with the adaptive-timeout reader), tracing and the
 flight recorder, integrity, fault injection, the cross-process exchange,
 cluster membership, the plan tier (its report, statistics and cost-based
-optimizer) and the device-memory budget. ``markdown_table()``
+optimizer), the memory governor with its out-of-core plans, and the plan
+and subresult caches. ``markdown_table()``
 renders them for the README.
 
 ``SENTINELS`` are not knobs: they are the handshake lines that spawn
@@ -381,3 +382,81 @@ declare("SRJTORCH_CBO_CALIBRATION", "str", "artifacts/plan_compile.jsonl",
 declare("SRJTORCH_DEVICE_MEMORY_BUDGET", "int", None,
         "device byte budget for one op's working buffers (read live; "
         "unset: half the card's memory less its live allocated bytes)")
+
+# memory governor (memgov/)
+declare("SRJTORCH_HOST_MEMORY_BUDGET", "int", 0,
+        "host-tier bytes before host->disk demotion (0 = unlimited)")
+declare("SRJTORCH_SPILL_ENABLED", "bool", None,
+        "1/0 arms/disarms the governor explicitly; unset: armed iff a "
+        "device budget is declared")
+declare("SRJTORCH_SPILL_DIR", "str", None,
+        "disk-tier directory (unset: per-process dir under the system "
+        "tempdir)")
+declare("SRJTORCH_SPILL_MANIFESTS", "bool", False,
+        "arm durable spill metadata: every disk-tier spill/checkpoint "
+        "frame gains a CRC-framed sidecar manifest, a fresh process "
+        "re-attaches surviving entries into its catalog "
+        "(memgov.reattached) and a startup sweep reclaims frames owned "
+        "by a provably-dead PID (memgov.orphans_reclaimed)")
+declare("SRJTORCH_ADMISSION_MAX_CONCURRENT", "int", 0,
+        "cap on concurrently admitted ops (0 = bytes only)")
+declare("SRJTORCH_ADMISSION_MAX_WAIT_SEC", "float", 30.0,
+        "admission queue wait before the retryable "
+        "MemoryBudgetExceeded", positive=True)
+declare("SRJTORCH_MEMGOV_HEADROOM", "float", 2.0,
+        "input-bytes -> footprint multiplier for the default estimate",
+        positive=True)
+declare("SRJTORCH_MEMGOV_DROP_SMCACHE", "bool", False,
+        "1 lets pressure drop the compiled-program cache as a last "
+        "resort (the port has none, so nothing is dropped)")
+
+# out-of-core partitioned execution (plan/ooc.py)
+declare("SRJTORCH_OOC_ENABLED", "bool", False,
+        "arm out-of-core degradation: a plan whose estimated peak "
+        "exceeds the armed SRJTORCH_DEVICE_MEMORY_BUDGET is rewritten "
+        "(partition_for_ooc, verifier-discharged) into K hash "
+        "partitions streamed through the compiled plan and merged")
+declare("SRJTORCH_OOC_PARTITIONS", "int", 0,
+        "partition count K for out-of-core plans; 0 = the cost model's "
+        "choice (smallest K <= 64 whose per-partition estimate fits "
+        "half the device budget)")
+declare("SRJTORCH_OOC_PREFETCH", "bool", True,
+        "overlap the next partition's spill-in (catalog "
+        "re-materialization) with the current partition's compute")
+declare("SRJTORCH_OOC_METRICS", "str", None,
+        "JSONL path appended one line per out-of-core run (partitions, "
+        "resumes, lineage recomputes, spill count, wall)")
+declare("SRJTORCH_OOC_DURABLE_CHECKPOINTS", "bool", False,
+        "force every completed out-of-core partition checkpoint to the "
+        "disk tier at registration (with SRJTORCH_SPILL_MANIFESTS this "
+        "is what a restarted coordinator resumes past; off, checkpoints "
+        "demote to host and die with the process)")
+
+# plan and subresult caches (cache/)
+declare("SRJTORCH_PLAN_CACHE", "bool", False,
+        "arm the compiled-plan cache: compile_cached keys on the "
+        "parameterized structural fingerprint, a hit skips "
+        "rewrite->verify->compile and rebinds the fresh literals into "
+        "the cached optimized plan (verified once per structure at "
+        "insert)")
+declare("SRJTORCH_SUBRESULT_CACHE", "bool", False,
+        "arm the subresult cache: scan/aggregate stage outputs are "
+        "registered as memgov catalog entries (kind=cache) keyed by "
+        "(parameterized subtree fingerprint, literal bindings, table "
+        "generations), so eviction/spill tiering/byte accounting ride "
+        "the governor")
+declare("SRJTORCH_CACHE_SHARING", "bool", True,
+        "in-flight single-flight sharing of identical submissions: "
+        "concurrent queries with one plan key attach to ONE computation "
+        "and fan the result out (consulted only when "
+        "SRJTORCH_PLAN_CACHE is armed)")
+declare("SRJTORCH_CACHE_PLAN_ENTRIES", "int", 64,
+        "parameterized-structure entries the compiled-plan cache "
+        "retains (LRU past it)", minimum=1)
+declare("SRJTORCH_CACHE_PLAN_VARIANTS", "int", 8,
+        "fully-bound CompiledPlan variants retained per structure entry "
+        "(LRU past it)", minimum=1)
+declare("SRJTORCH_CACHE_SUBRESULT_BYTES", "int", 256 * 1024 * 1024,
+        "byte cap on subresult-cache catalog entries; past it the cache "
+        "LRU-unregisters its own entries (on top of memgov's "
+        "spill/eviction pressure)", minimum=1)

@@ -265,11 +265,30 @@ def test_plan_spec_validation():
 
 
 def test_spillable_builds_not_ported():
-    pipe = pp.compile_plan(_plan((pp, px), "global"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pipe.register_build("dim", PD)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pipe.unregister_builds()
+    """Spillable build tables ride the memory governor's catalog: a
+    registered build fills in for ``builds=``, demotes to host and to disk
+    between calls and re-materializes bit for bit, and
+    ``unregister_builds`` drops its entry and its spill file."""
+    from spark_rapids_jni_tpu_torch import memgov
+
+    want, _, _ = _run("dense_inner")
+    pipe = pp.compile_plan(_plan((pp, px), "dense_inner"))
+    before = memgov.catalog().snapshot()["entries"]
+    pipe.register_build("dim", PD)
+    handle = pipe._build_handles["dim"]
+    tiers = []
+    for to_disk in (None, False, True):
+        if to_disk is not None:
+            handle.spill(to_disk=to_disk)
+            tiers.append(handle.tier)
+        got = pipe(PF)
+        for pc, jc in zip(got.columns, want.columns):
+            np.testing.assert_array_equal(pc.data.numpy().view(np.asarray(jc.data).dtype),
+                                          np.asarray(jc.data))
+        assert handle.tier == "device" and not handle.pinned
+    assert tiers == ["host", "disk"]
+    pipe.unregister_builds()
+    assert memgov.catalog().snapshot()["entries"] == before
 
 
 def test_int64_group_keys_narrow_like_the_reference():

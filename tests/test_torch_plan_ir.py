@@ -560,13 +560,14 @@ def test_verify_estimates_codes_match_reference(tabs, tamper):
 def test_insert_exchanges_and_unbound_exchange_stage_match_reference(tabs):
     jt, pt = tabs
     ir = JP.Sort(_exec_plans(JP)["fused"], (("f_key", True),))
+    plain = JP.compile_ir(ir, jt, name="plain")()  # the single-host result, run once
     for world in (1, 4):
         jx = JP.insert_exchanges(ir, world)
         px = PP.insert_exchanges(carry_plan(ir), world)
         assert PP.structure(px) == JP.structure(jx)
         # unbound, the exchange stage is the identity: the single-host result
         out = run_both(*compile_both(jx, jt, pt, name=f"x{world}"))
-        _assert_tables_equal(out, JP.compile_ir(ir, jt, name="plain")())
+        _assert_tables_equal(out, plain)
     with pytest.raises(PP.PlanError):
         PP.insert_exchanges(carry_plan(ir), 0)
 
