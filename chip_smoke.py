@@ -276,7 +276,30 @@ checkout (one nvcc per source, all at once), then on one card:
    table of Criteo's shape, cuts and bins bit for bit the CPU run's, with
    time and peak memory. Every B1, B4 and B3 call is held against its
    plain version; the phase's wall seconds;
-16. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
+16. the SERVE path, run last on the inputs the earlier paths leave it
+   (the fixed and string paths' host arrays, the spark_exact table and
+   its card results, lineitem, gen_store): (a) this process binds a
+   socket and serves it with ``sidecar._handle_conn`` threads on the
+   card: GROUPBY_SUM_F32 at 1,048,576 rows x 4096 keys, each schema's
+   CONVERT_TO_ROWS and CONVERT_FROM_ROWS at 1M rows, both casts (and the
+   ANSI cast's error frame) and DECIMAL128 multiply / divide, each
+   streamed (CRC trailers) and through a slab arena (none), each answer
+   bit for bit ``_dispatch`` in process and its path's oracle, every
+   kernel call of the process held against its plain version and B1,
+   B2, B4 never launched; (b) a worker process (``spawn_worker``): PING
+   answers ``gpu``, the same requests the same bytes, STATS counts them,
+   start-up and round trips split into the worker's op time and the rest;
+   (c) the native client (``libsrjt.so`` found or built from native/src)
+   against the port's worker: the batched encode, the decode and
+   ``device_groupby_sum`` bit for bit (reported, not checked, where the
+   library cannot be built); (d) a pool of two card workers, slab calls
+   from four threads, a kill -9 (one failover, a re-hydrated respawn)
+   and a dark pool (every call one counted host degrade, bit for bit);
+   (e) the scheduler: 60 q1 / q6 / q98 queries from 3 tenants into 4
+   slots over a journal, each bit for bit its sequential run, p50 / p99
+   and QPS, then a drained shutdown and a restart that answers the
+   duplicates by digest; the phase's wall seconds;
+17. prints one ``{"kernels": [...]}`` line (ten kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero. Without a card,
@@ -293,6 +316,8 @@ line, and exits 4. ``python3 chip_smoke.py --plan-only`` runs the plan
 path alone (the kernels built, no other path): also a partial run, exit 4.
 ``python3 chip_smoke.py --memgov-only`` runs the memgov path alone, making
 the inputs it would otherwise reuse: a partial run, exit 4.
+``python3 chip_smoke.py --serve-only`` runs the serve path alone, the
+same way: a partial run, exit 4.
 """
 
 from __future__ import annotations
@@ -787,9 +812,10 @@ def _profile_phase(run_path, top: int = 8, watch=None):
     its wrapper counted in the traced run. As in ``_device_activities``,
     a warm-up step with one sleep kernel comes first. The tracer has
     dropped part of a run on rare occasions (a join-path trace once held
-    221 of its 281 launches, B1's among the lost), so a trace that holds
-    no device work or is short of a watched kernel is taken again, twice
-    at most; a third short one is recorded as such (``short_of``)."""
+    221 of its 281 launches, B1's among the lost): a trace that holds no
+    device work is taken again, twice at most; one short of a watched
+    kernel is kept and recorded as such (``short_of``): its retakes came
+    back short again and were the script's costliest repeats."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -826,7 +852,7 @@ def _profile_phase(run_path, top: int = 8, watch=None):
         events = got.get("events", [])
         traced = {k: (sum(k in name for name, _, _ in events), w.launches) for k, w in watch.items()}
         short = {k: v for k, v in traced.items() if v[0] != v[1]}
-        if events and not short:
+        if events:
             break
         print(f"profile (trace {attempt}): {len(events)} device activities; watched kernels "
               f"traced / launched where they differ: {short}", flush=True)
@@ -2989,6 +3015,7 @@ IO_SPLIT = 128 << 20  # spark.sql.files.maxPartitionBytes
 IO_KERNELS = ("extract_strings_many", "var_accumulate", "assemble_rows")
 IO_SIZES = {}  # writer sizes (row groups, pages, stripes): the writers' defaults
 IO_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+IO_SLOW_MS = 2000.0  # a stage slower than this on its first run is timed warm once, unprofiled
 
 
 def _io_writers():
@@ -3332,7 +3359,9 @@ def _host_breakdown(fn) -> dict:
 
 def _io_measure(name, fns, first, file_bytes: int, decoded: int) -> dict:
     """Per stage: warm median of 3 host ms (each run ending in a
-    synchronize), GB/s (the read: file and decoded bytes; the others:
+    synchronize; one warm run, and neither the profile nor cProfile, for a
+    stage whose first run took over ``IO_SLOW_MS``, the ORC reads: the
+    serve path needs the time), GB/s (the read: file and decoded bytes; the others:
     decoded bytes), peak GiB, the H2D copies and bytes of one run through
     ``columnar.column.upload``, and a profile (device busy, idle share,
     device activities) of every stage but the footer filter, which is host
@@ -3344,7 +3373,8 @@ def _io_measure(name, fns, first, file_bytes: int, decoded: int) -> dict:
     for st, fn in fns.items():
         torch.cuda.reset_peak_memory_stats()
         runs = []
-        for _ in range(3):
+        reps = 1 if first[st + "_ms"] > IO_SLOW_MS else 3
+        for _ in range(reps):
             h0 = dict(column.H2D)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3358,16 +3388,16 @@ def _io_measure(name, fns, first, file_bytes: int, decoded: int) -> dict:
         if st == "read":
             rates["file_gb_s"] = file_bytes / ms / 1e6
         print(f"io {name} {st} (host clock, ms): first run {first[st + '_ms']:.2f}; warm median of "
-              f"3 {ms:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+              f"{reps} {ms:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
               + f"; H2D {h2d['copies']} copies, {h2d['bytes']} B; peak device memory "
               f"{peak:.2f} GiB", flush=True)
         prof = None  # the footer filter is host code: nothing to trace on the card
-        if st != "footer":
+        if st != "footer" and reps > 1:
             print(f"io {name} profile of {st}:", flush=True)
             prof = _profile_phase(fn, top=4)
-        out[st] = {"first_ms": first[st + "_ms"], "warm_ms": ms, **rates, "h2d_copies": h2d["copies"],
+        out[st] = {"first_ms": first[st + "_ms"], "warm_ms": ms, "warm_runs": reps, **rates, "h2d_copies": h2d["copies"],
                    "h2d_bytes": h2d["bytes"], "peak_gib": peak, "profile": prof}
-        if st == "read":
+        if st == "read" and reps > 1:
             out[st]["host"] = _host_breakdown(fn)
             host = out[st]["host"]
             print(f"io {name} read under cProfile (cumulative ms / calls): " + ", ".join(
@@ -5750,6 +5780,888 @@ def _memgov_phase(wrappers, keep: dict) -> tuple:
     return entry, launches
 
 
+# ---------------------------------------------------------------------------
+# the serve path: the sidecar worker, its clients, the pool and the scheduler
+# ---------------------------------------------------------------------------
+
+SERVE_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+SERVE_GROUPBY_ROWS = 1_048_576  # BASELINE.json configs[0]'s rows, 4096 keys
+SERVE_POOL_ROWS = 65_536  # (d): the fixed schema's first rows
+SERVE_POOL_THREADS = 4
+SERVE_POOL_CALLS = 6  # each thread's calls in each of (d)'s live rounds
+SERVE_DARK_CALLS = 3  # (d): calls while the whole pool is dark
+SERVE_MIX = ("q1", "q6", "q1", "q6", "q98")  # bench_serve's steady mix
+SERVE_QUERIES = 60
+SERVE_TENANTS = 3
+SERVE_SLOTS = 4
+SERVE_ARRIVAL_S = 0.02  # (e): one submission every 20 ms
+SERVE_KERNELS = ("expand_u32_planes", "rows_to_planes", "groupby_sum_outer",
+                 "extract_strings_many", "var_accumulate", "assemble_rows", "ragged_compact_many")
+SERVE_NEVER = ("partition_map", "groupby_sum_bounded", "probe_paged")
+_NATIVE = {}  # the native runtime's build, started beside the kernels'
+
+
+def _start_native_build():
+    """Find or build ``libsrjt.so`` on a thread of its own (the (c) part
+    of the serve path joins it)."""
+    import threading
+
+    def run():
+        from spark_rapids_jni_tpu_torch import runtime
+
+        t0 = time.perf_counter()
+        try:
+            _NATIVE["lib"] = runtime.build_native()
+        except Exception as e:  # reported on its own line by (c); not a check
+            _NATIVE["error"] = f"{type(e).__name__}: {e}"
+        _NATIVE["s"] = time.perf_counter() - t0
+
+    _NATIVE["thread"] = threading.Thread(target=run, daemon=True, name="native-build")
+    _NATIVE["thread"].start()
+
+
+def _serve_recorders():
+    """Recorders at the call sites of the serve path's kernels -- row
+    conversion's B6, ``rows_to_planes``, ``extract_strings_many``, B9 and
+    B10, the group-by's B3, B5 (``hopper_kernels.ragged_compact_many``)
+    and B8 as the casts reach it (``ragged_bytes.extract_strings_many``)
+    -- that hold every call's output against the kernel's plain version on
+    the same arguments (bit for bit; B3's sums within its bound, its
+    counts exact), from any thread. A call whose arguments equal an
+    earlier call's (the same table through another transport) is held
+    against that call's plain output. B5 and B8 count their launches
+    through their module-level names, so the recorders standing there
+    carry the counts, which ``restore`` hands back to the wrappers.
+    Returns (install, restore, report)."""
+    import threading
+
+    import torch
+    from spark_rapids_jni_tpu_torch.ops import aggregate
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_jni_tpu_torch.ops import uword
+
+    def compact_plain(pool, columns, row_starts=None):
+        if row_starts is not None:
+            columns = [(row_starts.to(torch.int64) + uword.u32_to_i64(b), o, t)
+                       for b, o, t in columns]
+        return [hk.ragged_compact_plain(pool, b, o, t) for b, o, t in columns]
+
+    sites = [(rc, "expand_u32_planes", rb.expand_u32_planes_plain),
+             (rc, "rows_to_planes", rb.rows_to_planes_plain),
+             (rc, "extract_strings_many", rb.extract_strings_many_plain),
+             (rc, "var_accumulate", rb.var_accumulate_plain),
+             (rc, "assemble_rows", rb.assemble_rows_plain),
+             (aggregate, "groupby_sum_outer", hk.groupby_sum_outer_plain),
+             (hk, "ragged_compact_many", compact_plain),
+             (rb, "extract_strings_many", rb.extract_strings_many_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    lock = threading.Lock()
+    held = {}  # kernel -> [(args, kwargs, plain output)]
+    counts = {"checked": {}, "reused_plain": {}, "max_abs_err": {}}
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, (list, tuple)):
+            return [t for y in x for t in flat(y)]
+        return [x]
+
+    def same(a, b):
+        fa, fb = flat(a), flat(b)
+        if len(fa) != len(fb):
+            return False
+        for x, y in zip(fa, fb):
+            if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+                return False
+            if isinstance(x, torch.Tensor):
+                if (x.shape != y.shape or x.dtype != y.dtype or x.device != y.device
+                        or not torch.equal(x, y)):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    def compare(name, got, want):
+        if name == "groupby_sum_outer":
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError("serve: groupby_sum_outer counts differ from its plain version")
+            err = float((got[0].double() - want[0].double()).abs().max()) if got[0].numel() else 0.0
+            if not torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL):
+                raise AssertionError("serve: groupby_sum_outer sums outside rtol 2e-6 / atol 1e-3 "
+                                     "of its plain version")
+            return err
+        ga, wa = flat(got), flat(want)
+        if len(ga) != len(wa) or not all(torch.equal(a, b) for a, b in zip(ga, wa)):
+            raise AssertionError(f"serve: {name} disagrees with its plain version")
+        return 0.0
+
+    def recorder(name, fn, plain):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            with lock:
+                entries = held.setdefault(name, [])
+                want = next((p for a, k, p in entries if same(a, args) and same(
+                    sorted(k.items()), sorted(kwargs.items()))), None)
+                if want is None:
+                    want = plain(*args, **kwargs)
+                    entries.append((args, kwargs, want))
+                else:
+                    counts["reused_plain"][name] = counts["reused_plain"].get(name, 0) + 1
+                err = compare(name, out, want)
+                counts["checked"][name] = counts["checked"].get(name, 0) + 1
+                counts["max_abs_err"][name] = max(counts["max_abs_err"].get(name, 0.0), err)
+            return out
+        call.launches = 0
+        return call
+
+    recs = {}
+
+    def install():
+        for (mod, name, plain), (_, _, fn) in zip(sites, saved):
+            key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+            recs[key] = recorder(name, fn, plain)
+            setattr(mod, name, recs[key])
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        # launches counted through a module-level name landed on its recorder
+        hk.ragged_compact_many.launches += recs["hopper_kernels.ragged_compact_many"].launches
+        rb.extract_strings_many.launches += recs["ragged_bytes.extract_strings_many"].launches
+        held.clear()
+
+    return install, restore, counts
+
+
+def _serve_inputs(keep: dict) -> dict:
+    """The earlier paths' inputs the serve path reuses (the fixed and
+    string paths' host arrays, the spark_exact path's table and card
+    results, the tpch path's lineitem, the plan path's gen_store); what
+    ``keep`` lacks (a ``--serve-only`` run) is made here the same way."""
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds, tpch
+
+    got = dict(keep)
+    made = []
+    if "fixed" not in got:
+        dtypes = _schema(pdt)
+        got["fixed"] = (dtypes, *_host_table(dtypes, ROWS, SEED))
+        made.append("fixed")
+    if "strings" not in got:
+        sdtypes = _str_schema(pdt)
+        got["strings"] = (sdtypes, *_host_str_table(sdtypes, ROWS, SEED + 1))
+        made.append("strings")
+    if "spark_exact" not in got:
+        xh, xt = _spark_exact_inputs(SEED + 10, SPARK_ROWS, device=SERVE_DEVICE)
+        xout, _ = _spark_exact_path(_spark_exact_ops(xt))
+        _check_spark_exact(xh, xt, xout)
+        got["spark_exact"] = (xh, xt, xout)
+        made.append("spark_exact")
+    if "lineitem" not in got:
+        got["lineitem"] = tpch.gen_lineitem(LINEITEM_ROWS, seed=SEED + 4, device=SERVE_DEVICE)
+        made.append("lineitem")
+    if "gen_store" not in got:
+        seed = next(s for _, _, g, _, s in _plan_queries() if g == "gen_store")
+        got["gen_store"] = (ptpcds.gen_store(PLAN_ROWS["gen_store"], seed=seed,
+                                             device=SERVE_DEVICE), seed)
+        made.append("gen_store")
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    got["made"] = made
+    return got
+
+
+def _serve_requests(inp) -> dict:
+    """name -> (op, request bytes in the legacy table form, extra) for the
+    serve path: the group-by at configs[0]'s size, each schema's encode
+    and decode, both casts (and the ANSI cast's error frame) and the
+    decimal multiply / divide on the spark_exact path's columns."""
+    import struct
+
+    from spark_rapids_jni_tpu_torch import sidecar
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    rng = np.random.default_rng(SEED + 18)
+    keys = rng.integers(0, NUM_KEYS, SERVE_GROUPBY_ROWS, dtype=np.int64)
+    vals = rng.standard_normal(SERVE_GROUPBY_ROWS, dtype=np.float32)
+    req = {"groupby": (sidecar.OP_GROUPBY_SUM_F32,
+                       struct.pack("<IQ", NUM_KEYS, keys.size) + keys.tobytes() + vals.tobytes(),
+                       (keys, vals))}
+    for name in ("fixed", "strings"):
+        dtypes, arrays, valids = inp[name]
+        t = carry_table(arrays, dtypes, valids, device="cpu")
+        req[f"to_rows_{name}"] = (sidecar.OP_CONVERT_TO_ROWS, sidecar._write_table(t, framed=False),
+                                  None)
+    xt = inp["spark_exact"][1]
+
+    def one(name):  # the wire writer copies each tensor to the host itself
+        return sidecar._write_table(Table([xt.column(name)]), framed=False)
+
+    req["cast_int64"] = (sidecar.OP_CAST_TO_INTEGER,
+                         struct.pack("<Bi", 0, int(pdt.INT64.id.value)) + one("ints"),
+                         "to_int64")
+    req["cast_int64_ansi"] = (sidecar.OP_CAST_TO_INTEGER,
+                              struct.pack("<Bi", 1, int(pdt.INT64.id.value)) + one("ansi"),
+                              None)
+    p, sc = DEC_TARGETS[0]
+    req["cast_decimal"] = (sidecar.OP_CAST_TO_DECIMAL,
+                           struct.pack("<Bii", 0, p, sc) + one("decs"),
+                           f"to_decimal_{p}_{-sc}")
+    pair = sidecar._write_table(Table([xt.column("a"), xt.column("b")]), framed=False)
+    req["dec_mul"] = (sidecar.OP_DECIMAL128_MUL, struct.pack("<i", PRODUCT_SCALE) + pair,
+                      "multiply128")
+    req["dec_div"] = (sidecar.OP_DECIMAL128_DIV, struct.pack("<i", PRODUCT_SCALE) + pair,
+                      "divide128")
+    return req
+
+
+def _parse_rows(resp: bytes):
+    """A CONVERT_TO_ROWS answer -> [its one LIST<INT8> Column, on the CPU]."""
+    import struct
+
+    import torch
+    from spark_rapids_jni_tpu_torch.columnar import Column
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+
+    (nb,) = struct.unpack_from("<I", resp, 0)
+    if nb != 1:
+        raise AssertionError(f"serve: CONVERT_TO_ROWS answered {nb} batches, not 1")
+    (nrows,) = struct.unpack_from("<Q", resp, 4)
+    pos = 12
+    offs = np.frombuffer(resp, np.int32, nrows + 1, pos)
+    pos += 4 * (nrows + 1)
+    (blen,) = struct.unpack_from("<Q", resp, pos)
+    blob = np.frombuffer(resp, np.uint8, blen, pos + 8)
+    rows = Column(pdt.DType(pdt.TypeId.LIST), offsets=torch.from_numpy(offs.copy()),
+                  child=Column(pdt.INT8, data=torch.from_numpy(blob.view(np.int8).copy())))
+    return [rows]
+
+
+def _from_rows_request(dtypes, to_rows_resp: bytes) -> bytes:
+    import struct
+
+    body = to_rows_resp[4:]  # nrows, offsets, blob_len, blob: the request's tail
+    return (struct.pack("<I", len(dtypes))
+            + np.asarray([int(d.id.value) for d in dtypes], np.int32).tobytes()
+            + np.asarray([int(d.scale) for d in dtypes], np.int32).tobytes() + body)
+
+
+def _serve_check(inp, name: str, resp: bytes, extra):
+    """One answer against the oracles its path already uses: the row blob
+    and the decoded columns against the fixed / string path's numpy
+    encoder and inputs, the group-by against np.bincount in float64, the
+    casts and the decimal operators bit for bit the spark_exact path's
+    card results (themselves held against that path's oracles)."""
+    import torch
+    from spark_rapids_jni_tpu_torch import sidecar
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.columnar.dtype import TypeId
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as rc
+
+    cpu = torch.device("cpu")
+    if name == "groupby":
+        keys, vals = extra
+        sums = torch.from_numpy(np.frombuffer(resp, np.float32, NUM_KEYS, 0).copy())
+        counts = torch.from_numpy(np.frombuffer(resp, np.int64, NUM_KEYS, 4 * NUM_KEYS).copy())
+        return {"max_abs_err": _check_groupby(keys, vals, sums, counts)}
+    if name.startswith("to_rows_") or name.startswith("from_rows_"):
+        kind = name.split("_", 2)[-1]
+        dtypes, arrays, valids = inp[kind]
+        layout = rc.compute_row_layout(dtypes)
+        if name.startswith("to_rows_"):
+            rows = _parse_rows(resp)
+            blob = rows[0].child.data.numpy().view(np.uint8)
+            offs = rows[0].offsets.numpy()
+            if kind == "fixed":
+                want = _oracle_rows(layout, arrays, valids, ORACLE_ROWS).reshape(-1)
+                ok = np.array_equal(blob[: want.size], want) and np.array_equal(
+                    offs, np.arange(ROWS + 1, dtype=np.int64) * layout.row_size_fixed)
+            else:
+                want, want_offs = _oracle_str_rows(layout, dtypes, arrays, valids, ORACLE_ROWS)
+                ok = (np.array_equal(blob[: want.size], want)
+                      and np.array_equal(offs[: ORACLE_ROWS + 1], want_offs))
+            if not ok:
+                raise AssertionError(f"serve: {name}'s rows differ from the numpy encoder")
+            return {"rows_checked": ORACLE_ROWS, "blob_bytes": int(blob.size)}
+        dec = sidecar._read_table(resp, device=cpu)
+        for i, (d, col, a, v) in enumerate(zip(dtypes, dec.columns, arrays, valids)):
+            if d.id == TypeId.STRING:
+                ok = (np.array_equal(col.offsets.numpy(), a[0])
+                      and np.array_equal(col.chars.numpy(), a[1]))
+            else:
+                got, w = col.to_numpy(), np.ascontiguousarray(a)
+                ok = got.itemsize == w.itemsize and np.array_equal(got.view(np.uint8),
+                                                                   w.view(np.uint8))
+            ok = ok and np.array_equal(col.valid_mask().numpy(),
+                                       np.ones(ROWS, bool) if v is None else v)
+            if not ok:
+                raise AssertionError(f"serve: {name}'s decoded column {i} differs from the input")
+        return {"columns_checked": len(dtypes)}
+    res = inp["spark_exact"][2][extra]
+    want = sidecar._write_table(res if isinstance(res, Table) else Table([res]), framed=False)
+    if resp != want:
+        raise AssertionError(f"serve: {name} differs from the spark_exact path's card result")
+    return {"bytes": len(resp)}
+
+
+def _serve_in_process(inp, reqs, rec_counts) -> dict:
+    """(a): this process binds its own socket and serves every connection
+    with ``sidecar._handle_conn`` threads on the card, so the wrappers
+    count the launches; each request goes once streamed and once through a
+    slab arena large enough to hold it, and each answer is held bit for
+    bit against ``sidecar._dispatch`` called in process on the same bytes
+    and against its path's oracle."""
+    import array
+    import os
+    import socket
+    import struct
+    import tempfile
+    import threading
+
+    from spark_rapids_jni_tpu_torch import sidecar, sidecar_pool
+    from spark_rapids_jni_tpu_torch.ops.cast_string import CastError
+    from spark_rapids_jni_tpu_torch.utils import integrity
+
+    backend = sidecar.BACKENDS[SERVE_DEVICE]
+    sock_path = os.path.join(tempfile.mkdtemp(prefix="srjtorch-serve-"), "worker.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock_path)
+    srv.listen(8)
+    handlers = []
+
+    def accept_loop():
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return
+            t = threading.Thread(target=sidecar._handle_conn, args=(conn, backend, lambda: None),
+                                 daemon=True)
+            handlers.append(t)
+            t.start()
+
+    threading.Thread(target=accept_loop, daemon=True).start()
+    out = {"answers": {}, "ms": {}}
+    biggest = max(len(pl) for _, pl, _ in reqs.values())
+    slab = sidecar_pool.ArenaSlab(2 * biggest + 2 * sidecar.REGION_HDR_LEN)
+    client = sidecar.SupervisedClient(sock_path, deadline_s=900, heartbeat_s=1e9)
+    try:
+        client.connect()
+        client._sock.sendmsg(
+            [struct.pack("<IQ", sidecar.OP_SET_ARENA, 16)
+             + struct.pack("<QQ", slab.size, sidecar.ARENA_MODE_SLAB)],
+            [(socket.SOL_SOCKET, socket.SCM_RIGHTS, array.array("i", [slab.fd]).tobytes())])
+        status, rlen = struct.unpack("<IQ", sidecar._recv_exact(client._sock, 12))
+        if status != sidecar.STATUS_OK or rlen:
+            raise AssertionError("serve: SET_ARENA of the slab failed")
+
+        def both_ways(name, op, payload):
+            # streamed with CRC trailers (the Python client's default),
+            # through the slab without them (the native client's framing)
+            t0 = time.perf_counter()
+            streamed = client.request(op, payload)
+            t1 = time.perf_counter()
+            with slab.lease(max(len(payload), 1)) as region, integrity.disabled():
+                region.write(payload)
+                t2 = time.perf_counter()
+                slabbed = client.request(op, b"", region=region)
+                t3 = time.perf_counter()
+            direct = sidecar._dispatch(op, payload, backend)
+            if not streamed == slabbed == direct:
+                raise AssertionError(f"serve: {name} answered differently streamed, through the "
+                                     "slab and in process")
+            out["ms"][name] = {"stream": (t1 - t0) * 1e3, "slab": (t3 - t2) * 1e3}
+            return streamed
+
+        order = ["groupby", "to_rows_fixed", "to_rows_strings", "cast_int64", "cast_decimal",
+                 "dec_mul", "dec_div"]
+        for name in order:
+            op, payload, extra = reqs[name]
+            resp = both_ways(name, op, payload)
+            out["answers"][name] = resp
+            out[name] = _serve_check(inp, name, resp, extra)
+            if name.startswith("to_rows_"):
+                kind = name[len("to_rows_"):]
+                fname = f"from_rows_{kind}"
+                freq = _from_rows_request(inp[kind][0], resp)
+                reqs[fname] = (sidecar.OP_CONVERT_FROM_ROWS, freq, None)
+                fresp = both_ways(fname, sidecar.OP_CONVERT_FROM_ROWS, freq)
+                out["answers"][fname] = fresp
+                out[fname] = _serve_check(inp, fname, fresp, None)
+            print(f"serve (a) {name}: {out['ms'][name]}", flush=True)
+        op, payload, _ = reqs["cast_int64_ansi"]
+        try:
+            client.request(op, payload)
+            raise AssertionError("serve: the ANSI cast did not raise")
+        except CastError as e:
+            if (e.row_with_error, e.string_with_error) != (ANSI_BAD_ROW % inp["spark_exact"][0]["n"],
+                                                           "12x4"):
+                raise AssertionError(f"serve: the ANSI cast raised on row {e.row_with_error} "
+                                     f"{e.string_with_error!r}")
+            out["ansi_error"] = (e.row_with_error, e.string_with_error)
+    finally:
+        client.close()  # the handler reads the close and ends
+        for t in handlers:
+            t.join(60)
+        srv.close()
+        slab.close()
+        try:
+            os.unlink(sock_path)
+        except OSError:
+            pass
+    return out
+
+
+def _serve_spawn_worker():
+    """(b)'s worker process, spawned while (a) runs: (Popen, socket path,
+    start-up seconds)."""
+    from spark_rapids_jni_tpu_torch import sidecar
+
+    t0 = time.perf_counter()
+    proc, sock = sidecar.spawn_worker(device=SERVE_DEVICE, startup_timeout_s=300,
+                                      env={"SRJTORCH_METRICS_ENABLED": "1"})
+    return proc, sock, time.perf_counter() - t0
+
+
+def _serve_make_pool():
+    """(d)'s pool of two workers, started while (a) runs: (pool, start-up
+    seconds)."""
+    from spark_rapids_jni_tpu_torch import sidecar_pool
+
+    t0 = time.perf_counter()
+    pool = sidecar_pool.SidecarPool(size=2, device=SERVE_DEVICE, deadline_s=600, heartbeat_s=1e9,
+                                    startup_timeout_s=300, slab_bytes=512 << 20,
+                                    env={"SRJTORCH_METRICS_ENABLED": "1"})
+    return pool, time.perf_counter() - t0
+
+
+def _serve_worker(reqs, answers, spawned) -> dict:
+    """(b): a real worker process on the card (``spawn_worker``, metrics
+    armed in it for its op timings): PING answers ``gpu``, every request
+    of (a) answers the same bytes, and STATS counts them. Start-up seconds
+    and each op's round trip, split into the worker's own op time (its
+    ``sidecar.worker.op_us`` histogram) and the rest (wire and
+    (de)serialization)."""
+    from spark_rapids_jni_tpu_torch import sidecar
+
+    from spark_rapids_jni_tpu_torch.utils import integrity
+
+    proc, sock, startup_s = spawned
+    out = {"startup_s": startup_s, "ms": {}, "crc": False}
+    client = sidecar.SupervisedClient(sock, deadline_s=900, heartbeat_s=1e9)
+    plain_frames = integrity.disabled()  # the native client's framing: no CRC trailers
+    plain_frames.__enter__()
+    try:
+        out["ping"] = client.ping()
+        if out["ping"] != sidecar.BACKENDS[SERVE_DEVICE]:
+            raise AssertionError(f"serve: the worker's PING answered {out['ping']!r}")
+        sent, prev = {}, {}
+        for name, resp in answers.items():
+            op, payload, _ = reqs[name]
+            opn = sidecar.op_name(op)
+            t1 = time.perf_counter()
+            got = client.request(op, payload)
+            rt = (time.perf_counter() - t1) * 1e3
+            if got != resp:
+                raise AssertionError(f"serve: the worker process answered {name} differently")
+            sent[opn] = sent.get(opn, 0) + 1
+            # the worker's op histogram is cumulative: this request's share
+            h = client.worker_stats(fold=False)["snapshot"]["histograms"].get(
+                f"sidecar.worker.op_us.{opn}", {"sum": 0.0})
+            op_ms = (h["sum"] - prev.get(opn, 0.0)) / 1e3
+            prev[opn] = h["sum"]
+            out["ms"][name] = {"round_trip": rt, "worker_op": op_ms, "wire_and_codec": rt - op_ms}
+        counters = client.worker_stats(fold=False)["snapshot"]["counters"]
+        for opn, n in sent.items():
+            if counters.get(f"sidecar.worker.requests.{opn}") != n:
+                raise AssertionError(f"serve: the worker's STATS counted {counters} for {sent}")
+        out["stats_counted"] = {k: v for k, v in counters.items()
+                                if k.startswith("sidecar.worker.requests.")}
+    finally:
+        plain_frames.__exit__(None, None, None)
+        client.close()
+        sidecar._reap_worker(proc)
+    return out
+
+
+def _serve_native_connect():
+    """(c)'s connection, made while (a) runs: the native runtime's build
+    joined, then ``device_connect`` (the native client forks the port's
+    worker through the launcher). Returns the partial result."""
+    from spark_rapids_jni_tpu_torch import runtime
+
+    _NATIVE["thread"].join()
+    if "error" in _NATIVE:
+        return {"built": False, "error": _NATIVE["error"][-2000:]}
+    out = {"built": True, "build_s": _NATIVE["s"], "library": str(_NATIVE["lib"]._name)}
+    t0 = time.perf_counter()
+    out["platform"] = runtime.device_connect(device=SERVE_DEVICE, timeout_sec=300)
+    out["connect_s"] = time.perf_counter() - t0
+    return out
+
+
+def _serve_native(reqs, answers, inp, connected) -> dict:
+    """(c): the unmodified C ABI (``libsrjt.so``, found or built from
+    native/src on this host) against the port's worker on the card,
+    spawned by the native client through the launcher: the fixed schema's
+    batched encode and decode and ``device_groupby_sum`` bit for bit as in
+    (a). A library that cannot be built is reported, not checked."""
+    import struct
+
+    from spark_rapids_jni_tpu_torch import runtime
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+
+    out = dict(connected)
+    if not out["built"]:
+        print(f"serve (c) native client: libsrjt.so could not be built here, so (c) did not run: "
+              f"{out['error']}", flush=True)
+        return out
+    try:
+        if out["platform"] != "gpu" and SERVE_DEVICE == "cuda":
+            raise AssertionError(f"serve: the native client's worker reports {out['platform']!r}")
+        dtypes, arrays, valids = inp["fixed"]
+        t = carry_table(arrays, dtypes, valids, device="cpu")
+        with runtime.NativeTable.from_python(t) as nt:
+            t1 = time.perf_counter()
+            batches = runtime.native_convert_to_rows_batched(nt)
+            out["to_rows_ms"] = (time.perf_counter() - t1) * 1e3
+            if len(batches) != 1:
+                raise AssertionError(f"serve: the native encode gave {len(batches)} batches")
+            with batches[0] as rows:
+                col = rows.to_python(_list_dtype(), device="cpu")
+                got = (struct.pack("<IQ", 1, ROWS) + col.offsets.numpy().tobytes()
+                       + struct.pack("<Q", col.child.data.numel())
+                       + col.child.data.numpy().tobytes())
+                if got != answers["to_rows_fixed"]:
+                    raise AssertionError("serve: the native encode differs from (a)'s")
+                t1 = time.perf_counter()
+                with runtime.native_convert_from_rows(rows, dtypes) as back:
+                    out["from_rows_ms"] = (time.perf_counter() - t1) * 1e3
+                    from spark_rapids_jni_tpu_torch import sidecar
+                    from spark_rapids_jni_tpu_torch.columnar import Table
+
+                    cols = []
+                    for i, d in enumerate(dtypes):
+                        with back.column(i) as c:
+                            cols.append(c.to_python(d, device="cpu"))
+                    if sidecar._write_table(Table(cols), framed=False) != answers["from_rows_fixed"]:
+                        raise AssertionError("serve: the native decode differs from (a)'s")
+        keys, vals = reqs["groupby"][2]
+        t1 = time.perf_counter()
+        sums, counts = runtime.device_groupby_sum(keys, vals, NUM_KEYS)
+        out["groupby_ms"] = (time.perf_counter() - t1) * 1e3
+        if sums.tobytes() + counts.tobytes() != answers["groupby"]:
+            raise AssertionError("serve: the native device_groupby_sum differs from (a)'s")
+        stats = runtime.device_stats(fold=False)
+        out["worker_counted"] = {k: v for k, v in stats["worker"]["snapshot"]["counters"].items()
+                                 if k.startswith("sidecar.worker.requests.")}
+        for opn in ("CONVERT_TO_ROWS", "CONVERT_FROM_ROWS", "GROUPBY_SUM_F32"):
+            if out["worker_counted"].get(f"sidecar.worker.requests.{opn}", 0) < 1:
+                raise AssertionError(f"serve: the native client's worker never served {opn}")
+        out["heartbeat"] = runtime.device_heartbeat()
+    finally:
+        runtime.device_shutdown()
+    return out
+
+
+def _list_dtype():
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+
+    return pdt.DType(pdt.TypeId.LIST)
+
+
+def _serve_pool(reqs, answers, inp, made) -> dict:
+    """(d): a pool of two card workers, slab-arena calls from four threads;
+    one worker killed with SIGKILL mid-stream (exactly one failover, a
+    respawn re-hydrated with the slab, every answer bit for bit); then
+    both killed, respawns off: every call while the pool is dark is one
+    counted host degrade, its answer still bit for bit. Both
+    ``host_fallbacks`` counters stay 0 until then."""
+    import os
+    import signal
+    import threading
+
+    from spark_rapids_jni_tpu_torch import sidecar
+    from spark_rapids_jni_tpu_torch.columnar import Table
+    from spark_rapids_jni_tpu_torch.interop import carry_table
+    from spark_rapids_jni_tpu_torch.utils import metrics, retry
+
+    dtypes, arrays, valids = inp["fixed"]
+    small = carry_table([a[:SERVE_POOL_ROWS] for a in arrays], dtypes,
+                        [None if v is None else v[:SERVE_POOL_ROWS] for v in valids], device="cpu")
+    small_req = sidecar._write_table(Table(small.columns), framed=False)
+    small_want = sidecar._dispatch(sidecar.OP_CONVERT_TO_ROWS, small_req,
+                                   sidecar.BACKENDS[SERVE_DEVICE])
+    calls = [(sidecar.OP_CONVERT_TO_ROWS, small_req, small_want),
+             (sidecar.OP_GROUPBY_SUM_F32, reqs["groupby"][1], answers["groupby"])]
+    reg = metrics.registry()
+    names = ("sidecar.pool.failovers", "sidecar.pool.worker_deaths", "sidecar.pool.respawns",
+             "sidecar.pool.rehydrations", "sidecar.pool.host_fallbacks", "sidecar.host_fallbacks",
+             "sidecar.pool.hedges_launched", "sidecar.pool.quarantines")
+
+    def snap():
+        return {n: reg.value(n) for n in names}
+
+    pool, startup_s = made
+    out = {"startup_s": startup_s}
+
+    def round_(label, kill=None):
+        before = snap()
+        errors, done, lat = [], [0], []
+        started = threading.Event()
+
+        def worker(i):
+            try:
+                for j in range(SERVE_POOL_CALLS):
+                    op, payload, want = calls[(i + j) % len(calls)]
+                    t1 = time.perf_counter()
+                    got = pool.call_arena(op, payload)
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    if got != want:
+                        errors.append(f"{label}: thread {i} call {j} answered differently")
+                    done[0] += 1
+                    if done[0] >= SERVE_POOL_THREADS:
+                        started.set()
+            except Exception as e:  # surfaced below
+                errors.append(f"{label}: thread {i}: {type(e).__name__}: {e}")
+                started.set()
+
+        with retry.enabled(max_attempts=8, base_delay_ms=1):
+            ts = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_POOL_THREADS)]
+            for t in ts:
+                t.start()
+            t_kill = None
+            if kill is not None:
+                started.wait(300)
+                t_kill = time.perf_counter()
+                os.kill(kill.proc.pid, signal.SIGKILL)
+            for t in ts:
+                t.join(600)
+        if errors:
+            raise AssertionError("; ".join(errors[:4]))
+        res = {"calls": SERVE_POOL_THREADS * SERVE_POOL_CALLS, "call_ms_p50": float(np.median(lat)),
+               "call_ms_max": float(np.max(lat))}
+        if t_kill is not None:
+            healthy = pool.wait_healthy(300)
+            res["respawned_s"] = time.perf_counter() - t_kill
+            if not healthy:
+                raise AssertionError(f"serve: {label}: the killed worker was not respawned")
+        after = snap()
+        res["counters"] = {k: after[k] - before[k] for k in names if after[k] - before[k]}
+        return res
+
+    try:
+        with metrics.enabled():
+            out["live"] = round_("live")
+            c = out["live"]["counters"]
+            if c.get("sidecar.pool.failovers") or c.get("sidecar.pool.host_fallbacks") or c.get(
+                    "sidecar.host_fallbacks"):
+                raise AssertionError(f"serve: (d)'s live round counted {c}")
+            victim = pool._workers[0]
+            out["kill"] = round_("kill", kill=victim)
+            c = out["kill"]["counters"]
+            if (c.get("sidecar.pool.failovers") != 1 or c.get("sidecar.pool.respawns") != 1
+                    or c.get("sidecar.pool.rehydrations", 0) < 1
+                    or c.get("sidecar.pool.host_fallbacks") or c.get("sidecar.host_fallbacks")):
+                raise AssertionError(f"serve: (d)'s kill round counted {c}")
+            pool._respawn_max = 0
+            for w in pool._workers:
+                os.kill(w.proc.pid, signal.SIGKILL)
+            before = snap()
+            t1 = time.perf_counter()
+            with retry.enabled(max_attempts=3, base_delay_ms=1):
+                for _ in range(SERVE_DARK_CALLS):
+                    if pool.call(sidecar.OP_CONVERT_TO_ROWS, small_req) != small_want:
+                        raise AssertionError("serve: a host-degraded answer differs from the card's")
+            after = snap()
+            out["dark"] = {"calls": SERVE_DARK_CALLS, "s": time.perf_counter() - t1,
+                           "counters": {k: after[k] - before[k] for k in names
+                                        if after[k] - before[k]}}
+            c = out["dark"]["counters"]
+            if (c.get("sidecar.pool.host_fallbacks") != SERVE_DARK_CALLS
+                    or c.get("sidecar.host_fallbacks") != SERVE_DARK_CALLS):
+                raise AssertionError(f"serve: (d)'s dark pool counted {c}, not {SERVE_DARK_CALLS} "
+                                     "host degrades")
+    finally:
+        pool.shutdown()
+        sidecar.breaker().reset()
+    return out
+
+
+def _serve_mix(inp) -> dict:
+    """(e): bench_serve's steady mix on the card -- q1 and q6 over the
+    tpch path's SF1 lineitem and q98 over gen_store at SF1 -- 60 queries
+    from 3 tenants into 4 dispatch slots, one submission every 20 ms, each
+    answer bit for bit its sequential run; then the journal: a drained
+    shutdown, a restart whose ``recover`` finds nothing incomplete, and
+    every query's idempotency key answered from its journaled digest."""
+    import tempfile
+
+    import torch
+    from spark_rapids_jni_tpu_torch import serve
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds, tpch
+    from spark_rapids_jni_tpu_torch.serve import journal
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    li = inp["lineitem"]
+    store = inp["gen_store"][0]
+    fns = {"q1": lambda: tpch.q1(li), "q6": lambda: tpch.q6(li), "q98": lambda: ptpcds.q98(store)}
+    want = {}
+    for q, fn in fns.items():
+        t0 = time.perf_counter()
+        res = fn()
+        want[q] = (res, journal.result_digest(res), (time.perf_counter() - t0) * 1e3)
+    c0 = {k: v for k, v in metrics.counters_snapshot().items() if k.startswith(("serve.", "journal."))}
+    jdir = tempfile.mkdtemp(prefix="srjtorch-journal-")
+    out = {"sequential_ms": {q: w[2] for q, w in want.items()}}
+    with _memgov_env(SERVE_MAX_CONCURRENT=SERVE_SLOTS, JOURNAL_DIR=jdir):
+        journal.reset()
+        sched = serve.Scheduler(name="serve-mix")
+        subs, ends = [], {}
+        t_start = time.perf_counter()
+        try:
+            for i in range(SERVE_QUERIES):
+                q = SERVE_MIX[i % len(SERVE_MIX)]
+
+                def timed(fn=fns[q], i=i):
+                    r = fn()
+                    if SERVE_DEVICE == "cuda":
+                        torch.cuda.synchronize()
+                    ends[i] = time.perf_counter()
+                    return r
+
+                subs.append((q, time.perf_counter(),
+                             sched.submit(timed, tenant=f"t{i % SERVE_TENANTS}",
+                                          idempotency_key=f"{q}-{i}")))
+                time.sleep(SERVE_ARRIVAL_S)
+            lat = []
+            for i, (q, t_sub, h) in enumerate(subs):
+                res = h.result(600)
+                if journal.result_digest(res) != want[q][1]:
+                    raise AssertionError(f"serve: a served {q} differs from its sequential run")
+                lat.append((ends[i] - t_sub) * 1e3)
+        finally:
+            drained = sched.shutdown(drain=True, timeout_s=600)
+        if not drained:
+            raise AssertionError("serve: the drained shutdown leaked a dispatch slot")
+        out.update({"queries": SERVE_QUERIES, "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)), "max_ms": float(np.max(lat)),
+                    "qps": SERVE_QUERIES / (max(ends.values()) - t_start)})
+        journal.reset()  # the restarted coordinator
+        sched2 = serve.Scheduler(name="serve-restart")
+        try:
+            report = journal.recover(sched2, lambda rec: None)
+            if report["resubmitted"] or report["skipped"]:
+                raise AssertionError(f"serve: recover found incomplete work after a drained "
+                                     f"shutdown: {report}")
+            dup = {}
+            for q in fns:
+                i = SERVE_MIX.index(q)
+                ans = sched2.submit(lambda: 1 / 0, tenant="t0",
+                                    idempotency_key=f"{q}-{i}").result(60)
+                if not isinstance(ans, journal.DigestAnswer) or not ans.matches(want[q][0]):
+                    raise AssertionError(f"serve: the duplicate {q}-{i} was not answered by digest")
+                dup[q] = f"0x{ans.digest:08x}"
+            out["duplicates_by_digest"] = dup
+        finally:
+            sched2.shutdown(drain=True, timeout_s=60)
+            journal.reset()
+    c1 = {k: v for k, v in metrics.counters_snapshot().items() if k.startswith(("serve.", "journal."))}
+    out["counters"] = {k: v - c0.get(k, 0) for k, v in c1.items() if v - c0.get(k, 0)}
+    return out
+
+
+def _serve_phase(wrappers, keep: dict) -> tuple:
+    """The serve path, (a)-(e), in one counted run: (a)'s kernel calls each
+    held against its plain version, B1, B2 and B4 never launched. Returns
+    (paths entry, launches)."""
+    import torch
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    inp = _serve_inputs(keep)
+    reqs = _serve_requests(inp)
+    print(f"serve input: reused the earlier paths' fixed and string host tables, spark_exact "
+          f"table and card results, lineitem and gen_store; made here: {inp['made'] or 'nothing'}; "
+          f"requests " + ", ".join(f"{k} {len(v[1])} B" for k, v in reqs.items())
+          + f" ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    install, restore, rec_counts = _serve_recorders()
+    entry = {}
+    # (b)'s worker, (d)'s pool and (c)'s native connection start while (a)
+    # runs: their start-up is the interpreter, torch and a CUDA context,
+    # seconds each
+    from concurrent.futures import ThreadPoolExecutor
+
+    starter = ThreadPoolExecutor(3)
+    spawned = starter.submit(_serve_spawn_worker)
+    made = starter.submit(_serve_make_pool)
+    connected = starter.submit(_serve_native_connect)
+
+    def drive():
+        def part(key, fn):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            entry[key] = fn()
+            entry[key]["wall_s"] = time.perf_counter() - t0
+            entry[key]["launches"] = {k: w.launches - before[k] for k, w in wrappers.items()
+                                      if w.launches - before[k]}
+            shown = {k: v for k, v in entry[key].items() if k != "answers"}
+            print(f"serve {key}: {shown}", flush=True)
+
+        # every kernel call of this process, (a)'s and (d)'s in-process
+        # answer, is held against its plain version
+        install()
+        try:
+            part("a_in_process", lambda: _serve_in_process(inp, reqs, rec_counts))
+            answers = entry["a_in_process"].pop("answers")
+            part("b_worker", lambda: _serve_worker(reqs, answers, spawned.result()))
+            part("c_native", lambda: _serve_native(reqs, answers, inp, connected.result()))
+            part("d_pool", lambda: _serve_pool(reqs, answers, inp, made.result()))
+            part("e_scheduler", lambda: _serve_mix(inp))
+        finally:
+            restore()
+            from spark_rapids_jni_tpu_torch import sidecar
+
+            starter.shutdown(wait=True)  # every process it started is reaped
+            if spawned.exception() is None:
+                sidecar._reap_worker(spawned.result()[0])
+            if made.exception() is None:
+                made.result()[0].shutdown()
+            if connected.exception() is None:
+                from spark_rapids_jni_tpu_torch import runtime
+
+                runtime.device_shutdown()
+
+    with metrics.enabled():
+        _, launches = _run_counted(wrappers, drive)
+    held = {k: dict(v) for k, v in rec_counts.items()}
+    if SERVE_DEVICE == "cuda":
+        for k in SERVE_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"the serve path never launched {k}")
+            if held["checked"].get(k, 0) < launches[k]:
+                raise AssertionError(f"serve: {launches[k]} {k} launches, "
+                                     f"{held['checked'].get(k, 0)} held against the plain version")
+        for k in SERVE_NEVER:
+            if launches[k]:
+                raise AssertionError(f"the serve path launched {k} {launches[k]} times")
+    others = {k: v for k, v in launches.items() if k not in SERVE_KERNELS and v}
+    if others:
+        raise AssertionError(f"the serve path launched kernels it does not run: {others}")
+    wall = time.perf_counter() - t_phase
+    print(f"serve phase: {wall:.1f} s wall; launches {launches}", flush=True)
+    entry.update({"phase_wall_s": wall, "launches": launches, "made_here": inp["made"],
+                  "held": held})
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return entry, launches
+
+
 def _kernels_only(rate: float) -> dict:
     """B3 on the fixed path's keys and B1, B4 and B3 on the join path's
     (``--kernels-only``): the same phases and inputs as a whole run,
@@ -5800,6 +6712,7 @@ def main() -> int:
 
     t_script = time.perf_counter()
     name, smi_line = _device_phase()
+    _start_native_build()
     _build_phase()
     rate = _mem_rate(name)
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
@@ -5822,7 +6735,11 @@ def main() -> int:
         entry, _ = _memgov_phase(wrappers, {})
         print(json.dumps({"memgov_only": entry, "card": smi_line}), flush=True)
         return 4  # a partial run: one path driven
-    keep = {}  # earlier paths' tables and card results the memgov path reuses
+    if "--serve-only" in sys.argv[1:]:
+        entry, _ = _serve_phase(wrappers, {})
+        print(json.dumps({"serve_only": entry, "card": smi_line}), flush=True)
+        return 4  # a partial run: one path driven
+    keep = {}  # earlier paths' tables and card results the memgov and serve paths reuse
     if "--plan-only" in sys.argv[1:]:
         entry, _ = _plan_phase(wrappers)
         print(json.dumps({"plan_only": {k: entry[k] for k in ("launches", "calls", "result_rows",
@@ -5888,6 +6805,7 @@ def main() -> int:
     paths["fixed"] = {**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"], "rows": ROWS,
                       "columns": len(dtypes), "row_bytes": layout.row_size_fixed,
                       "peak_gib": peak, "launches": launches, "profile": profile}
+    keep["fixed"] = (dtypes, arrays, valids)
     del table, arrays, valids
     torch.cuda.empty_cache()
 
@@ -5952,6 +6870,7 @@ def main() -> int:
                         "blob_bytes": total, "peak_gib": speak, "launches": slaunches,
                         "profile": sprofile}
 
+    keep["strings"] = (sdtypes, sarrays, svalids)
     del stable, sarrays, svalids
     torch.cuda.empty_cache()
 
@@ -6142,7 +7061,8 @@ def main() -> int:
 
     # -- the memgov path: distributed q55, out of core, spills, caches, bridge
     paths["memgov"], memlaunches = _memgov_phase(wrappers, keep)
-    del keep
+    for k in ("join", "gen_store_wide", "q55_plan"):  # the serve path needs none of these
+        keep.pop(k, None)
     torch.cuda.empty_cache()
 
     # -- the spark_exact path: the reference's Spark-exact operators ---------
@@ -6180,6 +7100,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (Python ints and decimal rules, numpy's unsigned "
           f"arithmetic, Delta's interleaveBits; the ANSI cast raised CastError on row "
           f"{xcheck['ansi_row']} '12x4'): {xcheck}", flush=True)
+    keep["spark_exact"] = (xh, xt, {k: xout[k] for k in (
+        "to_int64", f"to_decimal_{DEC_TARGETS[0][0]}_{-DEC_TARGETS[0][1]}", "multiply128",
+        "divide128")})
     del xout
     xwarm, xpeak, xprofiles = _warm_and_profile(
         "spark_exact", xops, xstage, {"extract_strings_kernel": rb.extract_strings_many})
@@ -6278,6 +7201,11 @@ def main() -> int:
     paths["exchange"], exlaunches = _exchange_phase(wrappers)
     torch.cuda.empty_cache()
 
+    # -- the serve path: the sidecar worker, its clients, the pool, serve/ ----
+    paths["serve"], servelaunches = _serve_phase(wrappers, keep)
+    del keep
+    torch.cuda.empty_cache()
+
     # rows_to_planes runs on both transcode paths: its entry sums the two
     kernels["rows_to_planes"] = _combine(
         {**kernels["rows_to_planes"]["parts"], **skernels.pop("rows_to_planes")["parts"]},
@@ -6319,7 +7247,7 @@ def main() -> int:
                               "plan": planlaunches[k], "memgov": memlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
                               "io": iolaunches[k], "runtime": rt_launches[k],
-                              "exchange": exlaunches[k]},
+                              "exchange": exlaunches[k], "serve": servelaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

@@ -21,4 +21,8 @@ reference have a hand-written counterpart (``ops.hopper_kernels``,
 ``ops.ragged_bytes``). The plan tier (``plan``: logical plans, rewrites,
 statistics, the cost-based optimizer and the compiler onto ``pipeline``
 and the operators) runs the TPC-DS plan queries (``models.tpcds_plans``).
+The serving tier is the device worker the native client reaches
+(``sidecar``), its supervised pool (``sidecar_pool``), the native
+runtime's bindings (``runtime``) and the query scheduler with its durable
+journal (``serve``).
 """

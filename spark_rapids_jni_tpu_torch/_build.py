@@ -198,6 +198,75 @@ def _finish_build(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent builder sees a whole file
 
 
+# the native runtime's sources: the object library of native/CMakeLists.txt
+NATIVE_RUNTIME_SOURCES = (
+    "thrift_compact.cc", "parquet_footer.cc", "host_buffer.cc", "snappy.cc", "lz4.cc",
+    "lzo.cc", "zstd_codec.cc", "columnar.cc", "sidecar.cc", "decimal128.cc",
+    "faultinj.cc", "c_api.cc",
+)
+
+
+def _native_runtime_inputs():
+    """(the sources, whether -lzstd links) of the port's libsrjt.so build:
+    native/src's, with ``csrc/zstd_absent.cc`` in place of zstd_codec.cc
+    where ``zstd_probe`` finds no zstd.h."""
+    srcs = [NATIVE_SRC / n for n in NATIVE_RUNTIME_SOURCES]
+    zstd = zstd_probe()[0]
+    if not zstd:
+        srcs[NATIVE_RUNTIME_SOURCES.index("zstd_codec.cc")] = CSRC / "zstd_absent.cc"
+    return srcs, zstd
+
+
+def native_runtime_path() -> Path:
+    """Where the port's own build of ``libsrjt.so`` goes, named by the hash
+    of its sources, native/src's headers and the flags."""
+    srcs, zstd = _native_runtime_inputs()
+    blob = b"".join(f.read_bytes() for f in srcs + sorted(NATIVE_SRC.glob("*.h")))
+    blob += (" ".join(CXX_FLAGS) + (" -lzstd" if zstd else "")).encode()
+    return BUILD_DIR / f"libsrjt-{hashlib.sha1(blob).hexdigest()[:12]}.so"
+
+
+def build_native_runtime() -> Path:
+    """Compile native/src (read, never edited) into ``libsrjt.so`` with the
+    host C++ compiler, linked with -lzstd where the host has it, into the
+    git-ignored build directory; the sources compile in parallel. Returns
+    the library's path; raises RuntimeError with the compiler's output on
+    failure."""
+    out = native_runtime_path()
+    with _lock:
+        if out.exists():
+            return out
+        srcs, zstd = _native_runtime_inputs()
+        objdir = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+        objdir.mkdir(parents=True, exist_ok=True)
+        flags = [f for f in CXX_FLAGS if f != "-shared"] + [f"-I{NATIVE_SRC}", "-pthread"]
+        procs = []
+        for src in srcs:
+            obj = objdir / (src.name + ".o")
+            cmd = [_cxx(), *flags, "-c", "-o", str(obj), str(src)]
+            procs.append((src.name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for n, _obj, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{n} (rc {proc.returncode}):\n{log}")
+        if not errors:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_cxx(), "-shared", "-pthread", "-o", str(tmp),
+                   *(str(o) for _n, o, _p in procs), *(["-lzstd"] if zstd else [])]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                errors.append(f"link (rc {res.returncode}):\n{res.stdout}{res.stderr}")
+            else:
+                os.replace(tmp, out)
+        shutil.rmtree(objdir, ignore_errors=True)
+        if errors:
+            raise RuntimeError("the build of libsrjt.so from native/src failed: "
+                               + "\n".join(errors))
+        return out
+
+
 def build_all() -> None:
     """Build every missing library, CUDA and host, all compilers at once."""
     with _lock:

@@ -1216,28 +1216,51 @@ def spawn_exchange_fleet(parent_addr: str, rows: int, seed: int, *,
                          extra_env_by_rank: Optional[dict] = None,
                          ready_timeout_s: float = 180.0,
                          device=None):
-    """Start ranks ``1..world-1`` as ``--exchange-worker`` processes (this
-    process is rank 0 at ``parent_addr``), complete every child's peer map
-    once all READY lines are in, and return ``(procs, peers)``:
+    """Start ranks ``1..world-1`` as ``--exchange-worker`` processes, all
+    at once (each start-up is an interpreter, torch and its table: seconds;
+    this process is rank 0 at ``parent_addr``), complete every child's
+    peer map once all READY lines are in, and return ``(procs, peers)``:
     ``procs[rank]`` the Popen, ``peers[rank]`` the address of every rank,
-    0 included. On any failure the children already started are killed
-    before the error propagates."""
-    procs: Dict[int, object] = {}
-    peers: Dict[int, str] = {0: parent_addr}
-    try:
-        for rank in range(1, world):
-            proc, addr = spawn_exchange_peer(
+    0 included, both in rank order. On any failure the children already
+    started are killed before the error propagates."""
+    started: Dict[int, tuple] = {}
+    errors: List[BaseException] = []
+    lock = threading.Lock()
+
+    def start(rank: int) -> None:
+        try:
+            got = spawn_exchange_peer(
                 parent_addr, rows, seed, rank=rank, world=world, cluster=cluster, query=query,
                 epoch=epoch, rounds=rounds, ready_timeout_s=ready_timeout_s,
                 extra_env=(extra_env_by_rank or {}).get(rank), device=device)
-            procs[rank] = proc
-            peers[rank] = addr
+        except BaseException as e:  # re-raised below, after every start has ended
+            with lock:
+                errors.append(e)
+            return
+        with lock:
+            started[rank] = got
+
+    procs: Dict[int, object] = {}
+    peers: Dict[int, str] = {0: parent_addr}
+    try:
+        threads = [threading.Thread(target=start, args=(rank,), daemon=True,
+                                    name=f"srjtorch-exchange-spawn-r{rank}")
+                   for rank in range(1, world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for rank in sorted(started):
+            procs[rank], peers[rank] = started[rank]
+        if errors:
+            raise errors[0]
         if world > 2:
             for rank, proc in procs.items():
                 send_peer_map(proc, {r: a for r, a in peers.items() if r != rank})
     except BaseException:
-        for proc in procs.values():
-            _kill(proc)
+        with lock:
+            for proc, _addr in started.values():
+                _kill(proc)
         raise
     return procs, peers
 

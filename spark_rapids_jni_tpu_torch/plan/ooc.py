@@ -31,8 +31,8 @@ discipline). Inputs are registered as spill-backed ``kind="partition"``
 catalog entries; the in-flight partition is PINNED so that the pressure
 loop cannot evict what the current step computes over; a prefetch thread
 re-materializes the NEXT partition's spill-in while the current one
-computes. (The reference's prefetch also pings its sidecar pool; the
-port has no sidecar pool yet, so that half is absent.) Each completed
+computes, and pings the connected sidecar pool (if any) to keep the
+device path live. Each completed
 partition's partial is checkpointed in the catalog under a stable
 fingerprinted key, so a retried run RESUMES from the last complete
 partition and lineage-recomputes only the hole.
@@ -318,18 +318,28 @@ class OutOfCorePlan:
             built_inputs.add(i)
             return h
 
-        def warm(i: int):
+        def warm(i: int, pool):
             """Prefetch: re-materialize the next partition's spill-in
+            (and ping the sidecar pool to keep the device path live)
             while the current partition computes. Best-effort: a failure
             is the compute path's to rediscover, never the query's."""
             try:
                 h = cat.lookup(self._in_key(i))
                 if h is not None:
                     h.get()
+                if pool is not None:
+                    from .. import sidecar
+
+                    pool.call(sidecar.OP_PING, b"")
             except Exception:  # the compute path re-raises anything real
                 pass
 
         prefetch_on = knobs.get_bool("SRJTORCH_OOC_PREFETCH") and parts > 1
+        pool = None
+        if prefetch_on:
+            from .. import sidecar_pool
+
+            pool = sidecar_pool.current_pool()
 
         def demote(h) -> None:
             """Best-effort device->host demotion: partitions at rest are
@@ -433,7 +443,7 @@ class OutOfCorePlan:
                 faultinj.maybe_inject("plan.ooc.partition")
                 if prefetch_on and i + 1 < parts:
                     prefetcher = threading.Thread(
-                        target=warm, args=(i + 1,), daemon=True,
+                        target=warm, args=(i + 1, pool), daemon=True,
                         name=f"srjtorch-ooc-prefetch-{i + 1}",
                     )
                     prefetcher.start()

@@ -51,13 +51,16 @@ __all__ = [
     "markdown_table",
     "SENTINELS",
     "EXCHANGE_READY",
+    "SIDECAR_READY",
 ]
 
 PREFIX = "SRJTORCH_"
 
 # the exchange worker's READY line (parallel/shuffle.py)
 EXCHANGE_READY = PREFIX + "EXCHANGE_READY"
-SENTINELS = frozenset({EXCHANGE_READY})
+# the sidecar worker's READY line (sidecar.py)
+SIDECAR_READY = PREFIX + "SIDECAR_READY"
+SENTINELS = frozenset({EXCHANGE_READY, SIDECAR_READY})
 
 _TRUE = ("1", "true", "yes")
 _FALSE = ("0", "false", "no")
@@ -460,3 +463,117 @@ declare("SRJTORCH_CACHE_SUBRESULT_BYTES", "int", 256 * 1024 * 1024,
         "byte cap on subresult-cache catalog entries; past it the cache "
         "LRU-unregisters its own entries (on top of memgov's "
         "spill/eviction pressure)", minimum=1)
+
+# sidecar supervision (sidecar.py)
+declare("SRJTORCH_CHAOS_EXIT_ON_OP", "int", None,
+        "sidecar worker chaos: die (exit 42) after consuming a request "
+        "for this op code, before any response")
+declare("SRJTORCH_SIDECAR_TIMEOUT_SEC", "float", 600.0,
+        "per-request sidecar socket deadline (truncated to the "
+        "remaining budget under a deadline scope)", positive=True)
+declare("SRJTORCH_SIDECAR_DEADLINE_S", "float", None,
+        "float override of SRJTORCH_SIDECAR_TIMEOUT_SEC for the Python "
+        "client (wins when both are set)", positive=True)
+declare("SRJTORCH_SIDECAR_HEARTBEAT_S", "float", 30.0,
+        "idle-connection PING probe interval", positive=True)
+declare("SRJTORCH_SIDECAR_STATS_TIMEOUT_SEC", "float", 5.0,
+        "STATS-verb probe deadline (throwaway connection, never the "
+        "heavy-op budget)", positive=True)
+
+# worker pool + slab arena (sidecar_pool.py)
+declare("SRJTORCH_SIDECAR_POOL_SIZE", "int", 1,
+        "workers in the supervised pool (1 = single-worker footprint)",
+        minimum=1)
+declare("SRJTORCH_POOL_RESPAWN_MAX", "int", 3,
+        "spawn attempts per worker death before the slot stays dead",
+        minimum=1)
+declare("SRJTORCH_POOL_RESPAWN_DELAY_S", "float", 0.5,
+        "pause between failed respawn attempts")
+declare("SRJTORCH_ARENA_SLAB_BYTES", "int", 64 << 20,
+        "slab arena size, rounded up to a power of two (memfd-backed, "
+        "virtual until touched)", minimum=4096)
+
+# tail tolerance: gray-failure quarantine + hedged dispatch
+# (sidecar_pool.py)
+declare("SRJTORCH_QUARANTINE_ENABLED", "bool", True,
+        "arm the gray-failure detector: persistently-slow pool workers "
+        "are quarantined out of routing and background-probed")
+declare("SRJTORCH_QUARANTINE_SLOW_FACTOR", "float", 3.0,
+        "a sample slower than this multiple of the pool-wide op-class "
+        "p50 is a strike", positive=True)
+declare("SRJTORCH_QUARANTINE_STRIKES", "int", 5,
+        "net strikes (slow samples minus clean ones) before a worker "
+        "is quarantined", minimum=1)
+declare("SRJTORCH_QUARANTINE_MIN_SAMPLES", "int", 20,
+        "op-class samples required before the detector issues "
+        "verdicts (cold starts are never strikes)", minimum=1)
+declare("SRJTORCH_QUARANTINE_PROBES", "int", 3,
+        "consecutive clean probes before a quarantined worker is "
+        "reinstated", minimum=1)
+declare("SRJTORCH_QUARANTINE_PROBE_INTERVAL_S", "float", 0.25,
+        "pause between background probes of a quarantined worker",
+        positive=True)
+declare("SRJTORCH_QUARANTINE_PROBE_SLOW_S", "float", 0.25,
+        "a probe round-trip slower than this is dirty (resets the "
+        "clean-probe run)", positive=True)
+declare("SRJTORCH_HEDGE_ENABLED", "bool", True,
+        "arm hedged dispatch: a pool request outliving the op-class "
+        "p95 launches one duplicate on a different healthy worker, "
+        "first valid response wins")
+declare("SRJTORCH_HEDGE_BUDGET_PCT", "float", 10.0,
+        "global hedge budget: duplicates stay under this percent of "
+        "total pool calls", positive=True)
+declare("SRJTORCH_HEDGE_MIN_SAMPLES", "int", 20,
+        "op-class samples required before hedging arms (cold ops "
+        "never hedge)", minimum=1)
+declare("SRJTORCH_HEDGE_MIN_DELAY_S", "float", 0.05,
+        "floor on the hedge trigger delay: ops faster than this "
+        "never hedge", positive=True)
+declare("SRJTORCH_HEDGE_SHED_WINDOW_S", "float", 5.0,
+        "hedging auto-disarms for this long after a serve-layer shed "
+        "(an overloaded pool must not carry duplicate load)",
+        positive=True)
+
+# concurrent serving runtime (serve/)
+declare("SRJTORCH_SERVE_MAX_CONCURRENT", "int", 4,
+        "scheduler dispatch slots: queries executing concurrently "
+        "across the op_boundary -> memgov -> sidecar-pool path",
+        minimum=1)
+declare("SRJTORCH_SERVE_QUEUE_DEPTH", "int", 64,
+        "per-tenant bounded FIFO queue depth; a full queue sheds "
+        "lowest-priority-first with retryable Overloaded", minimum=1)
+declare("SRJTORCH_SERVE_MAX_QUEUED", "int", 0,
+        "global queued-query cap across all tenants (0 = per-tenant "
+        "bounds only); past it the overload controller sheds at "
+        "admission")
+declare("SRJTORCH_SERVE_MAX_QUEUE_AGE_SEC", "float", 30.0,
+        "overload controller: oldest-queued-query age past which "
+        "admission sheds lowest-priority-first", positive=True)
+declare("SRJTORCH_SERVE_RETRY_AFTER_SEC", "float", 0.25,
+        "default retry_after_s backoff hint carried by a shed's "
+        "Overloaded error", positive=True)
+declare("SRJTORCH_SERVE_FORECAST_BUDGET_SEC", "float", 0.0,
+        "admission-cost forecasting: predicted seconds of queued plan "
+        "runtime (observed-cost EWMA carried by cached plans) the "
+        "scheduler accepts before shedding with "
+        "Overloaded(cause=\"forecast\"); 0 disables the forecaster")
+
+# crash-recoverable serving: the durable query journal (serve/journal.py)
+declare("SRJTORCH_JOURNAL_DIR", "str", None,
+        "arm the durable query journal: serve.submit appends an "
+        "fsync'd CRC-framed record per admitted query (and its state "
+        "transitions) to segmented logs under this directory; a "
+        "restarted coordinator replays it to answer DONE work by "
+        "digest and resubmit incomplete work")
+declare("SRJTORCH_JOURNAL_SEGMENT_BYTES", "int", 4 * 1024 * 1024,
+        "journal segment roll threshold: an append that would push "
+        "the active segment past this many bytes opens a new one",
+        minimum=4096)
+declare("SRJTORCH_JOURNAL_FSYNC", "bool", True,
+        "0 skips the per-append fsync (crash window widens to the OS "
+        "page cache; replay still truncates any torn tail)")
+
+# the native runtime (runtime.py)
+declare("SRJTORCH_NATIVE_LIB", "str", None,
+        "explicit libsrjt.so path (before native/build/libsrjt.so and "
+        "the port's own build of native/src)")

@@ -90,6 +90,12 @@ def test_runtime_core_modules_are_walked(mod):
     assert f"{PKG}.{mod}" in _port_modules()
 
 
+@pytest.mark.parametrize("mod", ["sidecar", "sidecar_pool", "runtime", "serve", "serve.journal",
+                                 "serve.scheduler"])
+def test_serving_tier_modules_are_walked(mod):
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
 @pytest.mark.parametrize("mod", ["plan", "plan.exprs", "plan.nodes", "plan.rewrites",
                                  "plan.verifier", "plan.optimizer", "plan.distribute",
                                  "plan.compiler", "plan.stats", "plan.stats.sketches",

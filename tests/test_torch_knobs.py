@@ -33,7 +33,9 @@ def test_the_port_declares_its_modules_knobs():
               "FAULTINJ_": 3, "DEVICE_MEMORY_BUDGET": 1, "ADAPTIVE_TIMEOUT_": 4,
               "EXCHANGE_": 3, "CLUSTER_": 6, "PLAN_REPORT": 1, "STATS_": 4, "CBO_": 3,
               "HOST_MEMORY_BUDGET": 1, "SPILL_": 3, "ADMISSION_": 2, "MEMGOV_": 2,
-              "OOC_": 5, "PLAN_CACHE": 1, "SUBRESULT_CACHE": 1, "CACHE_": 4}
+              "OOC_": 5, "PLAN_CACHE": 1, "SUBRESULT_CACHE": 1, "CACHE_": 4,
+              "CHAOS_EXIT_ON_OP": 1, "SIDECAR_": 5, "POOL_": 2, "ARENA_SLAB_BYTES": 1,
+              "QUARANTINE_": 7, "HEDGE_": 5, "SERVE_": 6, "JOURNAL_": 3, "NATIVE_LIB": 1}
     for stem, n in groups.items():
         assert sum(1 for k in PORT_NAMES if k[len(pk.PREFIX):].startswith(stem)) == n, stem
     assert len(PORT_NAMES) == sum(groups.values())
@@ -105,7 +107,8 @@ def test_markdown_table_lists_every_knob():
 
 
 def test_exchange_ready_sentinel_is_the_references_under_the_port_prefix():
-    # the worker's READY line is a sentinel, not a knob
-    assert pk.SENTINELS == {pk.EXCHANGE_READY}
-    assert _ref_name(pk.EXCHANGE_READY) in rk.SENTINELS
-    assert not pk.is_declared(pk.EXCHANGE_READY)
+    # the workers' READY lines are sentinels, not knobs
+    assert pk.SENTINELS == {pk.EXCHANGE_READY, pk.SIDECAR_READY}
+    for line in pk.SENTINELS:
+        assert _ref_name(line) in rk.SENTINELS
+        assert not pk.is_declared(line)

@@ -100,12 +100,28 @@ def test_fatal_is_never_retried():
         assert len(calls) == 1 and r.stats()["fatal"] == 1
 
 
+class _FakeClock:
+    """A clock that moves only by the sleeps asked of it, so a cut-off does
+    not depend on how the host schedules the test."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def now(self):
+        return self.t
+
+    def sleep(self, s):
+        self.t += s
+
+
 def _deadline_case(pkg, budget_s, base_ms):
     r, err, dl, met, _ = pkg
     fn, calls = _flaky(pkg, 10)
-    pol = r.RetryPolicy(max_attempts=8, base_delay_ms=base_ms, jitter=0.0, seed=1)
+    clock = _FakeClock()
+    pol = r.RetryPolicy(max_attempts=8, base_delay_ms=base_ms, jitter=0.0, seed=1,
+                        sleep=clock.sleep)
     with met.enabled():
-        with dl.scope(budget_s):
+        with dl.scope(budget_s, clock=clock.now):
             with pytest.raises(err.DeadlineExceeded) as ei:
                 r.call_with_retry(fn, 1, op_name="op.d", policy=pol)
     st = r.stats()
