@@ -247,8 +247,9 @@ checkout (one nvcc per source, all at once), then on one card:
    once on the card with the launch counts at 0; every B1, B4 and B3 call
    is recorded and held against its plain version (B1 and B4 bit for bit,
    B3's sums within its bound), and no other kernel may launch. Each
-   result is held bit for bit against the port's CPU run of the same plan
-   on the same tables copied to the CPU; ``q3_plan`` / ``q55_plan``
+   plan compiled on the same tables copied to the CPU is held to the
+   card's (structure, stages, estimates), and every third query's result
+   bit for bit against that CPU run; ``q3_plan`` / ``q55_plan``
    against the hand-built ``models/tpcds.q3`` / ``q55``; q1
    (decorrelated), q38 (INTERSECT), q10 (EXISTS) and q9 (CASE over global
    aggregates) against numpy oracles, every float the nearest float64 of
@@ -258,6 +259,26 @@ checkout (one nvcc per source, all at once), then on one card:
    query's compile split, first-run and warm median-of-3 host ms, peak
    memory, fused against operator-tier stages, rewrites fired, launches
    and a profile; the phase's wall seconds;
+   the ANALYSIS path right after it (``analysis/``): (a) a child of this
+   script (``--analysis-child``) started with ``SRJTORCH_RACE=1``, so
+   lockdep and the race layer arm at the package's import, and with the
+   plan and subresult caches on serves q1 / q6 / q98 from three tenants
+   into four slots over 1,048,576-row lineitem and gen_store, a burst of
+   eight ``q3_plan`` and one group-by through the sidecar's op table
+   (every kernel call held against its plain version, every launch a
+   held call on the card), then a pool of two workers on the card
+   answers group-bys, one of them hedged by the pool's own decision
+   (its hedge knobs set so that tiny group-bys warm the op class and a
+   1M-row one outlives the trigger);
+   the child's and both workers' lockdep reports are merged by the
+   port's lockdep CLI, which must find 0 cycles, 0 self-deadlocks and 0
+   race pairs. (b), meanwhile here: planfuzz's 50 plans of seed 1234 run
+   on the card against the direct-plan interpreter (0 mismatches, every
+   B1 / B4 / B3 call held against its plain version) and plancheck over
+   the registry bound to the plan path's SF1 tables (0 violations). (c)
+   a world-2 exchange round of the demo group-by traced in both ranks:
+   their span logs merge with 0 orphans, one root a trace; B1, B3 and B4
+   must each launch; the phase's wall seconds;
 15. the MEMGOV path, run after the plan path on tables and card results
    the earlier paths leave it (the tpch path's lineitem, the plan path's
    gen_store and gen_store_wide and its card ``q55_plan`` result, the
@@ -317,12 +338,15 @@ path alone (the kernels built, no other path): also a partial run, exit 4.
 ``python3 chip_smoke.py --memgov-only`` runs the memgov path alone, making
 the inputs it would otherwise reuse: a partial run, exit 4.
 ``python3 chip_smoke.py --serve-only`` runs the serve path alone, the
-same way: a partial run, exit 4.
+same way: a partial run, exit 4. ``python3 chip_smoke.py --analysis-only``
+runs the analysis path alone on plan tables it makes: a partial run,
+exit 4.
 """
 
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -4893,6 +4917,29 @@ def _plan_queries():
     return out
 
 
+def _plan_cpu_checked(queries, cps) -> list:
+    """The queries whose CPU run on the same tables is held to the card's
+    result (a depth cut: every query's CPU compile is held to the card's,
+    but each CPU run at SF1 costs seconds, 136 s for all of them in a run
+    of PR 18's script). Chosen for coverage: every plan with a float
+    output column (sums and means over the card's atomics, the fused
+    tier's dense-segment index_add_ among them), then, in registry order,
+    any plan with a stage kind or a generator none of those has. The
+    plans left out count rows only, exactly on both sides."""
+    from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
+
+    floats = (pdt.FLOAT32, pdt.FLOAT64)
+    out = [n for n, *_ in queries if any(t in floats for t in cps[n].schema.values())]
+    covered = {s.kind for n in out for s in cps[n].stages}
+    covered |= {g for n, _, g, *_ in queries if n in out}
+    for name, _, gname, *_ in queries:
+        need = ({s.kind for s in cps[name].stages} | {gname}) - covered
+        if name not in out and need:
+            out.append(name)
+            covered |= need
+    return [n for n, *_ in queries if n in out]
+
+
 def _plan_inputs(device):
     """One table set a generator (at ``PLAN_ROWS``, the registry's seed)
     on ``device``, and a CPU copy of each: gen name -> (tables, cpu)."""
@@ -4945,6 +4992,36 @@ def _plan_compile(plan, tables, name: str):
     return cp, spent
 
 
+def _plan_recorders():
+    """Recorders in front of B1 (``hashing.partition_map``), B4
+    (``join.probe_paged``) and B3 (``aggregate.groupby_sum_outer``) as the
+    plan tier reaches them: each non-empty call is kept in ``seen`` with
+    its output. Returns (install, restore, seen)."""
+    from spark_rapids_jni_tpu_torch.ops import aggregate, hashing, join
+
+    sites = ((hashing, "partition_map"), (join, "probe_paged"), (aggregate, "groupby_sum_outer"))
+    saved = [getattr(mod, name) for mod, name in sites]
+    seen = []
+
+    def rec(kernel, fn):
+        def run(*args):
+            out = fn(*args)
+            if args[0].shape[0]:  # an empty call launches nothing
+                seen.append((kernel, args, out))
+            return out
+        return run
+
+    def install():
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, rec(name, fn))
+
+    def restore():
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+    return install, restore, seen
+
+
 def _plan_capture(cps):
     """Run every compiled plan once, timed by the host clock to a
     synchronize, with recorders in front of B1 (``hashing.partition_map``),
@@ -4953,23 +5030,10 @@ def _plan_capture(cps):
     plain version after the run. Returns (results, first-run ms by query,
     calls by query and kernel, the recorded calls)."""
     import torch
-    from spark_rapids_jni_tpu_torch.ops import aggregate, hashing, join
 
-    saved = hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer
-    seen = []
-
-    def rec(kernel, fn, rows):
-        def run(*args):
-            out = fn(*args)
-            if rows(args):  # an empty call launches nothing
-                seen.append((kernel, args, out))
-            return out
-        return run
-
-    hashing.partition_map = rec("partition_map", saved[0], lambda a: a[0].shape[0])
-    join.probe_paged = rec("probe_paged", saved[1], lambda a: a[0].shape[0])
-    aggregate.groupby_sum_outer = rec("groupby_sum_outer", saved[2], lambda a: a[0].shape[0])
+    install, restore, seen = _plan_recorders()
     out, stage, calls, recorded = {}, {}, {}, {}
+    install()
     try:
         for name, cp in cps.items():
             seen.clear()
@@ -4981,7 +5045,7 @@ def _plan_capture(cps):
             calls[name] = {k: sum(s[0] == k for s in seen) for k in PLAN_KERNELS}
             recorded[name] = list(seen)
     finally:
-        hashing.partition_map, join.probe_paged, aggregate.groupby_sum_outer = saved
+        restore()
     stage["end_to_end_ms"] = sum(stage.values())
     return out, stage, calls, recorded
 
@@ -4990,11 +5054,13 @@ def _check_plan_kernel_calls(recorded) -> dict:
     """Every recorded B1 / B4 call bit for bit against its plain version,
     every B3 call's counts exact and its sums within B3's bound (rtol
     2e-6, atol 1e-3, ``tests/test_pallas_kernels.py:65-66``). Returns the
-    checked calls by kernel and B3's largest sum error."""
+    checked calls by kernel, those of them made on the card (each one
+    launch) and B3's largest sum error."""
     import torch
     from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
 
     checked = {k: 0 for k in PLAN_KERNELS}
+    card = {k: 0 for k in PLAN_KERNELS}
     b3_err = 0.0
     for name, seen in recorded.items():
         for kernel, args, got in seen:
@@ -5013,7 +5079,8 @@ def _check_plan_kernel_calls(recorded) -> dict:
                 raise AssertionError(f"plan {name}: {kernel} differs from its plain version "
                                      f"on [{args[0].shape[0]}] {args[0].dtype} keys")
             checked[kernel] += 1
-    return {"checked": checked, "b3_max_abs_err": b3_err}
+            card[kernel] += args[0].is_cuda
+    return {"checked": checked, "card": card, "b3_max_abs_err": b3_err}
 
 
 # var / std's two-pass M2 sums float64 with index_add_ (the atomics of
@@ -5216,6 +5283,7 @@ def _plan_phase(wrappers, keep=None) -> tuple:
           f"{kcheck['b3_max_abs_err']:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     cpu_ms, rows, reports, float_sums = {}, {}, {}, {}
+    ran = _plan_cpu_checked(queries, cps)
     for name, plan, gname, _, _ in queries:
         got = out[name]
         cp = cps[name]
@@ -5232,19 +5300,22 @@ def _plan_phase(wrappers, keep=None) -> tuple:
                 (s.kind, s.est_rows, s.est_bytes) for s in ccp.stages] != [
                 (s.kind, s.est_rows, s.est_bytes) for s in cp.stages]:
             raise AssertionError(f"plan {name}: the CPU tables compile to another plan")
-        fs = _plan_float_sum_columns(cp) & set(got.names)
-        err = _same_plan_result(got, ccp(), f"plan {name} on the card against the CPU", fs)
-        if fs:
-            float_sums[name] = {"columns": sorted(fs), "max_rel_err": err}
+        if name in ran:
+            fs = _plan_float_sum_columns(cp) & set(got.names)
+            err = _same_plan_result(got, ccp(), f"plan {name} on the card against the CPU", fs)
+            if fs:
+                float_sums[name] = {"columns": sorted(fs), "max_rel_err": err}
         cpu_ms[name] = (time.perf_counter() - t1) * 1e3
         rows[name] = got.num_rows
         reports[name] = {k: rep[k] for k in ("nodes_raw", "nodes_optimized", "fused_stages",
                                              "est_peak_bytes", "actual_peak_bytes",
                                              "peak_blowup", "memgov_admitted_bytes")}
         reports[name]["stages"] = [s["kind"] for s in rep["stages"]]
-    print(f"plan path checked against the port's CPU run of the same plans on the same tables "
-          f"(names, types, data bits and masks identical; the same optimized plans and "
-          f"estimates) in {time.perf_counter() - t0:.1f} s; held to rtol {PLAN_FLOAT_SUM_RTOL} "
+    print(f"plan path checked against the port's CPU compile of every plan on the same tables "
+          f"(the same optimized plans and estimates) and the CPU run of {len(ran)} of them "
+          f"({', '.join(ran)}: names, types, data bits and masks identical; not run there: "
+          f"{', '.join(n for n, *_ in queries if n not in ran)}) in "
+          f"{time.perf_counter() - t0:.1f} s; held to rtol {PLAN_FLOAT_SUM_RTOL} "
           f"instead, the var / std columns (float64 index_add_ sums): {float_sums}; inferred "
           f"schemas equal the executed dtypes; peak blowup at most 2.5", flush=True)
     for q in PLAN_HAND_BUILT:
@@ -5261,6 +5332,7 @@ def _plan_phase(wrappers, keep=None) -> tuple:
         for g in ("gen_store", "gen_store_wide"):
             keep[g] = (inputs[g][0], _plan_seed(g))
         keep["q55_plan"] = out["q55_plan"]
+        keep["plan_inputs"] = {g: tabs for g, (tabs, _) in inputs.items()}  # the analysis path
     del out
     # B1 at the fact's full size, through a ppart projection
     pcp, want = _plan_ppart(inputs["gen_store_wide"][0])
@@ -5294,14 +5366,14 @@ def _plan_phase(wrappers, keep=None) -> tuple:
               f"first run {stage[name + '_ms']:.2f}, warm {warm[name + '_ms']:.2f} ms; peak "
               f"{peak.get(name, float('nan')):.2f} GiB; stages fused {kinds.count('fused_aggregate')}"
               f" / operator tier {len(kinds) - kinds.count('fused_aggregate')}; rewrites "
-              f"{cps[name].rewrites_fired}; launches {calls[name]}; rows {rows[name]}; CPU run "
+              f"{cps[name].rewrites_fired}; launches {calls[name]}; rows {rows[name]}; CPU check "
               f"{cpu_ms[name]:.0f} ms", flush=True)
     wall = time.perf_counter() - t_phase
     print(f"plan phase: {wall:.1f} s wall (input, compiles, counted run, checks, CPU runs, "
           f"warm runs, profiles)", flush=True)
     return ({**stage, "warm": warm, "warm_end_to_end_ms": warm["end_to_end_ms"],
              "rows": PLAN_ROWS, "result_rows": rows, "compile_ms": compile_ms,
-             "cpu_run_ms": cpu_ms, "reports": reports, "calls": calls, **kcheck,
+             "cpu_run_ms": cpu_ms, "cpu_runs": ran, "reports": reports, "calls": calls, **kcheck,
              "float_sum_columns": float_sums,
              "oracle_rows": oracle_rows, "ppart_ms": pms, "peak_gib": peak,
              "phase_wall_s": wall, "launches": launches, "profile": profiles}, launches)
@@ -5827,7 +5899,8 @@ def _serve_recorders():
     and B8 as the casts reach it (``ragged_bytes.extract_strings_many``)
     -- that hold every call's output against the kernel's plain version on
     the same arguments (bit for bit; B3's sums within its bound, its
-    counts exact), from any thread. A call whose arguments equal an
+    counts exact), from any thread, counting the calls held and those of
+    them made on the card (only those can launch). A call whose arguments equal an
     earlier call's (the same table through another transport) is held
     against that call's plain output. B5 and B8 count their launches
     through their module-level names, so the recorders standing there
@@ -5859,7 +5932,7 @@ def _serve_recorders():
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     lock = threading.Lock()
     held = {}  # kernel -> [(args, kwargs, plain output)]
-    counts = {"checked": {}, "reused_plain": {}, "max_abs_err": {}}
+    counts = {"checked": {}, "card": {}, "reused_plain": {}, "max_abs_err": {}}
 
     def flat(x):
         if isinstance(x, torch.Tensor):
@@ -5911,6 +5984,9 @@ def _serve_recorders():
                     counts["reused_plain"][name] = counts["reused_plain"].get(name, 0) + 1
                 err = compare(name, out, want)
                 counts["checked"][name] = counts["checked"].get(name, 0) + 1
+                first = flat(args)[0]
+                if isinstance(first, torch.Tensor) and first.is_cuda:  # a call that can launch
+                    counts["card"][name] = counts["card"].get(name, 0) + 1
                 counts["max_abs_err"][name] = max(counts["max_abs_err"].get(name, 0.0), err)
             return out
         call.launches = 0
@@ -6644,9 +6720,10 @@ def _serve_phase(wrappers, keep: dict) -> tuple:
         for k in SERVE_KERNELS:
             if launches[k] < 1:
                 raise AssertionError(f"the serve path never launched {k}")
-            if held["checked"].get(k, 0) < launches[k]:
+            if held["card"].get(k, 0) < launches[k]:
                 raise AssertionError(f"serve: {launches[k]} {k} launches, "
-                                     f"{held['checked'].get(k, 0)} held against the plain version")
+                                     f"{held['card'].get(k, 0)} card calls held against the "
+                                     "plain version")
         for k in SERVE_NEVER:
             if launches[k]:
                 raise AssertionError(f"the serve path launched {k} {launches[k]} times")
@@ -6660,6 +6737,368 @@ def _serve_phase(wrappers, keep: dict) -> tuple:
     if SERVE_DEVICE == "cuda":
         torch.cuda.empty_cache()
     return entry, launches
+
+
+# ---------------------------------------------------------------------------
+# the analysis path: lockdep and the race layer armed on a served run, the
+# plan fuzzer and checker on the card, span logs merged across two ranks
+# ---------------------------------------------------------------------------
+
+ANALYSIS_DEVICE = "cuda"  # "cpu" only to rehearse the phase without a card
+ANALYSIS_ROWS = 1_048_576  # (a): the armed child's lineitem and gen_store rows
+ANALYSIS_SLOTS = 4  # (a): the scheduler's dispatch slots
+ANALYSIS_MIX = ("q1", "q6", "q98", "q1", "q6")  # (a): 10 queries from 3 tenants
+ANALYSIS_QUERIES, ANALYSIS_TENANTS = 10, 3
+ANALYSIS_BURST = 8  # (a): duplicate submissions of q3_plan through the plan and subresult caches
+ANALYSIS_HEDGE_WARM = 4  # (a): tiny group-bys that warm the pool's op class before the hedge
+ANALYSIS_FUZZ = (1234, 50)  # (b): planfuzz's base seed and plans
+ANALYSIS_EXCHANGE_ROWS = 1 << 20  # (c): the demo table's rows over two ranks
+ANALYSIS_KERNELS = ("partition_map", "probe_paged", "groupby_sum_outer")
+
+
+def _analysis_child() -> int:
+    """(a), in a child started with ``SRJTORCH_RACE=1`` (which arms lockdep
+    at the package's import) and the plan and subresult caches armed: the
+    scheduler serving q1 / q6 / q98, one group-by through the sidecar's op
+    table and a duplicate-heavy burst of q3_plan, every answer its
+    sequential run's, every kernel call held against its plain version and
+    every launch a held call on the card; then a 2-worker pool on the same
+    device answering group-bys, one of them hedged by the pool's own
+    decision. Prints its launches and checks as one JSON line; its
+    lockdep report (and each worker's) is written at exit."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch import plan as P
+    from spark_rapids_jni_tpu_torch import serve, sidecar, sidecar_pool
+    from spark_rapids_jni_tpu_torch.analysis import lockdep
+    from spark_rapids_jni_tpu_torch.models import tpcds as ptpcds, tpch
+    from spark_rapids_jni_tpu_torch.models import tpcds_plans
+    from spark_rapids_jni_tpu_torch.serve import journal
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    if not (lockdep.is_installed() and lockdep.race_armed()):
+        raise AssertionError("analysis (a): the child's lockdep and race layer are not armed")
+    wrappers = _wrappers()
+    dev = ANALYSIS_DEVICE
+    made = {}
+
+    def make_pool():
+        t0 = time.perf_counter()
+        made["pool"] = sidecar_pool.SidecarPool(size=2, device=dev, deadline_s=600,
+                                                heartbeat_s=1e9, startup_timeout_s=300)
+        made["pool_startup_s"] = time.perf_counter() - t0
+
+    booting = threading.Thread(target=make_pool, name="analysis-pool-boot")
+    booting.start()  # the workers' start-up (torch, a context) overlaps the inputs
+    li = tpch.gen_lineitem(ANALYSIS_ROWS, seed=SEED + 20, device=dev)
+    store = ptpcds.gen_store(ANALYSIS_ROWS, seed=SEED + 21, device=dev)
+    q3_ir = tpcds_plans.q3_plan()
+    rng = np.random.default_rng(SEED + 22)
+    keys = rng.integers(0, 4096, 1 << 20).astype(np.int64)
+    vals = rng.standard_normal(1 << 20).astype(np.float32)
+    gb_payload = struct.pack("<IQ", 4096, keys.shape[0]) + keys.tobytes() + vals.tobytes()
+    fns = {"q1": lambda: tpch.q1(li), "q6": lambda: tpch.q6(li), "q98": lambda: ptpcds.q98(store),
+           "q3_plan": lambda: P.compile_ir(q3_ir, store, name="analysis_q3")()}
+    want = {q: journal.result_digest(fn()) for q, fn in fns.items()}
+    # the CPU backend's answers, made before the recorders stand: a CPU
+    # call held against its plain version must not stand for a card launch
+    gb_want = sidecar._dispatch(sidecar.OP_GROUPBY_SUM_F32, gb_payload, "cpu")
+    tiny = struct.pack("<IQ", 4096, 16) + keys[:16].tobytes() + vals[:16].tobytes()
+    tiny_want = sidecar._dispatch(sidecar.OP_GROUPBY_SUM_F32, tiny, "cpu")
+    install, restore, rec_counts = _serve_recorders()
+    plan_rec, out = {}, {}
+
+    def drive():
+        install()
+        # B1, B4 and B3 as the plan tier reaches them, in front of the serve
+        # recorders: each non-empty call on the card is one launch
+        plan_install, plan_restore, plan_rec["seen"] = _plan_recorders()
+        plan_install()
+        try:
+            sched = serve.Scheduler(max_concurrent=ANALYSIS_SLOTS, name="analysis")
+            try:
+                subs = [(q, sched.submit(fns[q], tenant=f"t{i % ANALYSIS_TENANTS}"))
+                        for i, q in enumerate(ANALYSIS_MIX * (ANALYSIS_QUERIES // len(ANALYSIS_MIX)))]
+                subs += [("q3_plan", sched.submit(q3_ir, store, tenant=f"t{i % ANALYSIS_TENANTS}"))
+                         for i in range(ANALYSIS_BURST)]
+                gb = sched.submit(sidecar._dispatch, sidecar.OP_GROUPBY_SUM_F32, gb_payload,
+                                  "gpu" if dev == "cuda" else "cpu", tenant="t0")
+                for q, h in subs:
+                    if journal.result_digest(h.result(600)) != want[q]:
+                        raise AssertionError(f"analysis (a): a served {q} differs from its "
+                                             "sequential run")
+                gb_got = gb.result(600)
+            finally:
+                if not sched.shutdown(drain=True, timeout_s=600):
+                    raise AssertionError("analysis (a): the drained shutdown leaked a slot")
+        finally:
+            plan_restore()
+            restore()
+        out["groupby_max_abs_err"] = _groupby_err(gb_got, gb_want, "analysis (a) scheduler")
+        booting.join()
+        pool = made["pool"]
+        try:
+            # one hedged request, as the pool decides it: tiny group-bys warm
+            # the op class (its p95 a round trip of 16 rows), then the
+            # 1M-row group-by outlives that trigger and its duplicate goes
+            # to the other worker
+            with _memgov_env(HEDGE_ENABLED="1", HEDGE_MIN_SAMPLES=str(ANALYSIS_HEDGE_WARM),
+                             HEDGE_MIN_DELAY_S="1e-4"):
+                warm = [pool.call(sidecar.OP_GROUPBY_SUM_F32, tiny)
+                        for _ in range(ANALYSIS_HEDGE_WARM)]
+                hedged = pool.call(sidecar.OP_GROUPBY_SUM_F32, gb_payload)
+            # no more hedges; one plain call a worker queues behind the
+            # losing leg, so every connection is idle before SHUTDOWN
+            with _memgov_env(HEDGE_ENABLED="0"):
+                settle = [pool.call(sidecar.OP_GROUPBY_SUM_F32, tiny) for _ in range(2)]
+            out["pool_max_abs_err"] = max(
+                [_groupby_err(hedged, gb_want, "analysis (a) pool")]
+                + [_groupby_err(r, tiny_want, "analysis (a) pool") for r in warm + settle])
+            if not pool.wait_healthy(120):
+                raise AssertionError("analysis (a): the pool did not settle healthy")
+            for w in pool._workers:  # SHUTDOWN: each worker flushes its lockdep report, exits
+                w.client.request(sidecar.OP_SHUTDOWN, b"")
+            for w in pool._workers:  # the reply comes before the flush: wait for the exit
+                w.proc.wait(timeout=60)
+        finally:
+            pool.shutdown()
+
+    with _memgov_env(HEDGE_BUDGET_PCT="100"), metrics.enabled():
+        c0 = dict(metrics.counters_snapshot())
+        _, launches = _run_counted(wrappers, drive)
+        c1 = metrics.counters_snapshot()
+    counters = {k: v - c0.get(k, 0) for k, v in c1.items()
+                if k.startswith(("cache.", "serve.", "sidecar.pool.hedge")) and v - c0.get(k, 0)}
+    if counters.get("sidecar.pool.hedges_launched", 0) < 1:
+        raise AssertionError(f"analysis (a): the pool launched no hedge: {counters}")
+    if counters.get("cache.hits", 0) < 1:
+        raise AssertionError(f"analysis (a): the burst never hit the plan cache: {counters}")
+    held = {k: dict(v) for k, v in rec_counts.items()}
+    kcheck = _check_plan_kernel_calls({"analysis (a)": plan_rec.pop("seen")})
+    held["plan_tier"] = kcheck
+    if dev == "cuda":
+        # every launch a checked call on the card: B1 / B4 / B3 one for one,
+        # each other kernel at most once a card call its recorder held
+        for k, n in launches.items():
+            card = (kcheck["card"][k] if k in PLAN_KERNELS else held["card"].get(k, 0))
+            if card != n if k in PLAN_KERNELS else card < n:
+                raise AssertionError(f"analysis (a): {n} {k} launches, {card} card calls held "
+                                     "against the plain version")
+    print("ANALYSIS_CHILD " + json.dumps({
+        "launches": launches, "held": held, "counters": counters, **out,
+        "pool_startup_s": made["pool_startup_s"], "tracked_objects": lockdep.report()["tracked_objects"],
+        "queries": len(ANALYSIS_MIX * (ANALYSIS_QUERIES // len(ANALYSIS_MIX))) + ANALYSIS_BURST + 1}),
+        flush=True)
+    return 0
+
+
+def _groupby_err(got: bytes, want: bytes, what: str) -> float:
+    """A GROUPBY_SUM_F32 answer against the CPU backend's: counts exact,
+    sums within B3's bound."""
+    k = len(want) // 12
+    gs, gc = np.frombuffer(got, np.float32, k, 0), np.frombuffer(got, np.int64, k, 4 * k)
+    ws, wc = np.frombuffer(want, np.float32, k, 0), np.frombuffer(want, np.int64, k, 4 * k)
+    if len(got) != len(want) or not np.array_equal(gc, wc) or not np.allclose(
+            gs, ws, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: the group-by answer differs from the CPU backend's")
+    return float(np.abs(gs.astype(np.float64) - ws).max())
+
+
+def _analysis_fuzz_and_check(keep: dict) -> tuple:
+    """(b): planfuzz's base seed, 50 plans compiled and run where their
+    tables are, each against the direct-plan interpreter; every B1 / B4 /
+    B3 call held against its plain version. Then plancheck over the
+    registry bound to the plan path's SF1 tables. Returns (entry, the
+    recorded calls' check)."""
+    from spark_rapids_jni_tpu_torch.analysis import plancheck, planfuzz
+
+    install, restore, seen = _plan_recorders()
+    seed, plans = ANALYSIS_FUZZ
+    t0 = time.perf_counter()
+    install()
+    try:
+        findings, records = planfuzz.run([seed], plans, device=ANALYSIS_DEVICE)
+    finally:
+        restore()
+    fuzz_s = time.perf_counter() - t0
+    rec0 = records[0]
+    if findings or rec0["mismatches"] or rec0["violations"]:
+        raise AssertionError(f"analysis (b): planfuzz found {findings[:3]} ({rec0})")
+    kcheck = _check_plan_kernel_calls({"planfuzz": seen})
+    del seen
+    tables = keep.pop("plan_inputs")
+    t0 = time.perf_counter()
+    violations, checked = plancheck.run(tables=tables, device=ANALYSIS_DEVICE)
+    check_s = time.perf_counter() - t0
+    if violations:
+        raise AssertionError(f"analysis (b): plancheck found {violations[:3]}")
+    entry = {"fuzz": {"seed": seed, "plans": plans, "mismatches": 0, "templates": rec0["templates"],
+                      "rewrites": rec0["rewrites"], "wall_s": fuzz_s, **kcheck},
+             "plancheck": {"plans": len(checked), "violations": 0,
+                           "obligations": sum(r["obligations"] for r in checked),
+                           "fact_rows": {g: max(tb.num_rows for tb in t.values())
+                                         for g, t in tables.items()},
+                           "wall_s": check_s}}
+    print(f"analysis (b): planfuzz seed {seed}, {plans} plans on {ANALYSIS_DEVICE}: 0 mismatches, "
+          f"0 violations, templates {rec0['templates']}, {kcheck['checked']} kernel calls each "
+          f"held against its plain version ({fuzz_s:.1f} s); plancheck over {len(checked)} plans "
+          f"bound to the plan path's SF1 tables: 0 violations, "
+          f"{entry['plancheck']['obligations']} obligations discharged ({check_s:.1f} s)",
+          flush=True)
+    return entry
+
+
+def _analysis_tracemerge(tmp: str) -> dict:
+    """(c): a world-2 exchange round of the demo group-by, this process
+    rank 0 and one worker process, both tracing into per-process span
+    logs; the logs merged: no orphan, one tree per trace, the Chrome export
+    valid JSON, rank 1's own trace holding its partition op. Every B1 call
+    of this process held against its plain version; the group-by bit for
+    bit the single-host one."""
+    import os
+
+    import torch
+    from spark_rapids_jni_tpu_torch.analysis import tracemerge
+    from spark_rapids_jni_tpu_torch.ops.copying import concatenate, slice_table
+    from spark_rapids_jni_tpu_torch.parallel import shuffle
+    from spark_rapids_jni_tpu_torch.utils import deadline, retry, trace_sink, tracing
+
+    world, rows = 2, ANALYSIS_EXCHANGE_ROWS
+    dev = torch.device(ANALYSIS_DEVICE, 0) if ANALYSIS_DEVICE == "cuda" else torch.device("cpu")
+    base = os.path.join(tmp, "spans.jsonl")
+    full = shuffle._demo_table(rows, SEED + 23, device=dev)
+    host = shuffle._local_groupby_sum(full)
+    oracle = {n: host.column(n).data.cpu().numpy() for n in ("k", "s", "c")}
+    install, restore, check = _b1_recorder()
+    ex0 = shuffle.TcpExchange(0, device=dev)
+    procs = {}
+    trace_sink.set_log_path(base)
+    try:
+        t0 = time.perf_counter()
+        procs, peers = shuffle.spawn_exchange_fleet(
+            ex0.address, rows, SEED + 23, world=world, rounds=1, device=ANALYSIS_DEVICE,
+            extra_env_by_rank={1: {"SRJTORCH_TRACE_ENABLED": "1", "SRJTORCH_TRACE_LOG": base}},
+            ready_timeout_s=300)
+        startup_s = time.perf_counter() - t0
+        install()
+        try:
+            with tracing.enabled(), deadline.scope(300), retry.enabled(**EXCHANGE_RETRY):
+                with tracing.op_span("analysis_exchange"):
+                    local = ex0.exchange_table(slice_table(full, *shuffle._shard_bounds(
+                        rows, world, 0)), ["k"], {1: peers[1]}, epoch=0)
+                res0 = shuffle._local_groupby_sum(local)
+                got1 = ex0.fetch(peers[1], 1, 1)
+        finally:
+            restore()
+        b1_calls = check("analysis (c)")
+        got = concatenate([res0, type(got1)(got1.columns, ["k", "s", "c"])])
+        order = np.argsort(got.column("k").data.cpu().numpy(), kind="stable")
+        for n in ("k", "s", "c"):
+            if not np.array_equal(got.column(n).data.cpu().numpy()[order], oracle[n]):
+                raise AssertionError(f"analysis (c): {n} differs from the single-host group-by")
+    finally:
+        _close_fleet(procs)  # rank 1 exits: its span log is complete
+        ex0.close()
+        shuffle.exchange_breaker().reset()
+        trace_sink.set_log_path(None)
+    spans = tracemerge.load_spans([os.path.join(tmp, "spans.*.jsonl")])
+    merged = tracemerge.merge(spans)
+    chrome = json.loads(json.dumps(tracemerge.to_chrome(merged)))
+    pids = sorted({s["pid"] for s in spans})
+    roots = {t: len(v["roots"]) for t, v in merged["traces"].items()}
+    rank1 = [s for s in spans if s["pid"] != os.getpid()]
+    if merged["orphans"] or any(n != 1 for n in roots.values()) or len(pids) != 2:
+        raise AssertionError(f"analysis (c): {merged['orphans']} orphans, roots by trace {roots}, "
+                             f"pids {pids}")
+    if not any("hash_partition" in s["name"] for s in rank1) or not b1_calls:
+        raise AssertionError("analysis (c): a rank partitioned nothing (B1 at rank 0: "
+                             f"{b1_calls} calls; rank 1's spans {sorted({s['name'] for s in rank1})})")
+    if len(chrome["traceEvents"]) != sum(len(v["spans"]) for v in merged["traces"].values()):
+        raise AssertionError("analysis (c): the Chrome export lost spans")
+    entry = {"startup_s": startup_s, "spans": len(spans), "traces": len(merged["traces"]),
+             "orphans": 0, "pids": len(pids), "b1_calls_rank0": b1_calls,
+             "rank1_span_names": sorted({s["name"] for s in rank1})}
+    print(f"analysis (c): a world-2 exchange round traced in both ranks (worker started in "
+          f"{startup_s:.1f} s): {len(spans)} spans from {len(pids)} processes in "
+          f"{len(merged['traces'])} trees, 0 orphans, one root each; the Chrome export "
+          f"{len(chrome['traceEvents'])} events; B1 {b1_calls} calls at rank 0, each bit for bit "
+          f"its plain version, and in rank 1's trace {entry['rank1_span_names']}; the group-by "
+          f"bit for bit the single-host one", flush=True)
+    return entry
+
+
+def _analysis_phase(wrappers, keep: dict) -> tuple:
+    """The analysis path: (a) in an armed child while (b) and (c) run
+    here; then the child's and its workers' lockdep reports merged and
+    gated by the port's lockdep CLI (0 cycles, 0 self-deadlocks, 0 race
+    pairs). Launches: this process's (b) and (c) plus the child's.
+    Returns (paths entry, launches)."""
+    import os
+    import subprocess
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.analysis import lockdep
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="srjtorch-analysis-")
+    ld_dir = os.path.join(tmp, "lockdep")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SRJTORCH_")}
+    env.update({"SRJTORCH_RACE": "1", "SRJTORCH_LOCKDEP_DIR": ld_dir,
+                "SRJTORCH_PLAN_CACHE": "1", "SRJTORCH_SUBRESULT_CACHE": "1"})
+    log_path = os.path.join(tmp, "child.log")
+    with open(log_path, "w") as log:
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--analysis-child",
+                                  ANALYSIS_DEVICE, str(ANALYSIS_ROWS)],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                 stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        (fz, trace), launches = _run_counted(
+            wrappers, lambda: (_analysis_fuzz_and_check(keep), _analysis_tracemerge(tmp)))
+        if ANALYSIS_DEVICE == "cuda":  # (b) and (c): every launch a held call on the card
+            card = dict(fz["fuzz"]["card"])
+            card["partition_map"] += trace["b1_calls_rank0"]
+            for k, n in launches.items():
+                if n != card.get(k, 0):
+                    raise AssertionError(f"analysis (b), (c): {n} {k} launches, "
+                                         f"{card.get(k, 0)} card calls held against the plain "
+                                         "version")
+        rc = child.wait(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    text = open(log_path).read()
+    lines = [x for x in text.splitlines() if x.startswith("ANALYSIS_CHILD ")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"analysis (a): the armed child exited {rc}:\n{text[-4000:]}")
+    a = json.loads(lines[-1][len("ANALYSIS_CHILD "):])
+    for k, v in a["launches"].items():
+        launches[k] += v
+    out = os.path.join(tmp, "lockdep_merged.json")
+    gate_rc = lockdep.main(["--merge", ld_dir, "--out", out])
+    merged = json.load(open(out))
+    a["lockdep"] = {k: merged[k] for k in ("reports", "cycles", "site_cycles", "self_deadlocks",
+                                           "race_pairs", "race_total", "blocking_total",
+                                           "race_armed")}
+    a["lockdep"]["lock_sites"], a["lockdep"]["edges"] = len(merged["locks"]), len(merged["edges"])
+    if gate_rc != 0 or merged["reports"] < 3 or not merged["race_armed"]:
+        raise AssertionError(f"analysis (a): the lockdep gate failed (rc {gate_rc}): "
+                             f"{a['lockdep']}")
+    print(f"analysis (a): the armed child served {a['queries']} queries through {ANALYSIS_SLOTS} "
+          f"slots and its pool answered a hedged group-by (counters {a['counters']}); every "
+          f"kernel call held against its plain version ({a['held']['checked']}); lockdep over "
+          f"{merged['reports']} reports (the child and both workers): {len(merged['locks'])} lock "
+          f"sites, {len(merged['edges'])} edges, 0 cycles, 0 race pairs over "
+          f"{a['tracked_objects']} tracked objects, {merged['blocking_total']} "
+          f"blocking-while-locked events (reported, not gated)", flush=True)
+    if ANALYSIS_DEVICE == "cuda":
+        for k in ANALYSIS_KERNELS:
+            if launches[k] < 1:
+                raise AssertionError(f"the analysis path never launched {k}")
+    wall = time.perf_counter() - t_phase
+    print(f"analysis phase: {wall:.1f} s wall; launches {launches}", flush=True)
+    return ({"a_armed_serve": a, "b_planfuzz_plancheck": fz, "c_tracemerge": trace,
+             "phase_wall_s": wall, "launches": launches}, launches)
 
 
 def _kernels_only(rate: float) -> dict:
@@ -6689,9 +7128,30 @@ def _kernels_only(rate: float) -> dict:
     return {"groupby_sum_outer": b3, **out}
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper by name; each counts its own launches."""
+    from spark_rapids_jni_tpu_torch.ops import hopper_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import ragged_bytes as rb
+
+    return {"expand_u32_planes": rb.expand_u32_planes, "rows_to_planes": rb.rows_to_planes,
+            "groupby_sum_outer": hk.groupby_sum_outer,
+            "extract_strings_many": rb.extract_strings_many,
+            "var_accumulate": rb.var_accumulate, "assemble_rows": rb.assemble_rows,
+            "ragged_compact_many": hk.ragged_compact_many, "partition_map": hk.partition_map,
+            "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded,
+            # the function-level entries of B7, B8, B10 and B5, which no path launches now
+            "pack_u8_planes": rb.pack_u8_planes, "rotl_take": rb.rotl_take,
+            "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--analysis-child"]:
+        # the analysis path's armed child (a): chip_smoke.py --analysis-child DEVICE ROWS
+        global ANALYSIS_DEVICE, ANALYSIS_ROWS
+        ANALYSIS_DEVICE, ANALYSIS_ROWS = sys.argv[2], int(sys.argv[3])
+        return _analysis_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on a card",
               file=sys.stderr)
@@ -6721,15 +7181,7 @@ def main() -> int:
         _print_kernels({**small, "groupby_sum_outer (join keys)": small["groupby_sum_outer"]["join_keys"]})
         print(json.dumps({"kernels_only": small, "card": smi_line}), flush=True)
         return 4  # a partial run: no path was driven
-    wrappers = {"expand_u32_planes": rb.expand_u32_planes, "rows_to_planes": rb.rows_to_planes,
-                "groupby_sum_outer": hk.groupby_sum_outer,
-                "extract_strings_many": rb.extract_strings_many,
-                "var_accumulate": rb.var_accumulate, "assemble_rows": rb.assemble_rows,
-                "ragged_compact_many": hk.ragged_compact_many, "partition_map": hk.partition_map,
-                "probe_paged": hk.probe_paged, "groupby_sum_bounded": hk.groupby_sum_bounded,
-                # the function-level entries of B7, B8, B10 and B5, which no path launches now
-                "pack_u8_planes": rb.pack_u8_planes, "rotl_take": rb.rotl_take,
-                "asm_epilogue": rb.asm_epilogue, "ragged_compact": hk.ragged_compact}
+    wrappers = _wrappers()
     paths = {}
     if "--memgov-only" in sys.argv[1:]:
         entry, _ = _memgov_phase(wrappers, {})
@@ -6738,6 +7190,11 @@ def main() -> int:
     if "--serve-only" in sys.argv[1:]:
         entry, _ = _serve_phase(wrappers, {})
         print(json.dumps({"serve_only": entry, "card": smi_line}), flush=True)
+        return 4  # a partial run: one path driven
+    if "--analysis-only" in sys.argv[1:]:
+        entry, _ = _analysis_phase(wrappers, {"plan_inputs": {
+            g: tabs for g, (tabs, _) in _plan_inputs(PLAN_DEVICE).items()}})
+        print(json.dumps({"analysis_only": entry, "card": smi_line}), flush=True)
         return 4  # a partial run: one path driven
     keep = {}  # earlier paths' tables and card results the memgov and serve paths reuse
     if "--plan-only" in sys.argv[1:]:
@@ -7059,6 +7516,10 @@ def main() -> int:
     paths["plan"], planlaunches = _plan_phase(wrappers, keep)
     torch.cuda.empty_cache()
 
+    # -- the analysis path: lockdep / races armed, planfuzz, plancheck, spans -
+    paths["analysis"], analysislaunches = _analysis_phase(wrappers, keep)
+    torch.cuda.empty_cache()
+
     # -- the memgov path: distributed q55, out of core, spills, caches, bridge
     paths["memgov"], memlaunches = _memgov_phase(wrappers, keep)
     for k in ("join", "gen_store_wide", "q55_plan"):  # the serve path needs none of these
@@ -7247,7 +7708,8 @@ def main() -> int:
                               "plan": planlaunches[k], "memgov": memlaunches[k],
                               "spark_exact": xlaunches[k], "string_ops": solaunches[k],
                               "io": iolaunches[k], "runtime": rt_launches[k],
-                              "exchange": exlaunches[k], "serve": servelaunches[k]},
+                              "exchange": exlaunches[k], "serve": servelaunches[k],
+                              "analysis": analysislaunches[k]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],

@@ -24,5 +24,19 @@ and the operators) runs the TPC-DS plan queries (``models.tpcds_plans``).
 The serving tier is the device worker the native client reaches
 (``sidecar``), its supervised pool (``sidecar_pool``), the native
 runtime's bindings (``runtime``) and the query scheduler with its durable
-journal (``serve``).
+journal (``serve``). The correctness tooling (``analysis``: the lint,
+the static race pass, lockdep with its dynamic race layer, the span-log
+merge, the plan checker and the plan fuzzer) runs over the package's own
+tree.
 """
+
+import os as _os
+
+if (
+    _os.environ.get("SRJTORCH_LOCKDEP", "").lower() in ("1", "true", "yes")  # srjt-lint: allow-environ(bootstrap: lockdep must patch threading before ANY package module creates a lock, so the arming is read before any package import)
+    or _os.environ.get("SRJTORCH_RACE", "").lower() in ("1", "true", "yes")  # srjt-lint: allow-environ(bootstrap: the race detector rides the lockdep shim and has the same patch-before-any-lock constraint)
+):
+    from .analysis import lockdep as _lockdep
+
+    _lockdep.install()
+

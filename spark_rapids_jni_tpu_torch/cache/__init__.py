@@ -207,7 +207,7 @@ def stats_section() -> dict:
 
         entries, nbytes = memgov.catalog().kind_stats("cache")
         out["governed"] = {"entries": entries, "bytes": nbytes}
-    except Exception:
+    except Exception:  # srjt-lint: allow-broad-except(stats reporting must never fail the report)
         pass
     return out
 

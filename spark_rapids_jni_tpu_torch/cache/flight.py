@@ -50,7 +50,11 @@ class SingleFlight:
 
     def __init__(self, name: str):
         self._lock = threading.Lock()
-        self._flights: Dict = {}
+        # srjt-race layer 2: the flight map is crossed by every serve
+        # slot racing on one key (tracked when SRJTORCH_RACE=1)
+        from ..analysis.lockdep import track as _race_track
+
+        self._flights: Dict = _race_track({}, f"cache.flight.{name}")
         self._name = name
 
     def run(self, key, thunk: Callable):

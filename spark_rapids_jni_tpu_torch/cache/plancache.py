@@ -81,7 +81,7 @@ def _values_ok(values) -> bool:
         try:
             if v != v:
                 return False
-        except Exception:
+        except Exception:  # srjt-lint: allow-broad-except(exotic literal __eq__ = not keyable, never an error)
             return False
     return True
 
@@ -187,7 +187,9 @@ class PlanCache:
 
     def __init__(self, max_entries: int, max_variants: int):
         self._lock = threading.RLock()
-        self._entries: Dict = {}
+        from ..analysis.lockdep import track as _race_track
+
+        self._entries: Dict = _race_track({}, "cache.plan.entries")
         self._max_entries = int(max_entries)
         self._max_variants = int(max_variants)
 
@@ -356,5 +358,5 @@ class PlanCache:
 def _same(a, b) -> bool:
     try:
         return bool(a == b)
-    except Exception:
+    except Exception:  # srjt-lint: allow-broad-except(exotic literal __eq__ = ambiguous mapping, full-compile fallback)
         return False

@@ -55,7 +55,9 @@ class SubresultCache:
 
     def __init__(self, max_bytes: int):
         self._lock = threading.RLock()
-        self._entries: Dict = {}
+        from ..analysis.lockdep import track as _race_track
+
+        self._entries: Dict = _race_track({}, "cache.sub.entries")
         self._bytes = 0
         self._max_bytes = int(max_bytes)
         self._flight = SingleFlight("sub")
@@ -84,7 +86,7 @@ class SubresultCache:
                 _durable("cache.sub_hits").inc()
                 tracing.event_span("cache.sub.hit", fp=key[1])
                 return out
-            except Exception:
+            except Exception:  # srjt-lint: allow-broad-except(any rematerialization failure degrades to a recompute miss)
                 # DataCorruption from the spill tier, or the governor
                 # closed it under us: drop and recompute — the CRC
                 # layer's whole point is that rot is a MISS, not an

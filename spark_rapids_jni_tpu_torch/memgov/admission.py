@@ -125,7 +125,7 @@ class AdmissionController:
         return int(self._capacity_fn())
 
     def in_use(self) -> int:
-        return self._in_use  # one machine word, read for monitoring only
+        return self._in_use  # srjt-race: allow-unguarded(single machine-word stats read; GIL-atomic, monitoring only — admission decisions re-read under _cond)
 
     def snapshot(self) -> dict:
         with self._cond:

@@ -343,7 +343,13 @@ class BufferCatalog:
         clock=time.monotonic,
     ):
         self._lock = threading.RLock()
-        self._entries: Dict[str, SpillableHandle] = {}
+        # srjt-race layer 2: the LRU map is tracked when SRJTORCH_RACE=1
+        # (every register/spill/get crosses it; a plain dict otherwise)
+        from ..analysis.lockdep import track as _race_track
+
+        self._entries: Dict[str, SpillableHandle] = _race_track(
+            {}, "memgov.catalog.entries"
+        )
         self._seq = 0
         self._clock = clock
         self._spill_dir = spill_dir  # resolved on the first disk spill

@@ -118,7 +118,7 @@ def write_manifest(frame_path: str, key: str, kind: str, nbytes: int,
             },
             protocol=pickle.HIGHEST_PROTOCOL,
         )
-    except Exception:
+    except Exception:  # srjt-lint: allow-broad-except(an unpicklable treedef costs re-attachability of this one entry, never the spill that is already on disk)
         _registry().counter("memgov.manifest_failures").inc()
         return False
     frame = _MAGIC + _HDR.pack(len(payload), integrity.checksum(payload)) + payload
@@ -163,7 +163,7 @@ def read_manifest(frame_path: str) -> Optional[dict]:
         return None
     try:
         man = pickle.loads(payload)
-    except Exception:
+    except Exception:  # srjt-lint: allow-broad-except(a CRC-valid but unloadable manifest is rot with a fancier disease — same absence contract)
         _registry().counter("memgov.manifest_rot").inc()
         return None
     return man if isinstance(man, dict) else None
@@ -241,7 +241,7 @@ def startup(catalog) -> dict:
         spill_dir = knobs.get_str("SRJTORCH_SPILL_DIR")
         if spill_dir and os.path.isdir(spill_dir):
             _scan_shared_dir(spill_dir, catalog, report)
-    except Exception as e:
+    except Exception as e:  # srjt-lint: allow-broad-except(recovery-scan failure degrades to the volatile posture; catalog construction must survive any disk disease)
         _registry().counter("memgov.persist_startup_failures").inc()
         metrics.event("memgov.persist_startup_failed", error=str(e))
     metrics.event("memgov.persist_startup", **report)

@@ -180,7 +180,7 @@ class ClusterView:
         t0 = time.monotonic()
         try:
             peer_gen = self._exchange.ping(addr, self.heartbeat_timeout_s)
-        except Exception as e:  # any failed ping is one miss; the ladder classifies
+        except Exception as e:  # srjt-lint: allow-broad-except(heartbeat probe: ANY ping failure is one miss — classification happens at the miss-count threshold, not per-exception)
             self._record_miss(r, e)
             return
         rtt_ms = (time.monotonic() - t0) * 1e3

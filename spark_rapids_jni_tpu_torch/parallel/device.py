@@ -14,6 +14,8 @@ import threading
 
 import torch
 
+from ..utils.errors import FatalDeviceError
+
 __all__ = ["device_for_executor", "bind_executor", "current_device"]
 
 _local = threading.local()
@@ -21,7 +23,7 @@ _local = threading.local()
 
 def _cuda_devices():
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: an executor binds to a card")
+        raise FatalDeviceError("no CUDA device is available: an executor binds to a card")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 

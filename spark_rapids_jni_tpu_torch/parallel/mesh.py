@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..columnar import Column, Table
+from ..utils.errors import FatalDeviceError
 
 __all__ = [
     "Mesh",
@@ -86,8 +87,9 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, devices: Optional[Sequence]
     product differs from the number of devices."""
     if devices is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass devices=[torch.device('cpu')] "
-                               "* n for a mesh on the CPU")
+            raise FatalDeviceError("no CUDA device is available; pass "
+                                   "devices=[torch.device('cpu')] * n for a "
+                                   "mesh on the CPU")
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         devs = [torch.device(d) for d in devices]

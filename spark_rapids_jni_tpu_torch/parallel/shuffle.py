@@ -461,21 +461,6 @@ def _recv_exact_tcp(sock, n: int, until: float) -> bytes:
     return bytes(buf)
 
 
-def _recv_exact_conn(conn, n: int) -> Optional[bytes]:
-    """The server's read of exactly n request bytes under the connection's
-    timeout; None when the peer closed or the read failed."""
-    buf = b""
-    try:
-        while len(buf) < n:
-            chunk = conn.recv(n - len(buf))
-            if not chunk:
-                return None
-            buf += chunk
-    except OSError:  # socket.timeout included
-        return None
-    return buf
-
-
 class TcpExchange:
     """One runtime's end of the cross-process exchange: a server that
     publishes this rank's outgoing partitions (each encoded once as a
@@ -560,14 +545,28 @@ class TcpExchange:
 
     def _serve_conn(self, conn) -> None:
         try:
-            conn.settimeout(self.deadline_s)
+            conn.settimeout(self.deadline_s)  # bounds every read below
             while True:
-                hdr = _recv_exact_conn(conn, _EXC_REQ.size)
-                if hdr is None:
-                    return
-                magic, verb, epoch, part = _EXC_REQ.unpack(hdr)
-                if magic != _EXC_MAGIC or verb not in _VERBS:
-                    conn.sendall(_EXC_RESP.pack(_EXC_ERR, 0))
+                # the header, then the trace blob and the generation, which
+                # are read whatever this side arms, so that the stream stays
+                # framed; a closed peer or a failed read ends the connection
+                req, need = b"", _EXC_REQ.size
+                try:
+                    while len(req) < need:
+                        chunk = conn.recv(need - len(req))
+                        if not chunk:
+                            return
+                        req += chunk
+                        if len(req) == _EXC_REQ.size:
+                            magic, verb, epoch, part = _EXC_REQ.unpack(req)
+                            if magic != _EXC_MAGIC or verb not in _VERBS:
+                                conn.sendall(_EXC_RESP.pack(_EXC_ERR, 0))
+                                return
+                            need += (tracing.TRACE_CTX_LEN if verb in (
+                                _EXC_GET_TRACED, _EXC_GET_FENCED_TRACED) else 0) + (
+                                _EXC_GEN.size if verb in (
+                                    _EXC_GET_FENCED, _EXC_GET_FENCED_TRACED) else 0)
+                except OSError:  # socket.timeout included
                     return
                 if verb == _EXC_PING:
                     # a PING never gates on the fence; the answer carries
@@ -575,20 +574,12 @@ class TcpExchange:
                     conn.sendall(_EXC_RESP.pack(_EXC_OK, _EXC_GEN.size)
                                  + _EXC_GEN.pack(self.generation() or 0))
                     continue
-                # the trace blob and the generation are read whatever this
-                # side arms, so that the stream stays framed
-                tctx = None
+                at, tctx, req_gen = _EXC_REQ.size, None, None
                 if verb in (_EXC_GET_TRACED, _EXC_GET_FENCED_TRACED):
-                    tb = _recv_exact_conn(conn, tracing.TRACE_CTX_LEN)
-                    if tb is None:
-                        return
-                    tctx = tracing.decode_wire_context(tb)
-                req_gen = None
+                    tctx = tracing.decode_wire_context(req[at:at + tracing.TRACE_CTX_LEN])
+                    at += tracing.TRACE_CTX_LEN
                 if verb in (_EXC_GET_FENCED, _EXC_GET_FENCED_TRACED):
-                    gb = _recv_exact_conn(conn, _EXC_GEN.size)
-                    if gb is None:
-                        return
-                    (req_gen,) = _EXC_GEN.unpack(gb)
+                    (req_gen,) = _EXC_GEN.unpack(req[at:at + _EXC_GEN.size])
                 if tctx is not None and tracing.is_enabled():
                     # the serving half of the cross-process trace, logged here
                     with tracing.remote_scope(*tctx):
@@ -920,7 +911,7 @@ class TcpExchange:
             try:
                 fetched[r] = ctx.run(self.fetch, addr, epoch, self.rank)
                 return
-            except BaseException as e:  # the joiner re-raises errs[0]
+            except BaseException as e:  # srjt-lint: allow-broad-except(thread-exit funnel: the joiner re-raises errs[0] after joining every fetch thread)
                 if cluster is None:
                     errs.append(e)
                     return
@@ -930,7 +921,7 @@ class TcpExchange:
             try:
                 recovered = ctx.run(cluster.failover_fetch, r, epoch, list(key_cols), world,
                                     self.rank)
-            except BaseException as e2:  # the joiner re-raises errs[0]
+            except BaseException as e2:  # srjt-lint: allow-broad-except(thread-exit funnel: the joiner re-raises errs[0] after joining every fetch thread)
                 errs.append(e2)
                 return
             if recovered is None:
@@ -1092,7 +1083,7 @@ def _drain_stderr(proc, keep: int = 200):
             tail.append(line)
             try:
                 sys.stderr.write(line)
-            except Exception:  # our stderr closed: keep the tail only
+            except (OSError, ValueError):  # our stderr closed: keep the tail only
                 pass
 
     t = threading.Thread(target=pump, name="exchange-peer-stderr", daemon=True)
@@ -1233,7 +1224,7 @@ def spawn_exchange_fleet(parent_addr: str, rows: int, seed: int, *,
                 parent_addr, rows, seed, rank=rank, world=world, cluster=cluster, query=query,
                 epoch=epoch, rounds=rounds, ready_timeout_s=ready_timeout_s,
                 extra_env=(extra_env_by_rank or {}).get(rank), device=device)
-        except BaseException as e:  # re-raised below, after every start has ended
+        except BaseException as e:  # srjt-lint: allow-broad-except(thread-exit funnel: the starter re-raises errors[0] after joining every start thread)
             with lock:
                 errors.append(e)
             return

@@ -331,7 +331,7 @@ class OutOfCorePlan:
                     from .. import sidecar
 
                     pool.call(sidecar.OP_PING, b"")
-            except Exception:  # the compute path re-raises anything real
+            except Exception:  # srjt-lint: allow-broad-except(prefetch is advisory; the compute path re-raises anything real)
                 pass
 
         prefetch_on = knobs.get_bool("SRJTORCH_OOC_PREFETCH") and parts > 1

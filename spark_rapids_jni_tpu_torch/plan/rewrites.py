@@ -207,7 +207,7 @@ def rebind_literals(plan: Node, mapping: Dict) -> Node:
 def _same_value(a, b) -> bool:
     try:
         return bool(a == b) and type(a) is type(b)
-    except Exception:  # an exotic literal __eq__: not rebindable, never an error
+    except Exception:  # srjt-lint: allow-broad-except(exotic literal __eq__ = not rebindable, never an error)
         return False
 
 

@@ -432,7 +432,7 @@ class QueryJournal:
         """Append one submit record (the scheduler builds it; ``jid``
         required). Returns False when degraded/failed — the caller
         proceeds volatile either way."""
-        if self._degraded or self._closed:
+        if self._degraded or self._closed:  # srjt-race: allow-unguarded(single boolean fast-path poll; GIL-atomic, append re-checks nothing — a stale False only costs one harmless locked append)
             return False
         rec = dict(rec)
         rec["t"] = "submit"
@@ -612,7 +612,7 @@ def rebind_for_record(template, rec: dict):
 def _values_equal(a, b) -> bool:
     try:
         return type(a) is type(b) and bool(a == b)
-    except Exception:
+    except Exception:  # srjt-lint: allow-broad-except(exotic literal __eq__ = not equal, never an error)
         return False
 
 

@@ -291,7 +291,14 @@ class Scheduler:
             if retry_after_s is None else retry_after_s
         )
         self._cond = threading.Condition(threading.Lock())
-        self._tenants: Dict[str, _Tenant] = {}
+        # srjt-race layer 2: the tenant-lane table is tracked — every
+        # key/iteration access is checked for happens-before ordering
+        # when SRJTORCH_RACE=1 (a plain dict otherwise, zero cost)
+        from ..analysis.lockdep import track as _race_track
+
+        self._tenants: Dict[str, _Tenant] = _race_track(
+            {}, f"serve.{self.name}.tenants"
+        )
         self._queued = 0  # entries in S_QUEUED across all tenant deques
         self._running = 0
         self._cluster = None  # ClusterView: quorum-loss shed
@@ -1108,7 +1115,7 @@ class Scheduler:
                     if adm is not None:
                         adm.release()
             self._complete(q, S_DONE, None, res)
-        except BaseException as e:
+        except BaseException as e:  # srjt-lint: allow-broad-except(dispatch slot: EVERY query failure — taxonomy, host-side, even SystemExit from user code — must land in the handle for result() to re-raise, or the waiter hangs forever; the slot itself must survive to serve the next query, so nothing re-raises out of a worker thread)
             state = S_FAILED
             if isinstance(e, DeadlineExceeded) and q._token.cancelled():
                 state = S_CANCELLED

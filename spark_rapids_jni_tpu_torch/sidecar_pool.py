@@ -471,6 +471,20 @@ class SidecarPool:
         from .utils import metrics as _metrics
 
         self._ewma = _metrics.KeyedEwma(alpha=0.3, max_keys=512)
+        # srjt-race layer 2: the health/quarantine state is dynamically
+        # tracked when SRJTORCH_RACE=1 — per-worker records
+        # (alive/quarantined/strikes/clean_probes writes), the scorer's
+        # EWMA map, and the hedge-budget counter all feed the
+        # vector-clock detector; disarmed, track() is one boolean read
+        from .analysis.lockdep import track as _race_track
+
+        self._ewma._entries = _race_track(
+            self._ewma._entries, "pool.ewma_entries"
+        )
+        _race_track(
+            self._reg().counter("sidecar.pool.hedges_launched"),
+            "pool.hedge_budget",
+        )
         # hedge-budget reservations are check-AND-increment under one
         # lock: two dispatch slots racing the same last budget slot
         # must not both launch (the hedge budget is a hard ceiling, not
@@ -481,7 +495,9 @@ class SidecarPool:
         # are leased per request, so the only pool-wide arena state is
         # the allocator
         self._slab: Optional[ArenaSlab] = None
-        self._workers = [_Worker(i) for i in range(self.size)]
+        self._workers = [
+            _race_track(_Worker(i), f"pool.w{i}") for i in range(self.size)
+        ]
         # the slots boot in parallel (a worker's start-up is its interpreter,
         # torch and the device context: seconds each)
         errors: List[BaseException] = []
@@ -489,7 +505,7 @@ class SidecarPool:
         def boot(w: _Worker) -> None:
             try:
                 self._spawn_locked(w)
-            except BaseException as e:
+            except BaseException as e:  # srjt-lint: allow-broad-except(thread-exit funnel: the constructor re-raises errors[0] after joining every boot thread)
                 errors.append(e)
 
         threads = [threading.Thread(target=boot, args=(w,), daemon=True,
@@ -580,7 +596,7 @@ class SidecarPool:
             if w.proc is not None:
                 try:
                     w.proc.wait(timeout=10)
-                except Exception:
+                except Exception:  # srjt-lint: allow-broad-except(best-effort shutdown: a worker that will not die in 10s gets SIGKILLed; teardown must reap every slot regardless)
                     w.proc.kill()
             if w.sock_path:
                 try:
@@ -722,7 +738,7 @@ class SidecarPool:
                     startup_timeout_s=self._startup_timeout_s,
                     env=self._worker_env(w),
                 )
-            except BaseException as e:
+            except BaseException as e:  # srjt-lint: allow-broad-except(detached respawn supervisor: ANY spawn failure — incl. interpreter-teardown errors — is one counted attempt; escaping would kill the supervisor thread and strand the slot forever)
                 metrics.event(
                     "sidecar.pool.respawn_failed",
                     wid=w.wid, attempt=attempt, err=str(e)[:200],
@@ -755,7 +771,7 @@ class SidecarPool:
                     self._send_arena(w)
                     self._reg().counter("sidecar.pool.rehydrations").inc()
                     metrics.event("sidecar.pool.rehydrate", wid=w.wid)
-            except BaseException as e:
+            except BaseException as e:  # srjt-lint: allow-broad-except(respawn re-hydration: a half-born worker that cannot take the arena is reaped and the attempt counted; escaping would strand the slot with a live unreachable child)
                 metrics.event(
                     "sidecar.pool.respawn_failed",
                     wid=w.wid, attempt=attempt, err=str(e)[:200],
@@ -922,7 +938,7 @@ class SidecarPool:
                     except RetryableError as e:
                         if self._worker_is_dead(w, e):
                             dead_exc = e
-                    except Exception:
+                    except Exception:  # srjt-lint: allow-broad-except(probe outcome is binary — an expired probe budget (DeadlineExceeded) or any semantic error is simply a dirty probe; the prober must outlive its subject)
                         pass
                 finally:
                     w.io_lock.release()
@@ -1237,7 +1253,7 @@ class SidecarPool:
                 try:
                     r = self._attempt_on(w, op, payload, leg_region,
                                          region_req)
-                except BaseException as e:
+                except BaseException as e:  # srjt-lint: allow-broad-except(race leg: the error is stored for the settling thread to re-raise with full taxonomy; escaping would kill the leg thread and strand the race)
                     leg_span.annotate(error=type(e).__name__)
                     with st_lock:
                         outcome["errors"][is_hedge] = e
@@ -1536,7 +1552,7 @@ class SidecarPool:
                 # healthy, and eating this would kill a live worker and
                 # lose the deadline signal
                 raise
-            except Exception as e:
+            except Exception as e:  # srjt-lint: allow-broad-except(an upload failure marks THIS worker dead and routing continues on its peers; the slab itself stays valid for the survivors)
                 self._on_worker_failure(w, e)
         return slab
 

@@ -76,13 +76,13 @@ class CancelToken:
         # this poll sits on every cancel point of every hot path: a
         # bool read is GIL-atomic, monotonic False->True, and a racing
         # reader that misses the flip just polls again one layer down
-        return self._flag
+        return self._flag  # srjt-race: allow-unguarded(lock-free cancel-point poll; GIL-atomic monotonic flag, next poll sees the flip)
 
     @property
     def reason(self) -> Optional[str]:
         # written once under _lock before _flag flips; read only after
         # cancelled() observed True
-        return self._reason
+        return self._reason  # srjt-race: allow-unguarded(written once under _lock before _flag flips; only read after cancelled() observed True)
 
 
 class Deadline:

@@ -331,7 +331,7 @@ def maybe_inject(op_name: str) -> None:
         # delay storm cannot serialize every other dispatch behind it
         # the injected delay IS the chaos payload; deadline scopes see it
         # as op latency
-        time.sleep(delay_ms / 1000.0)
+        time.sleep(delay_ms / 1000.0)  # srjt-lint: allow-blocking(the injected delay IS the chaos payload; deadline scopes observe it as op latency)
         return
     if kind == "hang":
         _hang(op_name, delay_ms)  # outside the lock, like delay
@@ -430,7 +430,7 @@ _env_cfg = _knobs.get_str("SRJTORCH_FAULTINJ_CONFIG")
 if _env_cfg:
     try:
         configure_from_file(_env_cfg)
-    except Exception as e:  # a malformed config degrades the injector, never the process
+    except Exception as e:  # srjt-lint: allow-broad-except(malformed chaos config degrades the injector, never the host process — the reference injector's stance)
         import warnings
 
         warnings.warn(f"faultinj: ignoring SRJTORCH_FAULTINJ_CONFIG ({e})", stacklevel=1)

@@ -573,6 +573,37 @@ declare("SRJTORCH_JOURNAL_FSYNC", "bool", True,
         "0 skips the per-append fsync (crash window widens to the OS "
         "page cache; replay still truncates any torn tail)")
 
+# plan verification + differential fuzzing (plan/verifier.py,
+# analysis/plancheck.py, analysis/planfuzz.py)
+declare("SRJTORCH_PLANCHECK_ROWS", "int", 256,
+        "rows bound per generator when the plancheck CLI compiles the "
+        "checked-in plans (compile-only — no execution)",
+        scope="harness", positive=True)
+declare("SRJTORCH_PLANCHECK_FUZZ_SEEDS", "str", "1234",
+        "comma-separated base seeds for the planfuzz differential "
+        "smoke; every generated plan is a pure function of "
+        "(seed, index)", scope="harness")
+declare("SRJTORCH_PLANCHECK_FUZZ_PLANS", "int", 50,
+        "plans generated per base seed by the planfuzz CLI",
+        scope="harness", minimum=1)
+
+# correctness tooling (analysis/)
+declare("SRJTORCH_LOCKDEP", "bool", False,
+        "arm the runtime lock-order instrumentation "
+        "(analysis/lockdep.py): records per-thread acquisition stacks, "
+        "reports lock-order cycles and blocking-while-locked events at "
+        "process exit")
+declare("SRJTORCH_LOCKDEP_DIR", "str", "artifacts/lockdep_torch",
+        "directory lockdep writes its per-process JSON reports into "
+        "(merged/gated by python -m "
+        "spark_rapids_jni_tpu_torch.analysis.lockdep)")
+declare("SRJTORCH_RACE", "bool", False,
+        "arm the dynamic race detector (srjt-race layer 2, rides the "
+        "lockdep shim): per-thread vector clocks over lock/Event/"
+        "Thread/Semaphore/Barrier edges; unordered accesses to tracked "
+        "state land as race_pairs in the lockdep report and fail the "
+        "merge gate")
+
 # the native runtime (runtime.py)
 declare("SRJTORCH_NATIVE_LIB", "str", None,
         "explicit libsrjt.so path (before native/build/libsrjt.so and "

@@ -81,7 +81,7 @@ class Counter:
 
     @property
     def value(self) -> int:
-        return self._value  # GIL-atomic word read
+        return self._value  # srjt-race: allow-unguarded(single machine-word stats read; GIL-atomic — a reader sees a valid pre- or post-increment value, never a tear)
 
     def _reset(self) -> None:
         with self._lock:
@@ -120,7 +120,7 @@ class Gauge:
 
     @property
     def value(self):
-        return self._value  # GIL-atomic word read
+        return self._value  # srjt-race: allow-unguarded(last-write-wins scalar; a reference read is GIL-atomic and any concurrent set is a valid value)
 
     def _reset(self) -> None:
         with self._lock:
@@ -167,7 +167,7 @@ class Histogram:
 
     @property
     def count(self) -> int:
-        return self._count  # GIL-atomic word read
+        return self._count  # srjt-race: allow-unguarded(single machine-word warm-up check; GIL-atomic, and quantile() re-reads under _lock)
 
     def quantile(self, q: float):
         """Approximate quantile read off the log2 buckets:
@@ -335,7 +335,15 @@ class Registry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics: Dict[str, object] = {}
+        # srjt-race layer 2: the registry map is tracked when
+        # SRJTORCH_RACE=1 — every metric lookup/registration is a checked
+        # access (a plain dict otherwise; analysis/lockdep is
+        # import-light, safe this early in the import order)
+        from ..analysis.lockdep import track as _race_track
+
+        self._metrics: Dict[str, object] = _race_track(
+            {}, "metrics.registry"
+        )
 
     def _get(self, name: str, cls):
         # the whole get-or-create runs under the lock; hot call sites

@@ -139,7 +139,7 @@ def profile_to(log_dir: str):
     except BaseException:
         try:
             prof.stop()
-        except Exception:  # best-effort teardown; the start error surfaces
+        except Exception:  # srjt-lint: allow-broad-except(best-effort teardown of a partially-armed profiler session; the original start_trace error is what surfaces)
             pass
         raise
     try:

@@ -1,9 +1,10 @@
 """Port: the IO slice as a whole and its harness. The harness writers
 (``tests/torch_io_writers.py``) are read back by pyarrow and must give
-the source arrays; the footer filter -> ``read_table`` ->
-``convert_to_rows`` path on a small lineitem gives the JAX package's row
-blob byte for byte; and ``chip_smoke.py``'s io checks pass on the CPU at
-a small size. Exact throughout."""
+the source arrays; both packages read the harness's lineitem file to the
+same Table; and the footer filter -> ``read_table`` -> ``convert_to_rows``
+path on it gives the JAX package's row blob byte for byte. Exact
+throughout. ``chip_smoke.py``'s io checks, on the CPU at a small size,
+are in ``test_torch_chip_smoke_io.py``."""
 
 import io
 
@@ -12,7 +13,6 @@ import pyarrow as pa
 import pyarrow.orc as paorc
 import pyarrow.parquet as pq
 import pytest
-import torch
 
 import spark_rapids_jni_tpu  # noqa: F401
 from spark_rapids_jni_tpu.io import orc_reader as jor
@@ -20,14 +20,13 @@ from spark_rapids_jni_tpu.io import parquet_footer as jpf
 from spark_rapids_jni_tpu.io import parquet_reader as jpr
 from spark_rapids_jni_tpu.ops import row_conversion as jrc
 
-from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
 from spark_rapids_jni_tpu_torch.io import orc_reader as por
 from spark_rapids_jni_tpu_torch.io import parquet_footer as ppf
 from spark_rapids_jni_tpu_torch.io import parquet_reader as ppr
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
 
-import chip_smoke
 import torch_io_writers as writers
+from torch_io_parity import assert_same_tables
 
 SMALL = dict(row_group_bytes=60_000, page_bytes=8_000, dict_bytes=3_000)
 
@@ -124,10 +123,25 @@ def test_nested_writer_reads_back_in_pyarrow():
     assert 0.03 < 1 - nd.list_valid.mean() < 0.08 and 0.03 < 1 - nd.elem_valid.mean() < 0.08
 
 
-def test_footer_read_rows_slice_matches_the_reference(lineitem):
+@pytest.fixture(scope="module")
+def lineitem_parquet(lineitem):
+    """The harness's SNAPPY lineitem file and both packages' read of it,
+    once a module: the reference's reader compiles anew for each page's
+    shape, which is most of these checks' time."""
+    data = writers.write_parquet(lineitem, "snappy", **SMALL)
+    return data, jpr.read_table(data), ppr.read_table(data, device="cpu")
+
+
+def test_harness_lineitem_file_matches_the_reference(lineitem_parquet):
+    _, jt, pt = lineitem_parquet
+    assert_same_tables(jt, pt)
+    assert pt.num_rows == 4000 and pt.num_columns == 9
+
+
+def test_footer_read_rows_slice_matches_the_reference(lineitem, lineitem_parquet):
     """The slice: every split's footer filter, read_table, convert_to_rows,
     through both packages; the row blob and offsets byte for byte."""
-    data = writers.write_parquet(lineitem, "snappy", **SMALL)
+    data, jt, pt = lineitem_parquet
     step = len(data) // 3 + 1
     for off in range(0, len(data), step):
         sj, sp = jpf.StructElement(), ppf.StructElement()
@@ -136,8 +150,6 @@ def test_footer_read_rows_slice_matches_the_reference(lineitem):
             sp.add_child(c.name, ppf.ValueElement())
         pf = ppf.read_and_filter(data, off, step, sp)
         assert pf.serialize_thrift_file() == jpf.read_and_filter(data, off, step, sj).serialize_thrift_file()
-    jt = jpr.read_table(data)
-    pt = ppr.read_table(data, device="cpu")
     jrows, prows = jrc.convert_to_rows(jt), prc.convert_to_rows(pt)
     assert len(jrows) == len(prows) == 1
     assert np.array_equal(np.asarray(jrows[0].offsets), prows[0].offsets.numpy())
@@ -151,59 +163,3 @@ def test_orc_read_rows_slice_matches_the_reference(lineitem):
     prows = prc.convert_to_rows(por.read_table(data, device="cpu"))
     assert np.array_equal(np.asarray(jrows[0].child.data).view(np.uint8),
                           prows[0].child.data.numpy().view(np.uint8))
-
-
-@pytest.fixture
-def small_chip_io(monkeypatch):
-    monkeypatch.setattr(chip_smoke, "IO_DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "IO_ROWS", 5000)
-    monkeypatch.setattr(chip_smoke, "IO_NESTED_ROWS", 2000)
-    monkeypatch.setattr(chip_smoke, "IO_SPLIT", 100_000)
-    monkeypatch.setattr(chip_smoke, "IO_SIZES", dict(SMALL, stripe_bytes=60_000, block=8192,
-                                                     rows_per_page=500))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    return chip_smoke
-
-
-def test_chip_smoke_io_checks_pass_on_the_cpu(small_chip_io):
-    cs = small_chip_io
-    cols, nd, files = cs._io_inputs(71)
-    assert set(files) == {"lineitem.parquet.snappy", "lineitem.parquet.uncompressed",
-                          "lineitem.orc.zlib", "nested.parquet.snappy"}
-    names = [c.name for c in cols]
-    for name, (buf, fmt, spans) in files.items():
-        lineitem = name.startswith("lineitem")
-        schema = cs._io_read_schema(name, cols)
-        (footers, table, rows, fr, stage), seen = cs._io_capture(
-            lambda: cs._io_path(buf, fmt, schema, lineitem))
-        if fmt == "parquet":
-            kept = cs._check_footers(footers, spans, len(cols[0]) if lineitem else 2000,
-                                     len(cols) if lineitem else 2)
-            assert sum(kept) >= 1
-        if lineitem:
-            expected = cs._io_expected(cols, fmt, pdt)
-            cs._check_flat_read(table, expected, names)
-            direct = cs._io_direct_rows(expected, names, "cpu")
-            assert torch.equal(direct[0].child.data, rows[0].child.data)
-            assert cs._check_io_calls(seen) == {k: 1 for k in cs.IO_KERNELS}
-            got = cs._check_io_frames(table, fr)
-            assert got["frame_bytes"] > got["frame_bytes_unchecked"] - 1
-        else:
-            cs._check_nested_read(table, nd)
-        assert stage["read_ms"] > 0
-
-
-def test_chip_smoke_io_checks_catch_a_wrong_column(small_chip_io):
-    cs = small_chip_io
-    cols, nd, files = cs._io_inputs(73)
-    buf, fmt, _ = files["lineitem.parquet.snappy"]
-    table = ppr.read_table(buf, device="cpu")
-    expected = cs._io_expected(cols, fmt, pdt)
-    expected[0] = (expected[0][0], expected[0][1].copy())
-    expected[0][1][17] ^= 1
-    with pytest.raises(AssertionError, match="l_quantity"):
-        cs._check_flat_read(table, expected, [c.name for c in cols])
-    nt = ppr.read_table(files["nested.parquet.snappy"][0], device="cpu")
-    nd.elem_values[3] += 1
-    with pytest.raises(AssertionError, match="nested l"):
-        cs._check_nested_read(nt, nd)

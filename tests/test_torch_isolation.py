@@ -105,6 +105,72 @@ def test_plan_tier_modules_are_walked(mod):
     assert f"{PKG}.{mod}" in _port_modules()
 
 
+@pytest.mark.parametrize("mod", ["analysis", "analysis.lint", "analysis.races",
+                                 "analysis.lockdep", "analysis.tracemerge",
+                                 "analysis.planfuzz", "analysis.plancheck"])
+def test_analysis_modules_are_walked(mod):
+    assert f"{PKG}.{mod}" in _port_modules()
+
+
+def _environ_knob_reads(path: Path):
+    """Lines that read ``os.environ`` / ``os.getenv`` with a port-knob key
+    or with a key that is not a string literal."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        key = None
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            f = node.func
+            env_get = (f.attr == "get" and isinstance(f.value, ast.Attribute)
+                       and f.value.attr == "environ")
+            if env_get or f.attr == "getenv":
+                key = node.args[0] if node.args else None
+            else:
+                continue
+        elif (isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Load)
+              and isinstance(node.value, ast.Attribute) and node.value.attr == "environ"):
+            key = node.slice
+        else:
+            continue
+        if not (isinstance(key, ast.Constant) and isinstance(key.value, str)
+                and not key.value.startswith("SRJTORCH_")):
+            out.append(node.lineno)
+    return out
+
+
+def test_only_the_bootstrap_reads_knobs_outside_the_registry():
+    hits = {}
+    for path in sorted((REPO / PKG).rglob("*.py")):
+        rel = str(path.relative_to(REPO / PKG))
+        lines = _environ_knob_reads(path)
+        if lines and rel != "utils/knobs.py":
+            hits[rel] = lines
+    assert list(hits) == ["__init__.py"] and len(hits["__init__.py"]) == 2
+    boot = (REPO / PKG / "__init__.py").read_text()
+    assert boot.count("srjt-lint: allow-environ(") == 2
+    # the bootstrap arms lockdep before any other statement of the package
+    body = ast.parse(boot).body
+    assert isinstance(body[0], ast.Expr) and isinstance(body[2], ast.If)
+    assert [(a.name, a.asname) for a in body[1].names] == [("os", "_os")]
+
+
+def test_bootstrap_arms_lockdep_before_any_package_lock(tmp_path):
+    code = (
+        "import threading\n"
+        f"import {PKG} as p, {PKG}.utils.metrics as m\n"
+        f"from {PKG}.memgov.catalog import BufferCatalog\n"
+        f"from {PKG}.analysis import lockdep\n"
+        "print(lockdep.is_installed(), lockdep.race_armed(), type(m.registry()._metrics).__name__,\n"
+        "      type(BufferCatalog()._lock).__name__)\n"
+        "lockdep.uninstall()\n"
+    )
+    res = _run(code, SRJTORCH_RACE="1", SRJTORCH_LOCKDEP_DIR=str(tmp_path / "ld"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["True", "True", "_TrackedDict", "_TrackedLock"]
+    res = _run(code.replace("lockdep.uninstall()\n", ""))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "False", "dict", "RLock"]
+
+
 def test_plan_generators_raise_without_a_card(monkeypatch):
     from spark_rapids_jni_tpu_torch.models import tpcds_plans
 

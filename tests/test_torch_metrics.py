@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 
 from spark_rapids_jni_tpu.utils import metrics as rm
+from spark_rapids_jni_tpu.utils import retry as rretry
 from spark_rapids_jni_tpu_torch.utils import metrics as pm
+from spark_rapids_jni_tpu_torch.utils import retry as pretry
 
 SEED = 1414
 
@@ -81,15 +83,22 @@ def test_keyed_ewma_matches():
 
 @pytest.fixture
 def fresh():
-    """Both process registries zeroed, the gates restored afterwards."""
+    """Both process registries and retry tallies zeroed (an earlier test
+    in the same process may have retried), the gates restored
+    afterwards."""
     prev = (pm.is_enabled(), rm.is_enabled())
-    pm.reset()
-    rm.reset()
+    _zero()
     yield
     for mod, on in zip((pm, rm), prev):
         (mod.enable if on else mod.disable)()
+    _zero()
+
+
+def _zero():
     pm.reset()
     rm.reset()
+    pretry.reset_stats()
+    rretry.reset_stats()
 
 
 def _gated_sequence(mod):

@@ -1,7 +1,11 @@
 """Port: the parquet reader (``io/parquet_reader.read_table``) against the
 JAX package's on pyarrow-written files: flat types, nulls, dictionary and
 PLAIN, v1 and v2 pages, every codec the reference reads, nested lists,
-structs and maps, column selection, and the harness writers' files.
+structs and maps, column selection, and the harness writers' files
+(nested lists, structs and maps, and the harness's nested file, are in
+``test_torch_parquet_reader_nested.py``, which reads through ``both``
+here; the harness's lineitem file in ``test_torch_io_path.py``, which
+reads it once for all its checks).
 Exact: both readers' Tables column by column, every array's dtype, shape
 and bytes (``torch_io_parity``), except where the reference is at fault
 (an all-null or empty fixed-width chunk, an empty STRING chunk), which
@@ -23,7 +27,7 @@ from spark_rapids_jni_tpu_torch.io import codecs
 from spark_rapids_jni_tpu_torch.io import parquet_reader as ppr
 
 import torch_io_writers as writers
-from torch_io_parity import assert_same_host, assert_same_tables, jax_host, port_host
+from torch_io_parity import assert_same_tables
 
 
 def write(table, **kw):
@@ -141,56 +145,6 @@ def test_empty_string_chunk_reads_where_the_reference_raises():
     assert len(pc) == 0 and pc.chars.numel() == 0 and pc.offsets.tolist() == [0]
 
 
-NESTED = {
-    "list_of_int": pa.table({"l": pa.array([[1, 2, 3], [], None, [4], [None, 5]],
-                                           pa.list_(pa.int64()))}),
-    "list_of_strings": pa.table({"l": pa.array([["a", "bb"], None, [], ["", None, "ccc"]],
-                                               pa.list_(pa.string()))}),
-    "struct_flat": pa.table({"s": pa.array(
-        [{"a": 1, "b": "x"}, None, {"a": None, "b": "z"}, {"a": 4, "b": None}],
-        pa.struct([("a", pa.int32()), ("b", pa.string())]))}),
-    "struct_of_list": pa.table({"s": pa.array(
-        [{"v": [1, 2]}, {"v": None}, None, {"v": []}, {"v": [None, 3]}],
-        pa.struct([("v", pa.list_(pa.int64()))]))}),
-    "list_of_struct": pa.table({"l": pa.array(
-        [[{"a": 1}, {"a": None}], [], None, [{"a": 7}]],
-        pa.list_(pa.struct([("a", pa.int64())])))}),
-    "list_of_list": pa.table({"ll": pa.array(
-        [[[1], [2, 3]], [], None, [None, [4, None]], [[]]], pa.list_(pa.list_(pa.int32())))}),
-    "map": pa.table({"m": pa.array([[("k1", 1), ("k2", 2)], [], None, [("k3", None)]],
-                                    pa.map_(pa.string(), pa.int64()))}),
-    "struct_all_null": pa.table({"s": pa.array([None, None], pa.struct([("a", pa.int32())]))}),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NESTED))
-@pytest.mark.parametrize("v2", [False, True])
-def test_nested_columns_match_the_reference(case, v2):
-    kw = dict(data_page_version="2.0") if v2 else {}
-    both(write(NESTED[case], **kw))
-
-
-def test_deep_nesting_across_row_groups(rng):
-    rows = []
-    for _ in range(300):
-        r = int(rng.integers(0, 6))
-        rows.append(None if r == 0 else [
-            {"tags": None if rng.integers(0, 5) == 0 else
-             [f"t{int(x)}" for x in rng.integers(0, 9, int(rng.integers(0, 3)))],
-             "n": None if rng.integers(0, 5) == 0 else int(rng.integers(0, 100))}
-            for _ in range(int(rng.integers(0, 3)))])
-    typ = pa.list_(pa.struct([("tags", pa.list_(pa.string())), ("n", pa.int64())]))
-    t = pa.table({"events": pa.array(rows, typ), "id": pa.array(range(300), pa.int64())})
-    both(write(t, row_group_size=64))
-
-
-def test_nested_next_to_flat_selection():
-    t = pa.table({"flat": pa.array([1, 2, 3], pa.int32()),
-                  "l": pa.array([[1], [], [2, 3]], pa.list_(pa.int32()))})
-    jt, pt = both(write(t), columns=["l"])
-    assert pt.names == ["l"]
-
-
 def test_lz4_hadoop_framing_matches_the_reference():
     plain = b"spark-rapids-jni-tpu hadoop lz4 framing " * 40
     half = len(plain) // 2
@@ -259,16 +213,3 @@ def test_dictionary_take_clamps_out_of_range_indices_like_jax():
     got = d.take(torch.tensor([0, 2, 9, -1], dtype=torch.int32))
     assert got.lens.tolist() == [1, 3, 3, 1]
     assert bytes(got.chars.numpy()) == b"acccccca"
-
-
-def test_harness_lineitem_file_matches_the_reference():
-    cols = writers.lineitem_columns(3000, 41)
-    data = writers.write_parquet(cols, "snappy", row_group_bytes=50_000, page_bytes=6_000,
-                                 dict_bytes=2_000)
-    jt, pt = both(data)
-    assert pt.num_rows == 3000 and pt.num_columns == 9
-
-
-def test_harness_nested_file_matches_the_reference():
-    nd = writers.nested_data(2000, 43)
-    both(writers.write_parquet_nested(nd, None, rows_per_page=300))

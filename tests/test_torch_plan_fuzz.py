@@ -68,7 +68,16 @@ def _fuzz_one(plan_seed):
 SEEDS = [1234 * 100003 + i for i in range(24)]
 
 
-@pytest.mark.parametrize("plan_seed", SEEDS)
+# one seed over 20 s alone runs with -m slow; the other 23 stay in tier 1
+SLOW_SEEDS = (1234 * 100003 + 16,)
+
+
+def seed_params(seeds):
+    return [pytest.param(s, marks=pytest.mark.slow) if s in SLOW_SEEDS else s for s in seeds]
+
+
+# the first twelve plans here, the other twelve in test_torch_plan_fuzz_more.py
+@pytest.mark.parametrize("plan_seed", seed_params(SEEDS[:12]))
 def test_fuzzed_plan_matches_reference(plan_seed):
     _fuzz_one(plan_seed)
 

@@ -381,7 +381,9 @@ def _exec_plans(P):
     }
 
 
-@pytest.mark.parametrize("name", sorted(_exec_plans(JP)))
+# "composite" takes over 20 s alone: it runs with -m slow, the other plans stay in tier 1
+@pytest.mark.parametrize("name", [pytest.param(n, marks=pytest.mark.slow) if n == "composite"
+                                  else n for n in sorted(_exec_plans(JP))])
 def test_compiled_plan_matches_reference(tabs, name):
     jt, pt = tabs
     pcp, jcp = compile_both(_exec_plans(JP)[name], jt, pt, name=name)

@@ -1,11 +1,12 @@
-"""Port: the plan tier's TPC-DS queries over ``gen_channels`` (q10, q35,
-q38, q69, q87: INTERSECT / EXCEPT chains and EXISTS / NOT EXISTS)
-against the JAX package. For each query the optimized plan's
-``structure()``, the rewrites fired, the obligations, the fingerprint,
-every stage's kind and estimates, and the result bits equal the
-reference's, and the port's rewrite is idempotent. The JAX package's own
-tests hold these results to pandas and exact ``Fraction`` oracles, so
-parity inherits them. The sweep at the reference's oracle scale
+"""Port: the plan tier's TPC-DS EXISTS / NOT EXISTS queries over
+``gen_channels`` (q10, q35, q69) against the JAX package; the INTERSECT /
+EXCEPT chains over the same generator are in
+``test_torch_plan_queries_setops.py``. For each query the optimized
+plan's ``structure()``, the rewrites fired, the obligations, the
+fingerprint, every stage's kind and estimates, and the result bits equal
+the reference's, and the port's rewrite is idempotent. The JAX package's
+own tests hold these results to pandas and exact ``Fraction`` oracles,
+so parity inherits them. The sweep at the reference's oracle scale
 (``PlanQueryDef.rows``) is slow."""
 
 import pytest
@@ -14,7 +15,7 @@ from spark_rapids_jni_tpu.models import tpcds_plans as jtp
 
 from torch_plan_parity import check_registry_query
 
-QUERIES = ["q10", "q35", "q38", "q69", "q87"]
+QUERIES = ["q10", "q35", "q69"]
 ROWS = 2000
 
 

@@ -1,6 +1,7 @@
 """Port: ops/regex's capture-group and replace runtimes (extract_re,
 replace_re) against the JAX package's. Each case of ``test_regex.py``'s
-EXTRACT_CASES and REPLACE_CASES runs ONCE through each package on one
+EXTRACT_CASES (here) and REPLACE_CASES (``test_torch_regex_replace.py``,
+on this module's corpus) runs ONCE through each package on one
 shared corpus (every battery string, malformed UTF-8, empty and null
 rows); offsets, chars and validity must be equal bit for bit, and the
 valid-UTF-8 rows must agree with Python's ``re`` under ``re.ASCII``. The
@@ -16,7 +17,7 @@ from spark_rapids_jni_tpu.ops import regex as J
 
 from spark_rapids_jni_tpu_torch.ops import regex as P
 
-from test_regex import EXTRACT_CASES, REPLACE_CASES
+from test_regex import EXTRACT_CASES
 from torch_string_parity import columns, corpus_text, regex_columns, rows_of, same_result
 
 # the card path's extract pattern: groups 0, 1 and 2
@@ -38,16 +39,6 @@ def test_extract_re_matches_jax(corpus, pattern, group):
     for i, s in corpus_text():
         m = re.search(pattern, s, re.ASCII)
         assert rows[i].decode() == (m.group(group) if m else ""), (pattern, group, s)
-
-
-@pytest.mark.parametrize("pattern,rep", REPLACE_CASES + [(r"^a", "-")])
-def test_replace_re_matches_jax(corpus, pattern, rep):
-    jc, pc = corpus
-    got = P.replace_re(pc, pattern, rep.encode())
-    same_result(got, J.replace_re(jc, pattern, rep.encode()), pattern)
-    rows = rows_of(got)
-    for i, s in corpus_text():
-        assert rows[i].decode() == re.sub(pattern, rep, s, flags=re.ASCII), (pattern, s)
 
 
 def test_zero_rows_and_all_null_match_jax():

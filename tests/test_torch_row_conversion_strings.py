@@ -3,7 +3,11 @@
 the same seeded tables: row blobs and offsets byte-identical, decoded
 columns (fixed data, string offsets and chars, validity) bit-identical.
 The port runs on CPU tensors, so B5 and B6-B10 run as their plain
-versions."""
+versions. The input classes (empty, all-null, UTF-8, long strings, ...),
+the scatter path and the rows each package decodes from the other's are
+in ``test_torch_row_conversion_string_classes.py``, the batch split and
+the grouped decode in ``test_torch_row_conversion_string_batches.py``;
+both take their inputs and checks from here."""
 
 import numpy as np
 import pytest
@@ -16,7 +20,7 @@ from spark_rapids_jni_tpu.columnar import Table as JTable
 from spark_rapids_jni_tpu.columnar import dtype as jdt
 from spark_rapids_jni_tpu.ops import row_conversion as jrc
 
-from spark_rapids_jni_tpu_torch.columnar import Column, dtype as pdt
+from spark_rapids_jni_tpu_torch.columnar import dtype as pdt
 from spark_rapids_jni_tpu_torch.interop import carry_table
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
 
@@ -82,6 +86,21 @@ def _make(rng, names, n, nulls_every=3, lo=1, hi=32, utf8=False, all_null=()):
     return JTable(cols), carry_table(arrays, pd, valids, device="cpu"), jd, pd
 
 
+_CASES = {}
+
+
+def _case(names, n, **opts):
+    """``_make`` on a generator seeded as conftest's ``rng`` is, with the
+    JAX package's rows of the table: (JAX Table, port Table, dtypes,
+    JAX rows), made once a module for each input, so that the encode and
+    decode checks of one input share the reference's encode."""
+    key = (tuple(names), n, tuple(sorted(opts.items())))
+    if key not in _CASES:
+        jt, pt, jd, pd = _make(np.random.default_rng(12345), names, n, **opts)
+        _CASES[key] = (jt, pt, jd, pd, jrc.convert_to_rows(jt))
+    return _CASES[key]
+
+
 def _blob(col):
     return np.asarray(col.child.data).view(np.uint8)
 
@@ -119,46 +138,14 @@ def _round(jt, pt, jd, pd):
 
 # n = 1 and 7 keep the fixed-section gather off the kernel, 8 puts it on
 @pytest.mark.parametrize("n", [1, 7, 8, 300])
-def test_mixed_schema_encode_identical(rng, n):
-    jt, pt, _, _ = _make(rng, MIXED, n)
-    _assert_rows_equal(jrc.convert_to_rows(jt), prc.convert_to_rows(pt))
+def test_mixed_schema_encode_identical(n):
+    _, pt, _, _, jrows = _case(MIXED, n)
+    _assert_rows_equal(jrows, prc.convert_to_rows(pt))
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 300])
-def test_mixed_schema_decode_identical(rng, n):
-    jt, pt, jd, pd = _make(rng, MIXED, n)
-    jrows, prows = jrc.convert_to_rows(jt), prc.convert_to_rows(pt)
-    _assert_tables_equal(jrc.convert_from_rows(jrows[0], jd), prc.convert_from_rows(prows[0], pd))
-
-
-# input classes: (column names, rows, _make options)
-CLASSES = {
-    "empty_strings": (["INT32", "STRING", "INT64", "STRING"], 40, dict(lo=0, hi=0)),
-    "some_empty": (["STRING", "FLOAT64", "STRING"], 90, dict(lo=0, hi=3)),
-    "all_null_column": (["INT16", "STRING", "STRING", "INT32"], 50, dict(all_null=(1,))),
-    "every_column_string": (["STRING"] * 6, 70, dict(lo=0, hi=20)),
-    "tail_lane": (["INT32", "STRING", "INT8"], 45, {}),  # fixed_end 14
-    "tail_lane_3": (["STRING", "INT8", "INT8"], 45, {}),  # fixed_end 11
-    "utf8": (["STRING", "INT64", "STRING"], 60, dict(utf8=True, lo=0, hi=9)),
-    "long_strings": (["INT64", "STRING", "STRING"], 30, dict(lo=100, hi=700)),
-    "decimal_and_bool": (["DECIMAL128", "STRING", "BOOL8", "UINT16", "STRING"], 33, {}),
-    "one_string_column": (["STRING"], 64, dict(nulls_every=1)),
-    "wide_with_nulls": (MIXED, 120, dict(nulls_every=2, lo=0, hi=32)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(CLASSES))
-def test_input_class_encode_identical(rng, case):
-    names, n, opts = CLASSES[case]
-    jt, pt, _, _ = _make(rng, names, n, **opts)
-    _assert_rows_equal(jrc.convert_to_rows(jt), prc.convert_to_rows(pt))
-
-
-@pytest.mark.parametrize("case", sorted(CLASSES))
-def test_input_class_decode_identical(rng, case):
-    names, n, opts = CLASSES[case]
-    jt, pt, jd, pd = _make(rng, names, n, **opts)
-    jrows = jrc.convert_to_rows(jt)
+def test_mixed_schema_decode_identical(n):
+    _, pt, jd, pd, jrows = _case(MIXED, n)
     prows = prc.convert_to_rows(pt)
     _assert_tables_equal(jrc.convert_from_rows(jrows[0], jd), prc.convert_from_rows(prows[0], pd))
 
@@ -181,89 +168,6 @@ def test_round_trip_restores_inputs(rng):
             assert torch.equal(b.offsets, a.offsets) and torch.equal(b.chars, a.chars)
         else:
             np.testing.assert_array_equal(b.to_numpy().view(np.uint8), a.to_numpy().view(np.uint8))
-
-
-@pytest.mark.parametrize("ceiling,batches", [(5000, 3), (9000, 2)])
-def test_batch_split_with_strings(rng, monkeypatch, ceiling, batches):
-    # a small batch ceiling in both packages: the 2 GiB split runs at toy
-    # size (rows of about 72 bytes, 200 of them)
-    monkeypatch.setattr(jrc, "MAX_BATCH_BYTES", ceiling)
-    monkeypatch.setattr(prc, "MAX_BATCH_BYTES", ceiling)
-    jt, pt, jd, pd = _make(rng, ["INT64", "STRING", "INT32", "STRING"], 200, lo=0, hi=40)
-    _, prows = _round(jt, pt, jd, pd)
-    assert len(prows) == batches
-
-
-@pytest.mark.parametrize("case", ["wide_with_nulls", "tail_lane", "utf8", "all_null_column"])
-def test_scatter_path_identical(rng, monkeypatch, case):
-    # the size gate sends every table to the scatter path; the JAX package
-    # takes its padded path, and the blobs must still agree
-    monkeypatch.setattr(prc, "_PADDED_ROWS_BYTE_BUDGET", 0)
-    names, n, opts = CLASSES[case]
-    jt, pt, jd, pd = _make(rng, names, n, **opts)
-    called = []
-    real = prc._encode_strings_scatter
-    monkeypatch.setattr(prc, "_encode_strings_scatter", lambda *a: called.append(1) or real(*a))
-    _round(jt, pt, jd, pd)
-    assert called
-
-
-def test_grouped_decode_string_column(rng):
-    jt, pt, jd, pd = _make(rng, MIXED[:12], 150)
-    jg = jrc.convert_from_rows_grouped(jrc.convert_to_rows(jt)[0], jd)
-    pg = prc.convert_from_rows_grouped(prc.convert_to_rows(pt)[0], pd)
-    assert list(pg.groups) == list(jg.groups)
-    for key in jg.groups:
-        np.testing.assert_array_equal(pg.groups[key].numpy().view(np.uint8),
-                                      np.asarray(jg.groups[key]).view(np.uint8), err_msg=key)
-    for i in (0, 10):
-        a, b = jg.column(i), pg.column(i)
-        np.testing.assert_array_equal(b.offsets.numpy(), np.asarray(a.offsets))
-        np.testing.assert_array_equal(b.chars.numpy(), np.asarray(a.chars))
-        np.testing.assert_array_equal(b.valid_mask().numpy(), np.asarray(a.valid_mask()))
-
-
-def test_grouped_to_table_with_strings(rng):
-    jt, pt, jd, pd = _make(rng, ["STRING", "INT32", "STRING"], 77, lo=0)
-    jg = jrc.convert_from_rows_grouped(jrc.convert_to_rows(jt)[0], jd)
-    pg = prc.convert_from_rows_grouped(prc.convert_to_rows(pt)[0], pd)
-    _assert_tables_equal(jg.to_table(), pg.to_table())
-
-
-def _port_rows(jrows):
-    offs = torch.from_numpy(np.asarray(jrows.offsets).copy())
-    child = Column(pdt.INT8, data=torch.from_numpy(_blob(jrows).view(np.int8).copy()))
-    return Column.list_from_parts(offs, child)
-
-
-@pytest.mark.parametrize("case", ["wide_with_nulls", "utf8", "empty_strings"])
-def test_jax_rows_decoded_by_port(rng, case):
-    names, n, opts = CLASSES[case]
-    jt, _, jd, pd = _make(rng, names, n, **opts)
-    jrows = jrc.convert_to_rows(jt)[0]
-    _assert_tables_equal(jrc.convert_from_rows(jrows, jd), prc.convert_from_rows(_port_rows(jrows), pd))
-
-
-@pytest.mark.parametrize("case", ["wide_with_nulls", "long_strings", "every_column_string"])
-def test_port_rows_decoded_by_jax(rng, case):
-    names, n, opts = CLASSES[case]
-    jt, pt, jd, _ = _make(rng, names, n, **opts)
-    prows = prc.convert_to_rows(pt)[0]
-    jrows = JColumn.list_from_parts(
-        jnp.asarray(prows.offsets.numpy()),
-        JColumn(jdt.INT8, data=jnp.asarray(prows.child.data.numpy())))
-    _assert_tables_equal(jrc.convert_from_rows(jrows, jd), _as_port_table(jt))
-
-
-def _as_port_table(jt):
-    """A JAX table as it must come back: the input itself."""
-    return carry_table(
-        [(np.asarray(c.offsets), np.asarray(c.chars)) if c.dtype.id == jdt.TypeId.STRING
-         else np.asarray(c.data) for c in jt.columns],
-        _dtypes([c.dtype.id.name if c.dtype.id != jdt.TypeId.DECIMAL128 else "DECIMAL128"
-                 for c in jt.columns])[1],
-        [None if c.validity is None else np.asarray(c.validity) for c in jt.columns],
-        device="cpu")
 
 
 def test_empty_table_with_strings(rng):

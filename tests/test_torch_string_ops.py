@@ -5,7 +5,9 @@ trim, instr) and the edge inputs (no rows, every row null, every row
 empty, malformed UTF-8) run through both packages on the CPU, where
 ``to_padded`` and ``from_padded`` run the plain versions of B8 and B5;
 INT32 / BOOL8 data, validity, offsets and chars must be equal bit for
-bit. The error cases raise where the JAX package raises."""
+bit. The error cases raise where the JAX package raises. The case maps
+are in ``test_torch_string_case_maps.py``, the chip_smoke.py oracles of
+the string_ops path in ``test_torch_string_ops_oracles.py``."""
 
 import numpy as np
 import pytest
@@ -44,24 +46,6 @@ def test_length_matches_jax():
     _both("length", UNICODE)
 
 
-@pytest.mark.parametrize("fn", ["upper", "lower"])
-@pytest.mark.parametrize("corpus", ["samples", "unicode", "malformed"])
-def test_case_maps_match_jax(fn, corpus):
-    values = {"samples": SAMPLES, "unicode": UNICODE, "malformed": MALFORMED}[corpus]
-    got = _both(fn, values)
-    if corpus != "malformed":  # Python's 1:1 BMP mapping, as the reference builds it
-        want = [None if s is None else "".join(
-            m if len(m) == 1 else c for c, m in ((c, getattr(c, fn)()) for c in s))
-            for s in values]
-        assert [None if r is None else r.decode() for r in rows_of(got)] == want
-
-
-def test_ascii_upper_wraps_in_uint8():
-    # the byte path adds 224 (-32 mod 256) in uint8, as the reference does
-    got = _both("upper", ["az{`AZ", "~"])
-    assert rows_of(got) == [b"AZ{`AZ", b"~"]
-
-
 @pytest.mark.parametrize(
     "start,slen",
     [(1, 3), (2, None), (0, 2), (-3, 2), (-100, None), (5, 100), (100, 5), (-10, 3), (-6, 3)],
@@ -76,14 +60,6 @@ def test_substring_counts_bytes_like_the_reference():
     # length('ça') is 3, where Spark gives 'ç' and 2
     assert rows_of(_both("substring", ["ça va"], 1, 1)) == [b"\xc3"]
     assert _both("length", ["ça"]).data.tolist() == [3]
-
-
-def test_case_map_is_one_to_one_like_the_reference():
-    # a fault of the reference against Spark (ROADMAP section 3): the case
-    # maps are 1:1 over the BMP, so 'ß' stays 'ß' (Spark: 'SS') and a
-    # final capital sigma lowers to 'σ' (Spark: 'ς')
-    assert rows_of(_both("upper", ["straße"])) == ["STRAßE".encode()]
-    assert rows_of(_both("lower", ["ΟΔΟΣ"])) == ["οδοσ".encode()]
 
 
 def test_concat_with_separator_matches_jax():
@@ -227,22 +203,3 @@ def test_concat_argument_errors_match_jax():
         with pytest.raises(ValueError) as got:
             P.concat(*pargs)
         assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("seed", [7, 2026])
-def test_chip_smoke_oracles_agree_with_the_port(monkeypatch, seed):
-    # the per-row oracles chip_smoke.py holds the card's string_ops path to,
-    # on a small table of its columns, against the port on the CPU
-    import chip_smoke
-
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    h, t = chip_smoke._string_ops_inputs(seed, 1500, device="cpu")
-    (out, _), seen8, seen5, _, predicted = chip_smoke._capture_string_ops(
-        lambda: chip_smoke._spark_exact_path(chip_smoke._string_ops(t)))
-    assert predicted == {"extract_strings_many": len(seen8), "ragged_compact_many": len(seen5)}
-    summary = chip_smoke._check_string_ops(h, out)
-    # the multilingual column reaches every class of the reference's
-    # differences from Spark (ROADMAP section 3)
-    for k in ("length_multi_spark_differs", "substring_multi_spark_differs",
-              "upper_multi_spark_differs", "lower_multi_spark_differs"):
-        assert summary[k] > 0, k

@@ -6,7 +6,10 @@ shards repeating the ``cpu`` device. Every output table is held bit for
 bit (names, types, data bits, validity, row order, STRING offsets and
 chars), overflow flags exactly: the group-by's FLOAT64 sums, means and
 extrema go through the exact accumulator, so they are bit-identical too.
-No FLOAT32 value is aggregated here."""
+No FLOAT32 value is aggregated here. ``distributed_groupby_table`` is in
+``test_torch_table_ops_groupby.py``, ``distributed_join_table`` in
+``test_torch_table_ops_join.py``; both take the meshes, the inputs and
+the checks from here."""
 
 import numpy as np
 import pytest
@@ -128,153 +131,6 @@ def test_exchange_table_nullable_string_key(meshes, rng):
     jout, jovf = jops.exchange_table(jt, ["s"], jm)
     pout, povf = pops.exchange_table(pt, ["s"], pm)
     assert povf is jovf is False
-    _assert_tables_equal(pout, jout)
-
-
-# -- distributed_groupby_table --------------------------------------------------------------
-
-AGGS = ("sum", "count", "min", "max", "mean")
-
-
-@pytest.mark.parametrize("val_tn", ["INT32", "INT64", "UINT64", "FLOAT64"])
-@pytest.mark.parametrize("keys", ["int", "string"])
-def test_distributed_groupby_table_matches_reference(meshes, rng, keys, val_tn):
-    jm, pm = meshes
-    k1 = rng.integers(0, 13, N)
-    if keys == "int":
-        key_specs = [("k1", "INT64", k1.astype(np.int64), None),
-                     ("k2", "INT32", rng.integers(0, 3, N).astype(np.int32), rng.random(N) > 0.1)]
-    else:
-        key_specs = [("k1", "STRING", [f"grp_{int(k)}" for k in k1], None)]
-    vvalid = rng.random(N) > 0.25
-    vvalid[k1 == 12] = False  # group 12's values are all null
-    jt, pt = _tables(key_specs + [("v", val_tn, _values(rng, val_tn, N), vvalid)])
-    key_names = [s[0] for s in key_specs]
-    aggs = [("v", how, f"v_{how}") for how in AGGS]
-    # the reference cannot take UINT64's min: its fill, 2^64 - 1, overflows
-    # the jitted call's argument (ROADMAP.md section 3); the port's min is
-    # held against numpy below instead
-    jaggs = [a for a in aggs if not (val_tn == "UINT64" and a[1] == "min")]
-    jout, jovf = jops.distributed_groupby_table(jt, key_names, jaggs, jm)
-    pout, povf = pops.distributed_groupby_table(pt, key_names, aggs, pm)
-    assert povf is jovf is False
-    _assert_tables_equal(pout.select(key_names + [a[2] for a in jaggs]), jout)
-    if val_tn == "UINT64":
-        with pytest.raises(jerr.DeviceError, match="overflow"):
-            jops.distributed_groupby_table(jt, key_names, [("v", "min", "m")], jm)
-        vals = pt.column("v").to_numpy().view(np.uint64)
-        kcols = [pt.column(k).to_pylist() for k in key_names]
-        want = {}
-        for i, key in enumerate(zip(*kcols)):
-            if vvalid[i]:
-                want[key] = min(want.get(key, vals[i]), vals[i])
-        got = dict(zip(zip(*[pout.column(k).to_pylist() for k in key_names]),
-                       pout.column("v_min").to_pylist()))
-        assert {k: v for k, v in got.items() if v is not None} == {
-            k: int(v) for k, v in want.items()}
-    # Spark: an all-null group's aggregates are null, its count 0
-    d = pout.to_pydict()
-    all_null = [i for i, k in enumerate(d["k1"]) if k in (12, "grp_12")]
-    assert all_null and all(d["v_count"][i] == 0 for i in all_null)
-    for how in ("sum", "min", "max", "mean"):
-        assert all(d[f"v_{how}"][i] is None for i in all_null)
-
-
-def test_distributed_groupby_table_escalates_capacity(meshes, rng):
-    jm, pm = meshes
-    # one hot key: the skew-aware default capacity overflows, and the
-    # defaulted call re-runs once at the capacity that cannot
-    keys = np.where(rng.random(N) < 0.7, 5, rng.integers(0, 50, N)).astype(np.int64)
-    jt, pt = _tables([("k", "INT64", keys, None),
-                      ("v", "INT32", rng.integers(0, 100, N).astype(np.int32), None)])
-    aggs = [("v", "sum", "s"), ("v", "max", "mx")]
-    jout, jovf = jops.distributed_groupby_table(jt, ["k"], aggs, jm)
-    pout, povf = pops.distributed_groupby_table(pt, ["k"], aggs, pm)
-    assert povf is jovf is False
-    _assert_tables_equal(pout, jout)
-    # an explicit capacity does not escalate: the flag comes back
-    jout, jovf = jops.distributed_groupby_table(jt, ["k"], aggs, jm, capacity=16)
-    pout, povf = pops.distributed_groupby_table(pt, ["k"], aggs, pm, capacity=16)
-    assert povf is jovf is True
-
-
-def test_distributed_groupby_table_refusals(meshes):
-    _, pm = meshes
-    _, pt = _tables([("k", "INT32", np.arange(16, dtype=np.int32), None),
-                     ("s", "STRING", ["a"] * 16, None)])
-    with pytest.raises(ValueError, match="unknown agg"):
-        pops.distributed_groupby_table(pt, ["k"], [("k", "median", "m")], pm)
-    with pytest.raises(ValueError, match="STRING"):
-        pops.distributed_groupby_table(pt, ["k"], [("s", "sum", "x")], pm)
-
-
-# -- distributed_join_table -----------------------------------------------------------------
-
-
-def test_distributed_join_inner_multikey(meshes, rng):
-    jm, pm = meshes
-    nl, nr = 700, 300
-    jl, pl = _tables([("a", "INT32", rng.integers(0, 20, nl).astype(np.int32), None),
-                      ("b", "INT64", rng.integers(0, 4, nl).astype(np.int64), None),
-                      ("lv", "FLOAT64", rng.standard_normal(nl), rng.random(nl) > 0.1)])
-    jr, pr = _tables([("a", "INT32", rng.integers(0, 20, nr).astype(np.int32),
-                       rng.random(nr) > 0.1),  # null keys never match
-                      ("b", "INT64", rng.integers(0, 4, nr).astype(np.int64), None),
-                      ("rv", "INT32", rng.integers(0, 1000, nr).astype(np.int32), None),
-                      ("lv", "INT32", rng.integers(0, 9, nr).astype(np.int32), None)])
-    jout, jovf = jops.distributed_join_table(jl, jr, on=["a", "b"], mesh=jm, how="inner")
-    pout, povf = pops.distributed_join_table(pl, pr, on=["a", "b"], mesh=pm, how="inner")
-    assert povf is jovf is False
-    assert pout.names == ["a", "b", "lv", "rv", "lv_right"]
-    _assert_tables_equal(pout, jout)
-
-
-@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
-def test_distributed_join_semi_anti(meshes, rng, how):
-    jm, pm = meshes
-    nl, nr = 500, 120
-    lk = rng.integers(0, 40, nl).astype(np.int64)
-    rk = rng.integers(0, 25, nr).astype(np.int64)
-    jl, pl = _tables([("k", "INT64", lk, None),
-                      ("v", "INT32", rng.integers(0, 1000, nl).astype(np.int32), None)])
-    jr, pr = _tables([("k", "INT64", rk, None)])
-    jout, jovf = jops.distributed_join_table(jl, jr, on=["k"], mesh=jm, how=how)
-    pout, povf = pops.distributed_join_table(pl, pr, on=["k"], mesh=pm, how=how)
-    assert povf is jovf is False
-    _assert_tables_equal(pout, jout)
-    keep = np.isin(lk, rk) if how == "left_semi" else ~np.isin(lk, rk)
-    assert sorted(pout.column("k").to_pylist()) == sorted(lk[keep].tolist())
-
-
-def test_distributed_join_string_key(meshes, rng):
-    jm, pm = meshes
-    lk = [f"u{int(x)}" for x in rng.integers(0, 15, 200)]
-    rk = [f"u{int(x)}" for x in rng.integers(0, 9, 60)]
-    jl, pl = _tables([("k", "STRING", lk, None),
-                      ("v", "INT32", np.arange(200, dtype=np.int32), None)])
-    jr, pr = _tables([("k", "STRING", rk, None)])
-    # one shared dictionary for both sides' keys, decoded on the way out
-    jout, jovf = jops.distributed_join_table(jl, jr, on=["k"], mesh=jm, how="inner")
-    pout, povf = pops.distributed_join_table(pl, pr, on=["k"], mesh=pm, how="inner")
-    assert povf is jovf is False
-    _assert_tables_equal(pout, jout)
-    assert sorted(zip(pout.column("k").to_pylist(), pout.column("v").to_pylist())) == sorted(
-        (lkey, i) for i, lkey in enumerate(lk) for r in rk if r == lkey)
-    with pytest.raises(ValueError, match="not supported"):
-        pops.distributed_join_table(pl, pr, on=["k"], mesh=pm, how="full")
-
-
-def test_distributed_join_escalates_out_capacity(meshes):
-    jm, pm = meshes
-    # every left row matches every right row: the default output capacity
-    # overflows and the defaulted join re-runs 4x larger
-    jl, pl = _tables([("k", "INT32", np.zeros(64, np.int32), None),
-                      ("v", "INT32", np.arange(64, dtype=np.int32), None)])
-    jr, pr = _tables([("k", "INT32", np.zeros(24, np.int32), None),
-                      ("w", "INT32", np.arange(24, dtype=np.int32), None)])
-    jout, jovf = jops.distributed_join_table(jl, jr, on=["k"], mesh=jm)
-    pout, povf = pops.distributed_join_table(pl, pr, on=["k"], mesh=pm)
-    assert povf is jovf
     _assert_tables_equal(pout, jout)
 
 

@@ -4,7 +4,9 @@ and q6 on the operator tier and through the compiled pipeline give the
 same result bits as the reference's, at a few thousand rows, on the
 adversarial magnitudes of the reference's own test (prices spanning 18
 decades), and the compiled tier equals the operator tier bit for bit.
-Exact sums are also held against rational oracles (``fractions``)."""
+Exact sums are also held against rational oracles (``fractions``). q6's
+checks are in ``test_torch_tpch_q6.py``, which takes its lineitem from
+here."""
 
 from fractions import Fraction
 
@@ -111,14 +113,6 @@ def test_q1_bit_identical(n, seed, delta):
     _assert_tables_equal(ptpch.q1(pl, delta_days=delta), jtpch.q1(jl, delta_days=delta))
 
 
-@pytest.mark.parametrize("n,seed", [(3000, 5), (20_000, 6), (50, 1)])
-def test_q6_bit_identical(n, seed):
-    jl, pl = _lineitem(n, seed)
-    got = ptpch.q6(pl)
-    assert got == jtpch.q6(jl)
-    assert pcomp.q6_fused(pl) == got == jcomp.q6_fused(jl)
-
-
 @pytest.mark.parametrize("n,seed", [(8000, 22)])
 def test_q1_fused_bit_identical(n, seed):
     jl, pl = _lineitem(n, seed)
@@ -201,25 +195,6 @@ def test_fused_adversarial_equals_op_tier():
     for k in op:
         np.testing.assert_array_equal(fused[k].view(np.uint8), op[k].view(np.uint8), err_msg=k)
         np.testing.assert_array_equal(fused[k].view(np.uint8), want[k].view(np.uint8), err_msg=k)
-
-
-def test_q6_against_a_rational_oracle():
-    _, pl = _lineitem(20_000, 6)
-    h = {n: c.to_numpy() for n, c in zip(pl.names, pl.columns)}
-    f = {n: h[n].view(np.float64) for n in ("l_quantity", "l_extendedprice", "l_discount")}
-    ship = h["l_shipdate"]
-    m = ((ship >= 731) & (ship < 1096) & (f["l_discount"] >= 0.05) & (f["l_discount"] <= 0.07)
-         & (f["l_quantity"] < 24.0))
-    rev = f["l_extendedprice"][m] * f["l_discount"][m]
-    assert ptpch.q6(pl) == float(sum(Fraction(float(v)) for v in rev))
-
-
-def test_q6_with_no_matching_rows_is_zero():
-    _, pl = _lineitem(50, 1)
-    from spark_rapids_jni_tpu_torch.ops.copying import slice_table
-
-    empty = slice_table(pl, 0, 0)
-    assert ptpch.q6(empty) == 0.0
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
