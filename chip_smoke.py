@@ -20,6 +20,10 @@ checkout (one nvcc per source, all at once), then on one card:
    ``convert_to_rows`` -> ``convert_from_rows`` ->
    ``groupby_sum_bounded(key, value, 4096)`` with every launch counter set
    to 0 just before and read just after, checked against a numpy oracle;
+   the decoded card table's ``Column.has_nulls`` (true exactly for the
+   columns whose input mask has a null row) and ``Table.with_column``
+   (one more column, the same column objects, the source left as it was)
+   are checked there too;
 3. the STRING path: the same three calls on 1,000,000 rows x 155 columns
    of the reference's ``row_conversion_mixed_strings`` axis (INT32,
    FLOAT64, INT64, INT16 cycling, every tenth column STRING of 1-32
@@ -110,7 +114,9 @@ checkout (one nvcc per source, all at once), then on one card:
    run must launch at least twice, and no other kernel. Every result is
    held against an independent oracle (Python ints transcribing
    dec128_multiplier / dec128_divider, Spark's rounding in Python ints,
-   numpy's unsigned arithmetic, Delta's interleaveBits in numpy); per
+   numpy's unsigned arithmetic, Delta's interleaveBits in numpy), and
+   ``Column.to_decimal_pylist`` on the head of the DECIMAL128 products and
+   quotients against the exact oracle's values at the result's scale; per
    operation first-run and warm median-of-3 host ms, peak memory and a
    profile, and the phase's wall seconds;
 9. the STRING_OPS path, the string and regex tier (``ops/utf8``,
@@ -969,6 +975,29 @@ def _check_main_path(layout, arrays, valids, rows, dec, sums, counts):
         if not np.array_equal(vm, np.ones(ROWS, bool) if v is None else v):
             raise AssertionError(f"decoded validity of column {i} differs")
     return _check_groupby(arrays[0], arrays[1], sums, counts)
+
+
+def _check_handles(dec, valids, key: int) -> int:
+    """``Column.has_nulls`` and ``Table.with_column`` on the decoded card
+    table: a column has nulls exactly when its input mask has a null row;
+    a table with one more column holds the same column objects (on the
+    card, with the new one last), and ``dec`` is left as it was. Returns
+    the number of columns with nulls."""
+    want = [v is not None and not v.all() for v in valids]
+    got = [c.has_nulls() for c in dec.columns]
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"has_nulls() differs from the input masks on columns {bad[:5]}")
+    names, cols = list(dec.names), list(dec.columns)
+    wide = dec.with_column("key_again", dec.columns[key])
+    if not (wide.names == names + ["key_again"] and len(wide.columns) == len(cols) + 1
+            and all(a is b for a, b in zip(wide.columns, cols + [dec.columns[key]]))
+            and wide.num_rows == len(dec.columns[key])):
+        raise AssertionError("with_column() did not append the column to a new card table")
+    if dec.names != names or not all(a is b for a, b in zip(dec.columns, cols)) \
+            or len(dec.columns) != len(cols):
+        raise AssertionError("with_column() changed its source table")
+    return sum(want)
 
 
 def _capture_string_kernels(run):
@@ -2555,6 +2584,52 @@ def _check_spark_exact(h, t, out) -> dict:
     _expect(out["u64_cast_u32"], h["u64"].astype(np.uint32), uv, "u64_cast_u32")
     torch.cuda.synchronize()
     return summary
+
+
+DECIMAL_HEAD = 256  # rows of each DECIMAL128 result read back through to_decimal_pylist
+
+
+def _check_decimal_heads(h, out) -> int:
+    """``Column.to_decimal_pylist`` on the head of the DECIMAL128 products
+    and quotients against the exact Python oracle. Under a 39-digit
+    decimal context (a 128-bit value has at most 39 digits) each row is
+    the oracle's unscaled value at the result's scale, digit for digit
+    and exponent for exponent; under the default context (28 digits) it
+    is that value rounded by the context, as the JAX package's method
+    gives it. Null rows are None; rows that overflowed hold no value and
+    are left out. Returns the rows compared."""
+    import decimal
+
+    from spark_rapids_jni_tpu_torch.columnar import Column
+
+    a, b, va, vb = h["ops"]
+    k = min(DECIMAL_HEAD, h["n"])
+    compared = 0
+    for name, oracle in (("multiply128", _dec_mul_oracle), ("divide128", _dec_div_oracle)):
+        col = out[name].columns[1]
+        if col.dtype.scale != PRODUCT_SCALE:
+            raise AssertionError(f"{name} has scale {col.dtype.scale}, not {PRODUCT_SCALE}")
+        head = Column(col.dtype, data=col.data[:k],
+                      validity=None if col.validity is None else col.validity[:k])
+        with decimal.localcontext() as ctx:
+            ctx.prec = 39
+            exact = head.to_decimal_pylist()
+        default = head.to_decimal_pylist()
+        for i in range(k):
+            want = None
+            if va[i] and vb[i]:
+                overflow, v = oracle(a[i], b[i], SPARK_SCALE, SPARK_SCALE, PRODUCT_SCALE)
+                if overflow:
+                    continue
+                want = decimal.Decimal(f"{v}E{PRODUCT_SCALE}")
+            rounded = None if want is None else decimal.getcontext().plus(want)
+            for got, w, ctx_name in ((exact, want, "39-digit"), (default, rounded, "default")):
+                if (got[i] is None) != (w is None) or (
+                        w is not None and got[i].as_tuple() != w.as_tuple()):
+                    raise AssertionError(f"{name} row {i}: to_decimal_pylist gives {got[i]} under "
+                                         f"the {ctx_name} context, the oracle {w}")
+            compared += 1
+    return compared
 
 
 # ---------------------------------------------------------------------------
@@ -7232,6 +7307,11 @@ def main() -> int:
     print(f"fixed path checked against the numpy oracle: rows bit-identical on the first "
           f"{ORACLE_ROWS} rows, {len(dtypes)} decoded columns bit-identical, counts exact, "
           f"sums max abs err {sum_err:.3g} vs float64", flush=True)
+    t0 = time.perf_counter()
+    null_cols = _check_handles(dec, valids, key=0)
+    print(f"fixed path handles: has_nulls() true on exactly the {null_cols} of {len(dtypes)} "
+          f"decoded columns with a null row, with_column() appended a card column and left its "
+          f"source as it was; checked in {(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
     t_rt = time.perf_counter()
     mem0 = torch.cuda.memory_allocated()
     rt_fixed, rt_launches = _runtime_fixed(wrappers, table, dtypes, layout, rows, dec, sums, counts)
@@ -7561,6 +7641,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (Python ints and decimal rules, numpy's unsigned "
           f"arithmetic, Delta's interleaveBits; the ANSI cast raised CastError on row "
           f"{xcheck['ansi_row']} '12x4'): {xcheck}", flush=True)
+    t0 = time.perf_counter()
+    head_rows = _check_decimal_heads(xh, xout)
+    print(f"spark_exact: to_decimal_pylist() on the first {DECIMAL_HEAD} rows of multiply128 and "
+          f"divide128 equals the exact oracle on {head_rows} rows under a 39-digit context and "
+          f"its rounding under the default one (overflowed rows left out); checked in "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
     keep["spark_exact"] = (xh, xt, {k: xout[k] for k in (
         "to_int64", f"to_decimal_{DEC_TARGETS[0][0]}_{-DEC_TARGETS[0][1]}", "multiply128",
         "divide128")})

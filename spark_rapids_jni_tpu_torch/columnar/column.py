@@ -140,6 +140,9 @@ class Column:
             return 0
         return int((~self.validity).sum())
 
+    def has_nulls(self) -> bool:
+        return self.validity is not None and self.null_count > 0
+
     def valid_mask(self) -> torch.Tensor:
         """Materialized [N] bool validity (all-True when validity is None)."""
         if self.validity is not None:
@@ -283,6 +286,15 @@ class Column:
         if tid == TypeId.FLOAT64:
             host = host.view(np.float64)
         return [host[i].item() if valid[i] else None for i in range(len(self))]
+
+    def to_decimal_pylist(self) -> list:
+        """Decimal columns as ``decimal.Decimal`` values (scaled)."""
+        assert self.dtype.is_decimal
+        scale = self.dtype.scale
+        return [
+            None if v is None else decimal.Decimal(v).scaleb(scale)
+            for v in self.to_pylist()
+        ]
 
     def __repr__(self):
         return f"Column({self.dtype!r}, rows={len(self)}, nulls={self.null_count})"

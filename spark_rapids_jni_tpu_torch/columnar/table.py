@@ -70,6 +70,10 @@ class Table:
         idxs = [self.names.index(i) if isinstance(i, str) else i for i in idxs]
         return Table([self.columns[i] for i in idxs], [self.names[i] for i in idxs])
 
+    def with_column(self, name: str, col: Column) -> "Table":
+        """A new table: these columns, then ``col`` named ``name``."""
+        return Table(self.columns + [col], self.names + [name])
+
     def __repr__(self):
         cols = ", ".join(f"{n}: {c.dtype!r}" for n, c in zip(self.names, self.columns))
         return f"Table(rows={self.num_rows}, [{cols}])"

@@ -70,20 +70,47 @@ def _serve_pair(pkg, frames):
     return out
 
 
-def test_stats_snapshot_names_match():
-    seen = []
-    for pkg, reg, memgov in ((PS, pmetrics.registry(), S.PORT.memgov),
-                             (RS, rmetrics.registry(), S.REF.memgov)):
-        memgov.catalog()  # the section lists the catalog once one exists
-        _scrub(reg)
-        (_, ping), (status, stats) = _serve_pair(pkg, [(PS.OP_PING, b""), (PS.OP_STATS, b"")])
-        doc = json.loads(stats)
-        names = {k: sorted(n for n in v if n.startswith("sidecar."))
-                 for k, v in doc["snapshot"].items() if isinstance(v, dict)}
-        seen.append((ping, status, sorted(doc), doc["backend"], names, sorted(doc["memgov"])))
-        _scrub(reg)
+@pytest.fixture
+def governors(monkeypatch):
+    """Both packages' memgov singletons are reset after the test; the
+    port's controller snapshot reads a budget (without one it means the
+    card)."""
+    S.setenv(monkeypatch, "DEVICE_MEMORY_BUDGET", 1 << 30)
+    yield
+    for memgov in (S.PORT.memgov, S.REF.memgov):
+        memgov.reset()
+
+
+def _stats_names(pkg, reg):
+    _scrub(reg)
+    (_, ping), (status, stats) = _serve_pair(pkg, [(PS.OP_PING, b""), (PS.OP_STATS, b"")])
+    doc = json.loads(stats)
+    names = {k: sorted(n for n in v if n.startswith("sidecar."))
+             for k, v in doc["snapshot"].items() if isinstance(v, dict)}
+    _scrub(reg)
+    return ping, status, sorted(doc), doc["backend"], names, sorted(doc["memgov"])
+
+
+def _assert_stats_names_match():
+    # the section lists the catalog and the admission controller once
+    # each exists, and an earlier file in this process may have made
+    # either on one side alone: make both on both sides
+    for memgov in (S.PORT.memgov, S.REF.memgov):
+        memgov.catalog()
+        memgov.controller()
+    seen = [_stats_names(PS, pmetrics.registry()), _stats_names(RS, rmetrics.registry())]
     assert seen[0] == seen[1]
     assert "sidecar.worker.requests.STATS" in seen[0][4]["counters"]
+    assert {"admission", "catalog"} <= set(seen[0][5])
+
+
+def test_stats_snapshot_names_match(governors):
+    _assert_stats_names_match()
+
+
+def test_stats_snapshot_names_match_after_a_reference_controller(governors):
+    S.REF.memgov.controller()  # as an earlier test in this process may have
+    _assert_stats_names_match()
 
 
 def test_reused_thread_forgets_a_framed_sniff():
